@@ -1,0 +1,408 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (xclim_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the hand-written CUDA kernels from ``xclim_tpu_torch/csrc`` (into
+``xclim_tpu_torch/_build/``), then:
+
+1. prints each kernel's build time, the card's name and power limit;
+2. holds each kernel against its plain PyTorch twin on the card at 1024
+   cells, with fully valid, partly missing and all-missing lanes;
+3. drives the sdba QDM slice at the repo's "QDM 16k" size (128 x 128 cells,
+   30 noleap years, day-of-year window 31, 50 quantiles) through
+   ``QuantileDeltaMapping.train(...).adjust(...)``, checks that it went
+   through the kernels (launch counts) and that the result is right, times
+   it, runs EQM once, and times each kernel against its twin at the slice's
+   shapes;
+4. runs the same public call on the first 256 cells with CPU tensors (the
+   twins) and on the card (the kernels) and compares the outputs.
+
+Every phase raises on failure. The last two lines are a JSON object with
+one entry per kernel and the result line
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+Without a CUDA device it exits with status 2 and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+RTOL = 1e-6     # SURVEY.md §6: float results agree within 1e-6
+ATOL = 1e-6     # for values near zero (adjustment factors)
+NQ = 50
+WINDOW = 31
+YEARS = 30
+SIDE = 128      # 128 x 128 = 16384 cells
+SMALL_CELLS = 1024
+CPU_CELLS = 256
+SEED = 1981
+
+
+def _log(*args):
+    print(*args, flush=True)
+
+
+def _compare(name, got, ref, rtol=RTOL, atol=ATOL) -> float:
+    """Max abs error of got vs ref; raises on a NaN-pattern or tolerance
+    mismatch."""
+    import torch
+
+    got = got.float().cpu()
+    ref = ref.float().cpu()
+    if got.shape != ref.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
+                             f"{tuple(ref.shape)}")
+    gn, rn = torch.isnan(got), torch.isnan(ref)
+    if not torch.equal(gn, rn):
+        raise AssertionError(f"{name}: NaN patterns differ "
+                             f"({int((gn != rn).sum())} elements)")
+    ok = ~rn
+    err = (got - ref).abs()[ok]
+    bound = atol + rtol * ref.abs()[ok]
+    if err.numel() and bool((err > bound).any()):
+        raise AssertionError(f"{name}: {int((err > bound).sum())} elements "
+                             f"beyond atol={atol} rtol={rtol}, max abs err "
+                             f"{float(err.max())}")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def _cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds of fn() over reps runs after one warm-up, by CUDA
+    events."""
+    import torch
+
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def _lanes(gen, n_doy, Y, C, device, doy366_sparse=False):
+    """(n_doy, Y, C) K-scale doy slices: lanes c % 3 == 0 fully valid, 1
+    partly missing (15 %), 2 all missing."""
+    import torch
+
+    x = torch.randn((n_doy, Y, C), generator=gen, device=device) * 5.0 + 285.0
+    lane = torch.arange(C, device=device) % 3
+    holes = torch.rand((n_doy, Y, C), generator=gen, device=device) < 0.15
+    x = torch.where(holes & (lane == 1), torch.nan, x)
+    x = torch.where(lane == 2, torch.nan, x)
+    if doy366_sparse:
+        # standard calendar: doy 366 exists only in the leap years
+        leap = torch.zeros(Y, dtype=torch.bool, device=device)
+        leap[3::4] = True
+        x[365] = torch.where(leap[:, None], x[365], torch.nan)
+    return x
+
+
+def phase_kernels_small(gen, device, q, record):
+    import torch
+
+    from xclim_tpu_torch.ops import qdmadjust, winquantile
+
+    cases = [("winquantile", (365, YEARS, SMALL_CELLS), WINDOW, False),
+             ("winquantile", (366, YEARS, SMALL_CELLS), 5, True)]
+    for name, shape, window, sparse in cases:
+        x = _lanes(gen, *shape, device, doy366_sparse=sparse)
+        got = winquantile.doy_window_quantiles(x, q, window)
+        torch.cuda.synchronize()
+        ref = winquantile.doy_window_quantiles_plain(x, q, window)
+        err = _compare(f"{name}{shape} w{window}", got, ref)
+        ms = _cuda_ms(lambda: winquantile.doy_window_quantiles(x, q, window), 5)
+        pms = _cuda_ms(
+            lambda: winquantile.doy_window_quantiles_plain(x, q, window), 2)
+        record[name]["max_abs_err"] = max(record[name]["max_abs_err"], err)
+        _log(f"[kernel vs twin] {name} {shape} window={window}: "
+             f"max_abs_err={err} kernel_ms={ms:.3f} twin_ms={pms:.3f}")
+    for n_doy in (365, 366):
+        for kind in ("+", "*"):
+            x = _lanes(gen, n_doy, YEARS, SMALL_CELLS, device,
+                       doy366_sparse=n_doy == 366)
+            af = torch.sort(torch.randn((n_doy, len(q), SMALL_CELLS),
+                                        generator=gen, device=device),
+                            dim=1).values
+            if kind == "*":
+                af = 1.0 + 0.01 * af
+            got = qdmadjust.qdm_adjust_doy(x, af, q, kind)
+            torch.cuda.synchronize()
+            ref = qdmadjust.qdm_adjust_doy_plain(x, af, q, kind)
+            err = _compare(f"qdmadjust({n_doy},{YEARS},{SMALL_CELLS}) {kind}",
+                           got, ref)
+            ms = _cuda_ms(lambda: qdmadjust.qdm_adjust_doy(x, af, q, kind), 10)
+            pms = _cuda_ms(
+                lambda: qdmadjust.qdm_adjust_doy_plain(x, af, q, kind), 3)
+            record["qdmadjust"]["max_abs_err"] = max(
+                record["qdmadjust"]["max_abs_err"], err)
+            _log(f"[kernel vs twin] qdmadjust ({n_doy}, {YEARS}, "
+                 f"{SMALL_CELLS}) kind={kind}: max_abs_err={err} "
+                 f"kernel_ms={ms:.3f} twin_ms={pms:.3f}")
+
+
+def _series(device, cells_side):
+    """ref N(285, 5), hist N(287, 6), sim N(289, 6) in K on a (time, lat,
+    lon) grid, 30 noleap years from 1981-01-01, from one seeded generator."""
+    import torch
+
+    from xclim_tpu_torch.core.calendar import date_range
+    from xclim_tpu_torch.core.dataarray import ClimArray
+
+    t = date_range("1981-01-01", periods=YEARS * 365, freq="D",
+                   calendar="noleap")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    shape = (len(t), cells_side[0], cells_side[1])
+    coords = {"time": t, "lat": list(range(shape[1])),
+              "lon": list(range(shape[2]))}
+    out = {}
+    for name, mu, sd in (("ref", 285.0, 5.0), ("hist", 287.0, 6.0),
+                         ("sim", 289.0, 6.0)):
+        data = torch.randn(shape, generator=gen, device=device) * sd + mu
+        out[name] = ClimArray(data, ("time", "lat", "lon"), coords,
+                              {"units": "K"}, name)
+    return out
+
+
+def _qdm(series):
+    from xclim_tpu_torch.sdba import Grouper, QuantileDeltaMapping
+
+    adj = QuantileDeltaMapping.train(series["ref"], series["hist"],
+                                     group=Grouper("time.dayofyear", WINDOW),
+                                     nquantiles=NQ, kind="+")
+    return adj, adj.adjust(series["sim"])
+
+
+def _counts():
+    from xclim_tpu_torch.ops import qdmadjust, winquantile
+
+    return {"winquantile": winquantile.launches,
+            "winquantile_twin": winquantile.twin_calls,
+            "qdmadjust": qdmadjust.launches,
+            "qdmadjust_twin": qdmadjust.twin_calls}
+
+
+def _reset_counts():
+    from xclim_tpu_torch.ops import qdmadjust, winquantile
+
+    winquantile.launches = winquantile.twin_calls = 0
+    qdmadjust.launches = qdmadjust.twin_calls = 0
+
+
+def phase_slice(device, card, record):
+    import torch
+
+    from xclim_tpu_torch.ops import qdmadjust, winquantile
+    from xclim_tpu_torch.sdba import (
+        EmpiricalQuantileMapping,
+        Grouper,
+        QuantileDeltaMapping,
+    )
+    from xclim_tpu_torch.sdba.utils import gather_doy_slices, gather_groups
+
+    series = _series(device, (SIDE, SIDE))
+    T = series["sim"].shape[0]
+    cells = SIDE * SIDE
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path's run: counts from zero, read right after
+    _reset_counts()
+    adj, out = _qdm(series)
+    torch.cuda.synchronize()
+    counts = _counts()
+    _log(f"[slice] launch counts of one QDM train+adjust at {cells} cells: "
+         f"{json.dumps(counts)}")
+    if counts != {"winquantile": 2, "winquantile_twin": 0,
+                  "qdmadjust": 1, "qdmadjust_twin": 0}:
+        raise AssertionError(f"main path did not run on the kernels: {counts}")
+    record["winquantile"]["launches"] = counts["winquantile"]
+    record["qdmadjust"]["launches"] = counts["qdmadjust"]
+
+    # right answer by the repo's own means: shape, finiteness, and the QDM
+    # mean shift sim + (ref - hist) = 289 + (285 - 287) = 287 K. The ranks
+    # r/30 reach 1 but not 0, so the top node's factor (-2 - z_max K, with
+    # sd 5 vs 6) weighs 1/30 more: the output mean sits ~0.1 K below 287.
+    # The mean factor over the symmetric nodes is -2 K.
+    if tuple(out.shape) != (T, SIDE, SIDE) or out.data.device != device:
+        raise AssertionError(f"output {tuple(out.shape)} on {out.data.device}")
+    if not bool(torch.isfinite(out.data).all()):
+        raise AssertionError("non-finite adjusted values")
+    mean = float(out.data.double().mean())
+    af_mean = float(adj.ds["af"].double().mean())
+    _log(f"[slice] adjusted mean {mean:.4f} K (expect ~287), af mean "
+         f"{af_mean:.4f} K (expect ~-2), units {out.attrs['units']}")
+    if abs(mean - 287.0) > 0.3 or abs(af_mean + 2.0) > 0.1:
+        raise AssertionError("QDM mean shift off")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    train_s, adjust_s = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        adj = QuantileDeltaMapping.train(
+            series["ref"], series["hist"],
+            group=Grouper("time.dayofyear", WINDOW), nquantiles=NQ, kind="+")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        adj.adjust(series["sim"])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        train_s.append(t1 - t0)
+        adjust_s.append(t2 - t1)
+    tr, ad = statistics.median(train_s), statistics.median(adjust_s)
+    rate = T * cells / (tr + ad)
+    _log(f"[slice] QDM doy w{WINDOW} nq{NQ} {cells} cells {YEARS}y on {card}: "
+         f"train {tr:.4f} s, adjust {ad:.4f} s (median of 3 after a warm-up; "
+         f"train runs {[round(v, 4) for v in train_s]}, adjust runs "
+         f"{[round(v, 4) for v in adjust_s]}), {rate:.1f} cell-days/s, "
+         f"peak device memory {peak:.2f} GiB")
+
+    before = _counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eqm = EmpiricalQuantileMapping.train(
+        series["ref"], series["hist"], group=Grouper("time.dayofyear", WINDOW),
+        nquantiles=NQ, kind="+")
+    eout = eqm.adjust(series["sim"])
+    torch.cuda.synchronize()
+    eqm_s = time.perf_counter() - t0
+    after = _counts()
+    if (after["winquantile"] - before["winquantile"] != 2
+            or after["winquantile_twin"] != before["winquantile_twin"]):
+        raise AssertionError(f"EQM train missed the kernel: {before} -> {after}")
+    if not bool(torch.isfinite(eout.data).all()):
+        raise AssertionError("non-finite EQM output")
+    _log(f"[slice] EQM train+adjust {cells} cells: {eqm_s:.4f} s (one run), "
+         f"adjusted mean {float(eout.data.double().mean()):.4f} K")
+
+    # each kernel against its twin at the slice's own shapes and inputs
+    xf = series["ref"].data
+    table = Grouper("time.dayofyear", WINDOW).device_doy_table(
+        series["ref"].time, device)
+    xd = gather_doy_slices(xf, table).reshape(table.shape[0], table.shape[1],
+                                              -1)
+    q = adj.ds["quantiles"].astype("float32")
+    got = winquantile.doy_window_quantiles(xd, q, WINDOW)
+    ref = winquantile.doy_window_quantiles_plain(xd, q, WINDOW)
+    err = _compare(f"winquantile{tuple(xd.shape)}", got, ref)
+    ms = _cuda_ms(lambda: winquantile.doy_window_quantiles(xd, q, WINDOW), 3)
+    pms = _cuda_ms(lambda: winquantile.doy_window_quantiles_plain(
+        xd, q, WINDOW), 1)
+    record["winquantile"].update(
+        max_abs_err=max(record["winquantile"]["max_abs_err"], err), ms=ms,
+        plain_ms=pms)
+    _log(f"[kernel vs twin] winquantile {tuple(xd.shape)} window={WINDOW} "
+         f"(slice shape): max_abs_err={err} kernel_ms={ms:.3f} "
+         f"twin_ms={pms:.3f}")
+    del got, ref
+
+    adj_table = Grouper("time.dayofyear", WINDOW).device_adjust_table(
+        series["sim"].time, device)[0]
+    sd = gather_groups(series["sim"].data, adj_table).reshape(
+        adj_table.shape[0], adj_table.shape[1], -1)
+    af = adj.ds["af"].reshape(adj.ds["af"].shape[0], adj.ds["af"].shape[1], -1)
+    got = qdmadjust.qdm_adjust_doy(sd, af, q, "+")
+    ref = qdmadjust.qdm_adjust_doy_plain(sd, af, q, "+")
+    err = _compare(f"qdmadjust{tuple(sd.shape)}", got, ref)
+    ms = _cuda_ms(lambda: qdmadjust.qdm_adjust_doy(sd, af, q, "+"), 10)
+    pms = _cuda_ms(lambda: qdmadjust.qdm_adjust_doy_plain(sd, af, q, "+"), 2)
+    record["qdmadjust"].update(
+        max_abs_err=max(record["qdmadjust"]["max_abs_err"], err), ms=ms,
+        plain_ms=pms)
+    _log(f"[kernel vs twin] qdmadjust {tuple(sd.shape)} (slice shape): "
+         f"max_abs_err={err} kernel_ms={ms:.3f} twin_ms={pms:.3f}")
+    return series
+
+
+def phase_cpu_vs_card(full):
+    """The public call on the first 256 cells of the slice's series: CPU
+    tensors (twins) vs the card (kernels)."""
+    import torch
+
+    rows = CPU_CELLS // SIDE
+    series = {k: v.isel(lat=slice(0, rows)) for k, v in full.items()}
+    cpu = {k: v.to("cpu") for k, v in series.items()}
+    before = _counts()
+    adj_c, out_c = _qdm(cpu)
+    adj_g, out_g = _qdm(series)
+    torch.cuda.synchronize()
+    after = _counts()
+    if (after["winquantile_twin"] - before["winquantile_twin"] != 2
+            or after["qdmadjust_twin"] - before["qdmadjust_twin"] != 1
+            or after["winquantile"] - before["winquantile"] != 2
+            or after["qdmadjust"] - before["qdmadjust"] != 1):
+        raise AssertionError(f"CPU run must use the twins, the card the "
+                             f"kernels: {before} -> {after}")
+    # hist_q: the same sort and f32 op sequence on both devices
+    e1 = _compare("hist_q cpu vs card", adj_g.ds["hist_q"], adj_c.ds["hist_q"])
+    # af = ref_q - hist_q: absolute error of two ~290 K quantiles
+    e2 = _compare("af cpu vs card", adj_g.ds["af"], adj_c.ds["af"],
+                  rtol=0.0, atol=1e-4)
+    e3 = _compare("QDM output cpu vs card", out_g.data, out_c.data)
+    _log(f"[cpu twins vs card kernels] QDM {CPU_CELLS} cells: hist_q "
+         f"max_abs_err={e1} af max_abs_err={e2} output max_abs_err={e3}")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; the port's "
+              "kernels need an NVIDIA GPU", file=sys.stderr)
+        return 2
+    from xclim_tpu_torch.ops import _build
+    from xclim_tpu_torch.sdba.utils import equally_spaced_nodes
+
+    device = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+         f"python {sys.version.split()[0]}")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    _log(f"card: {card}")
+    _log(f"device: {torch.cuda.get_device_name(0)}, "
+         f"{torch.cuda.device_count()} visible")
+
+    record = {}
+    for name in ("winquantile", "qdmadjust"):
+        _build.load(name)
+        info = _build.build_info[name]
+        _log(f"[build] {name}: {info['seconds']:.2f} s")
+        for line in info["log"].splitlines():
+            if ("ptxas" in line and "Used" in line) or "spill" in line:
+                _log(f"[build]   {line.strip()}")
+        record[name] = {
+            "name": name, "route": "cuda",
+            "source": f"xclim_tpu_torch/csrc/{name}.cu",
+            "replaces": {"winquantile": "xclim_tpu/ops/pallas/winquantile.py:344",
+                         "qdmadjust": "xclim_tpu/ops/pallas/qdmadjust.py:158"}[name],
+            "launches": 0, "max_abs_err": 0.0, "ms": None, "plain_ms": None}
+
+    q = equally_spaced_nodes(NQ).astype("float32")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    phase_kernels_small(gen, device, q, record)
+    series = phase_slice(device, card, record)
+    phase_cpu_vs_card(series)
+
+    _log(json.dumps({"kernels": list(record.values())}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,529 @@
+"""ClimArray: the framework's labeled-array data model over a ``torch.Tensor``.
+
+A deliberately lean xarray replacement: named dims, host-side coordinates
+(numpy arrays; the time coordinate is a calendar-aware
+:class:`~xclim_tpu_torch.core.calendar.TimeIndex`), CF attrs, and a torch
+tensor as data. Coordinates never leave the host; the data stays on the
+device it was created on, and every method returns data on that device.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from xclim_tpu_torch.core.calendar import (
+    SegmentSpec,
+    TimeIndex,
+    resample_segments,
+    select_time_mask,
+)
+
+__all__ = ["ClimArray"]
+
+_SEGMENTS_TODO = ("needs ops/segments.py, which is not ported yet "
+                  "(ROADMAP Queue 1, first slice after sdba: tg_mean)")
+
+
+def _tensor(x, like: torch.Tensor | None = None) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x
+    device = like.device if like is not None else None
+    if isinstance(x, float) or (isinstance(x, np.ndarray)
+                                and x.dtype == np.float64):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+    return torch.as_tensor(x, device=device)
+
+
+def _nanmax(x, axis=None):
+    filled = torch.where(torch.isnan(x), -torch.inf, x)
+    out = filled.amax() if axis is None else filled.amax(dim=axis)
+    return _all_nan_to_nan(out, x, axis)
+
+
+def _nanmin(x, axis=None):
+    filled = torch.where(torch.isnan(x), torch.inf, x)
+    out = filled.amin() if axis is None else filled.amin(dim=axis)
+    return _all_nan_to_nan(out, x, axis)
+
+
+def _all_nan_to_nan(out, x, axis):
+    ok = ~torch.isnan(x)
+    has = ok.any() if axis is None else ok.any(dim=axis)
+    return torch.where(has, out, torch.nan)
+
+
+def _nanvar(x, axis=None):
+    """Population variance (ddof=0) of the valid values, as ``jnp.nanvar``."""
+    dims = axis if axis is not None else tuple(range(x.ndim))
+    mu = torch.nanmean(x, dim=dims, keepdim=True)
+    return torch.nanmean((x - mu) ** 2, dim=dims)
+
+
+def _nanstd(x, axis=None):
+    return torch.sqrt(_nanvar(x, axis))
+
+
+def _nanmedian(x, axis=None):
+    """Mean of the two middle values, as ``jnp.nanmedian`` (torch's own
+    ``nanmedian`` returns the lower one)."""
+    from xclim_tpu_torch.ops.quantile import nan_quantile
+
+    if axis is None:
+        return nan_quantile(x.reshape(-1), [0.5], axis=0)[0]
+    if isinstance(axis, tuple):
+        keep = [d for d in range(x.ndim) if d not in axis]
+        x = x.permute(keep + list(axis)).reshape(
+            [x.shape[d] for d in keep] + [-1])
+        axis = -1
+    return nan_quantile(x, [0.5], axis=axis)[0]
+
+
+def _nansum(x, axis=None):
+    return torch.nansum(x) if axis is None else torch.nansum(x, dim=axis)
+
+
+def _nanmean(x, axis=None):
+    return torch.nanmean(x) if axis is None else torch.nanmean(x, dim=axis)
+
+
+def _count(x, axis=None):
+    ok = ~torch.isnan(x) if x.is_floating_point() else torch.ones_like(
+        x, dtype=torch.bool)
+    return ok.sum() if axis is None else ok.sum(dim=axis)
+
+
+def _any(x, axis=None):
+    x = x.bool()
+    return x.any() if axis is None else torch.any(x, dim=axis)
+
+
+def _all(x, axis=None):
+    x = x.bool()
+    return x.all() if axis is None else torch.all(x, dim=axis)
+
+
+class ClimArray:
+    """N-d tensor with named dims, host coords and CF attrs."""
+
+    __slots__ = ("data", "dims", "coords", "attrs", "name")
+    __array_priority__ = 100
+
+    def __init__(self, data, dims, coords=None, attrs=None, name=None):
+        if not isinstance(data, torch.Tensor):
+            data = _tensor(data)
+        self.data = data
+        self.dims = tuple(dims)
+        if len(self.dims) != data.ndim:
+            raise ValueError(f"dims {self.dims} don't match data ndim {data.ndim}")
+        self.coords = dict(coords or {})
+        self.attrs = dict(attrs or {})
+        self.name = name
+
+    # ------------------------------------------------------------------
+    # basics
+    # ------------------------------------------------------------------
+    @property
+    def shape(self):
+        return tuple(self.data.shape)
+
+    @property
+    def ndim(self):
+        return self.data.ndim
+
+    @property
+    def size(self):
+        return self.data.numel()
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    @property
+    def values(self) -> np.ndarray:
+        """The data as a host numpy array (copies it off the device)."""
+        return self.data.detach().cpu().numpy()
+
+    @property
+    def time(self) -> TimeIndex | None:
+        return self.coords.get("time")
+
+    @property
+    def time_axis(self) -> int:
+        return self.dims.index("time")
+
+    @property
+    def units(self) -> str:
+        return self.attrs.get("units", "")
+
+    def sizes(self):
+        return dict(zip(self.dims, self.shape))
+
+    def copy(self, data=None) -> "ClimArray":
+        return ClimArray(self.data if data is None else data, self.dims,
+                         dict(self.coords), dict(self.attrs), self.name)
+
+    def rename(self, name) -> "ClimArray":
+        out = self.copy()
+        out.name = name
+        return out
+
+    def assign_attrs(self, **attrs) -> "ClimArray":
+        out = self.copy()
+        out.attrs.update(attrs)
+        return out
+
+    def astype(self, dtype) -> "ClimArray":
+        return self.copy(data=self.data.to(dtype))
+
+    def to(self, device) -> "ClimArray":
+        """The same array with its data on ``device``."""
+        return self.copy(data=self.data.to(device))
+
+    def item(self):
+        return self.data.item()
+
+    def __repr__(self):
+        coord_keys = ", ".join(self.coords)
+        return (f"<ClimArray {self.name or ''}{self.shape} dims={self.dims} "
+                f"coords=[{coord_keys}] units={self.attrs.get('units', '')!r}>")
+
+    def __len__(self):
+        return self.shape[0]
+
+    # ------------------------------------------------------------------
+    # broadcasting arithmetic by dim names
+    # ------------------------------------------------------------------
+    def _binop(self, other, fn, flip=False):
+        if isinstance(other, ClimArray):
+            sd, od, out_dims, coords = _align_dims(self, other)
+            a = _reshape_for(self, out_dims)
+            b = _reshape_for(other, out_dims)
+            res = fn(b, a) if flip else fn(a, b)
+            return ClimArray(res, out_dims, coords, {}, self.name)
+        if isinstance(other, np.ndarray):
+            other = _tensor(other, self.data)
+        a, b = (other, self.data) if flip else (self.data, other)
+        if not isinstance(a, torch.Tensor):
+            a = torch.as_tensor(a, device=self.data.device)
+        return ClimArray(fn(a, b), self.dims, dict(self.coords), {}, self.name)
+
+    def __add__(self, o):
+        return self._binop(o, torch.add)
+
+    def __radd__(self, o):
+        return self._binop(o, torch.add, flip=True)
+
+    def __sub__(self, o):
+        return self._binop(o, torch.subtract)
+
+    def __rsub__(self, o):
+        return self._binop(o, torch.subtract, flip=True)
+
+    def __mul__(self, o):
+        return self._binop(o, torch.multiply)
+
+    def __rmul__(self, o):
+        return self._binop(o, torch.multiply, flip=True)
+
+    def __truediv__(self, o):
+        return self._binop(o, torch.true_divide)
+
+    def __rtruediv__(self, o):
+        return self._binop(o, torch.true_divide, flip=True)
+
+    def __pow__(self, o):
+        return self._binop(o, torch.pow)
+
+    def __mod__(self, o):
+        return self._binop(o, torch.remainder)
+
+    def __neg__(self):
+        return self.copy(data=-self.data)
+
+    def __abs__(self):
+        return self.copy(data=torch.abs(self.data))
+
+    def __gt__(self, o):
+        return self._binop(o, torch.greater)
+
+    def __ge__(self, o):
+        return self._binop(o, torch.greater_equal)
+
+    def __lt__(self, o):
+        return self._binop(o, torch.less)
+
+    def __le__(self, o):
+        return self._binop(o, torch.less_equal)
+
+    def __eq__(self, o):  # noqa: it's an array op, like xarray
+        return self._binop(o, torch.eq)
+
+    def __ne__(self, o):
+        return self._binop(o, torch.ne)
+
+    def __and__(self, o):
+        return self._binop(o, torch.logical_and)
+
+    def __or__(self, o):
+        return self._binop(o, torch.logical_or)
+
+    def __invert__(self):
+        return self.copy(data=torch.logical_not(self.data))
+
+    __hash__ = None
+
+    # ------------------------------------------------------------------
+    # elementwise helpers
+    # ------------------------------------------------------------------
+    def isnull(self) -> "ClimArray":
+        if self.data.is_floating_point():
+            return self.copy(data=torch.isnan(self.data))
+        return self.copy(data=torch.zeros(self.shape, dtype=torch.bool,
+                                          device=self.data.device))
+
+    def notnull(self) -> "ClimArray":
+        return ~self.isnull()
+
+    def fillna(self, value) -> "ClimArray":
+        if not self.data.is_floating_point():
+            return self.copy()
+        return self.copy(data=torch.where(torch.isnan(self.data), value,
+                                          self.data))
+
+    def where(self, cond, other=torch.nan) -> "ClimArray":
+        cond_arr = cond.data if isinstance(cond, ClimArray) else _tensor(
+            cond, self.data)
+        if isinstance(cond, ClimArray) and cond.dims != self.dims:
+            out_dims = _union_dims(self.dims, cond.dims)
+            a = _reshape_for(self, out_dims)
+            c = _reshape_for(cond, out_dims)
+            o = _reshape_for(other, out_dims) if isinstance(other, ClimArray) else other
+            coords = _merged_coords(self, cond, out_dims)
+            return ClimArray(torch.where(c, a, o), out_dims, coords,
+                             dict(self.attrs), self.name)
+        other_arr = other.data if isinstance(other, ClimArray) else other
+        return self.copy(data=torch.where(cond_arr, self.data, other_arr))
+
+    def clip(self, min=None, max=None) -> "ClimArray":
+        return self.copy(data=torch.clamp(self.data, min, max))
+
+    def round(self) -> "ClimArray":
+        return self.copy(data=torch.round(self.data))
+
+    # ------------------------------------------------------------------
+    # axis reductions
+    # ------------------------------------------------------------------
+    def _axes(self, dim):
+        if dim is None:
+            return None
+        if isinstance(dim, str):
+            return self.dims.index(dim)
+        return tuple(self.dims.index(d) for d in dim)
+
+    def _reduce(self, fn_nan, dim=None, keep_attrs=False):
+        ax = self._axes(dim)
+        data = fn_nan(self.data, axis=ax)
+        if dim is None:
+            out_dims = ()
+        else:
+            drop = {dim} if isinstance(dim, str) else set(dim)
+            out_dims = tuple(d for d in self.dims if d not in drop)
+        coords = {k: v for k, v in self.coords.items() if k in out_dims}
+        return ClimArray(data, out_dims, coords, dict(self.attrs) if keep_attrs else {}, self.name)
+
+    def sum(self, dim=None, **kw):
+        return self._reduce(_nansum, dim, **kw)
+
+    def mean(self, dim=None, **kw):
+        return self._reduce(_nanmean, dim, **kw)
+
+    def std(self, dim=None, **kw):
+        return self._reduce(_nanstd, dim, **kw)
+
+    def var(self, dim=None, **kw):
+        return self._reduce(_nanvar, dim, **kw)
+
+    def max(self, dim=None, **kw):
+        return self._reduce(_nanmax, dim, **kw)
+
+    def min(self, dim=None, **kw):
+        return self._reduce(_nanmin, dim, **kw)
+
+    def median(self, dim=None, **kw):
+        return self._reduce(_nanmedian, dim, **kw)
+
+    def count(self, dim=None, **kw):
+        return self._reduce(_count, dim, **kw)
+
+    def any(self, dim=None, **kw):
+        return self._reduce(_any, dim, **kw)
+
+    def all(self, dim=None, **kw):
+        return self._reduce(_all, dim, **kw)
+
+    def quantile(self, q, dim=None, **kw):
+        from xclim_tpu_torch.ops.quantile import nan_quantile
+
+        ax = self._axes(dim) if dim else None
+        qa = np.atleast_1d(np.asarray(q, dtype=np.float32))
+        if ax is None:
+            flat = self.data.reshape(-1)
+            res = nan_quantile(flat, qa, axis=0)
+        else:
+            res = nan_quantile(self.data, qa, axis=ax)
+        drop = {dim} if isinstance(dim, str) else (set(self.dims) if dim is None else set(dim))
+        out_dims = ("quantile",) + tuple(d for d in self.dims if d not in drop)
+        coords = {k: v for k, v in self.coords.items() if k in out_dims}
+        coords["quantile"] = qa
+        out = ClimArray(res, out_dims, coords, {}, self.name)
+        if np.isscalar(q):
+            out = out.isel(quantile=0)
+        return out
+
+    # ------------------------------------------------------------------
+    # selection
+    # ------------------------------------------------------------------
+    def isel(self, **indexers) -> "ClimArray":
+        data = self.data
+        coords = dict(self.coords)
+        dims = list(self.dims)
+        drop = []
+        for dim, idx in indexers.items():
+            ax = dims.index(dim)
+            sl = [slice(None)] * data.ndim
+            sl[ax] = _tensor(idx, data) if isinstance(idx, (np.ndarray, list)) else idx
+            data = data[tuple(sl)]
+            if dim in coords:
+                if isinstance(idx, (int, np.integer)):
+                    coords.pop(dim)
+                else:
+                    coords[dim] = coords[dim][idx]
+            if isinstance(idx, (int, np.integer)):
+                drop.append(dim)
+        out_dims = tuple(d for d in dims if d not in drop)
+        return ClimArray(data, out_dims, coords, dict(self.attrs), self.name)
+
+    def sel_time(self, *, slice_=None, mask=None, **indexer) -> "ClimArray":
+        """Select along time: by boolean mask or by calendar indexer
+        (season=/month=/doy_bounds=/date_bounds= — xclim select_time)."""
+        time = self.time
+        if mask is None:
+            if slice_ is not None:
+                n = len(time)
+                mask = np.zeros(n, dtype=bool)
+                mask[slice_] = True
+            else:
+                mask = select_time_mask(time, **indexer)
+        idx = np.nonzero(mask)[0]
+        ax = self.time_axis
+        data = torch.index_select(self.data, ax,
+                                  torch.as_tensor(idx, device=self.data.device))
+        coords = dict(self.coords)
+        coords["time"] = time[idx]
+        return ClimArray(data, self.dims, coords, dict(self.attrs), self.name)
+
+    def select_time(self, drop: bool = False, **indexer) -> "ClimArray":
+        """xclim-style indexer: with drop=False, non-selected steps become NaN
+        (keeps a static shape)."""
+        if not indexer or all(v is None for v in indexer.values()):
+            return self
+        time = self.time
+        mask = select_time_mask(time, **{k: v for k, v in indexer.items() if v is not None})
+        if drop:
+            return self.sel_time(mask=mask)
+        ax = self.time_axis
+        shape = [1] * self.ndim
+        shape[ax] = len(mask)
+        m = torch.as_tensor(mask, device=self.data.device).reshape(shape)
+        data = torch.where(m, self.data, torch.nan)
+        return self.copy(data=data)
+
+    def shift_time(self, n: int, fill_value=float("nan")) -> "ClimArray":
+        ax = self.time_axis
+        data = torch.roll(self.data, n, dims=ax)
+        sl = [slice(None)] * self.ndim
+        if n > 0:
+            sl[ax] = slice(0, n)
+        else:
+            sl[ax] = slice(self.shape[ax] + n, None)
+        data[tuple(sl)] = fill_value
+        return self.copy(data=data)
+
+    def diff_time(self, n: int = 1) -> "ClimArray":
+        ax = self.time_axis
+        data = torch.diff(self.data, n=n, dim=ax)
+        coords = dict(self.coords)
+        coords["time"] = self.time[n:]
+        return ClimArray(data, self.dims, coords, dict(self.attrs), self.name)
+
+    # ------------------------------------------------------------------
+    # resample / rolling
+    # ------------------------------------------------------------------
+    def resample(self, freq: str):
+        raise NotImplementedError(f"ClimArray.resample {_SEGMENTS_TODO}")
+
+    def segments(self, freq: str) -> SegmentSpec:
+        return resample_segments(self.time, freq)
+
+    def rolling(self, window: int, center: bool = False,
+                min_periods: int | None = None):
+        raise NotImplementedError(f"ClimArray.rolling {_SEGMENTS_TODO}")
+
+    def broadcast_like(self, other: "ClimArray") -> "ClimArray":
+        out_dims = other.dims
+        a = _reshape_for(self, out_dims)
+        data = torch.broadcast_to(a, other.shape)
+        return ClimArray(data, out_dims, dict(other.coords), dict(self.attrs), self.name)
+
+    def transpose(self, *dims) -> "ClimArray":
+        perm = [self.dims.index(d) for d in dims]
+        return ClimArray(self.data.permute(perm), tuple(dims),
+                         dict(self.coords), dict(self.attrs), self.name)
+
+    def expand_dims(self, dim: str, size: int = 1, axis: int = 0, coord=None) -> "ClimArray":
+        data = self.data.unsqueeze(axis)
+        data = torch.broadcast_to(data, data.shape[:axis] + (size,) + data.shape[axis + 1:])
+        dims = self.dims[:axis] + (dim,) + self.dims[axis:]
+        coords = dict(self.coords)
+        if coord is not None:
+            coords[dim] = coord
+        return ClimArray(data, dims, coords, dict(self.attrs), self.name)
+
+
+def _union_dims(a_dims, b_dims):
+    out = list(a_dims)
+    for d in b_dims:
+        if d not in out:
+            out.append(d)
+    return tuple(out)
+
+
+def _align_dims(a: ClimArray, b: ClimArray):
+    out_dims = _union_dims(a.dims, b.dims)
+    return a.dims, b.dims, out_dims, _merged_coords(a, b, out_dims)
+
+
+def _merged_coords(a: ClimArray, b: ClimArray, out_dims):
+    coords = {}
+    for src in (b, a):  # a wins
+        for k, v in src.coords.items():
+            if k in out_dims or k in ("quantile",):
+                coords[k] = v
+    return coords
+
+
+def _reshape_for(arr: ClimArray, out_dims):
+    """Reshape arr.data so its dims line up with out_dims (size-1 for missing)."""
+    data = arr.data
+    # permute existing dims into out_dims order
+    present = [d for d in out_dims if d in arr.dims]
+    perm = [arr.dims.index(d) for d in present]
+    data = data.permute(perm)
+    src_shapes = dict(zip(present, data.shape))
+    shape = [src_shapes.get(d, 1) for d in out_dims]
+    return data.reshape(shape)

@@ -1,0 +1,67 @@
+"""NaN-aware Hyndman-Fan quantiles (sort formulation).
+
+Replicates the semantics of xclim's percentile kernel
+(``_nan_quantile``, xclim:src/xclim/core/utils.py:494-558), as the reference's
+``xclim_tpu.ops.quantile._nan_quantile_xla`` does:
+
+* interpolation parameterized by (alpha, beta): alpha=beta=1 is H&F type 7
+  (numpy linear), alpha=beta=1/3 is type 8 (median-unbiased, used by
+  ``percentile_doy``);
+* slices with 0 valid values yield NaN; slices with exactly 1 valid value yield
+  that value for every quantile (xclim:core/utils.py:524-530);
+* virtual indexes above the valid range clip to the slice maximum.
+
+The float32 op sequence is the reference's: ``h = n*q + (q*(1-a-b)+a) - 1``,
+clip to ``[0, n-1]``, floor, ``gamma = h - floor(h)``, ``v0*(1-gamma) +
+v1*gamma``. The two order statistics are gathered from the sorted axis
+(torch.sort puts NaNs last).
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["nan_quantile", "nan_percentile"]
+
+
+def nan_quantile(x: torch.Tensor, q, axis: int = -1, alpha: float = 1.0,
+                 beta: float = 1.0) -> torch.Tensor:
+    """Compute quantiles along `axis`, skipping NaNs.
+
+    Parameters
+    ----------
+    x : float32 tensor
+    q : 1-D quantiles in [0, 1] (sequence, numpy array or tensor)
+    axis : reduction axis
+    alpha, beta : Hyndman-Fan interpolation parameters.
+
+    Returns
+    -------
+    tensor with shape q.shape + x.shape-without-axis (quantile axis first,
+    matching xclim ``_nan_quantile``), on x's device.
+    """
+    q = torch.as_tensor(q, dtype=torch.float32, device=x.device).reshape(-1)
+    xm = x.movedim(axis % x.ndim, -1)
+    xs = torch.sort(xm, dim=-1).values                 # NaNs sort to the end
+    n = (~torch.isnan(xm)).sum(dim=-1, keepdim=True).to(torch.float32)
+    h = n * q + (q * (1 - alpha - beta) + alpha) - 1.0     # (..., Q)
+    upper = torch.clamp(n - 1.0, min=0.0)
+    h = torch.minimum(torch.clamp(h, min=0.0), upper)
+    prev = torch.floor(h)
+    gamma = h - prev
+    nxt = torch.minimum(prev + 1.0, upper)
+    v0 = xs.gather(-1, prev.to(torch.int64))
+    v1 = xs.gather(-1, nxt.to(torch.int64))
+    out = v0 * (1.0 - gamma) + v1 * gamma
+    out = torch.where(n == 0, torch.nan, out)
+    return out.movedim(-1, 0)
+
+
+def nan_percentile(x, percentiles, axis: int = -1, alpha: float = 1.0,
+                   beta: float = 1.0):
+    """Percentile variant (0-100), quantile axis moved to the END
+    (xclim ``calc_perc`` convention, core/utils.py:279)."""
+    p = torch.as_tensor(percentiles, dtype=torch.float32,
+                        device=x.device) / 100.0
+    out = nan_quantile(x, p, axis=axis, alpha=alpha, beta=beta)
+    return out.movedim(0, -1)
