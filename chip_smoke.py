@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``xclim_tpu_torch/csrc`` (into
-``xclim_tpu_torch/_build/``), then:
+``xclim_tpu_torch/_build/``, one nvcc per source, all at once), then:
 
 1. prints each kernel's build time, the card's name and power limit;
 2. holds each kernel against its plain PyTorch twin on the card at 1024
-   cells, with fully valid, partly missing and all-missing lanes;
+   cells, with fully valid, partly missing and all-missing lanes (segred:
+   every op, MS/YS/QS-DEC, noleap and 360_day, and an all-NaN month);
 3. drives the sdba QDM slice at the repo's "QDM 16k" size (128 x 128 cells,
    30 noleap years, day-of-year window 31, 50 quantiles) through
    ``QuantileDeltaMapping.train(...).adjust(...)``, checks that it went
@@ -16,7 +17,15 @@ Builds the hand-written CUDA kernels from ``xclim_tpu_torch/csrc`` (into
    it, runs EQM once, and times each kernel against its twin at the slice's
    shapes;
 4. runs the same public call on the first 256 cells with CPU tensors (the
-   twins) and on the card (the kernels) and compares the outputs.
+   twins) and on the card (the kernels) and compares the outputs;
+5. drives the indicator slice ``atmos.tg_mean(tas, freq="MS")`` at the
+   repo's "tg_mean 512" size (3650 noleap days x 512 x 512 cells, 3.83 GB
+   of float32) with NaN holes, checks its launch counts, values, NaN
+   pattern and attributes, times the indicator and the bare index, runs
+   ``atmos.tx_max(..., freq="YS")`` once, and times segred against its
+   twin at the slice's shape;
+6. runs tg_mean on the first 1024 cells with CPU tensors and on the card
+   and compares the outputs.
 
 Every phase raises on failure. The last two lines are a JSON object with
 one entry per kernel and the result line
@@ -41,6 +50,12 @@ SIDE = 128      # 128 x 128 = 16384 cells
 SMALL_CELLS = 1024
 CPU_CELLS = 256
 SEED = 1981
+TG_DAYS = 3650  # 10 noleap years from 2000-01-01
+TG_SIDE = 512   # 512 x 512 = 262144 cells
+TG_CPU_CELLS = 1024
+KERNELS = {"winquantile": "xclim_tpu/ops/pallas/winquantile.py:344",
+           "qdmadjust": "xclim_tpu/ops/pallas/qdmadjust.py:158",
+           "segred": "xclim_tpu/ops/pallas/segred.py:176,195"}
 
 
 def _log(*args):
@@ -182,20 +197,24 @@ def _qdm(series):
     return adj, adj.adjust(series["sim"])
 
 
-def _counts():
-    from xclim_tpu_torch.ops import qdmadjust, winquantile
+def _ops():
+    from xclim_tpu_torch.ops import qdmadjust, segred, winquantile
 
-    return {"winquantile": winquantile.launches,
-            "winquantile_twin": winquantile.twin_calls,
-            "qdmadjust": qdmadjust.launches,
-            "qdmadjust_twin": qdmadjust.twin_calls}
+    return {"winquantile": winquantile, "qdmadjust": qdmadjust,
+            "segred": segred}
+
+
+def _counts():
+    out = {}
+    for name, mod in _ops().items():
+        out[name] = mod.launches
+        out[f"{name}_twin"] = mod.twin_calls
+    return out
 
 
 def _reset_counts():
-    from xclim_tpu_torch.ops import qdmadjust, winquantile
-
-    winquantile.launches = winquantile.twin_calls = 0
-    qdmadjust.launches = qdmadjust.twin_calls = 0
+    for mod in _ops().values():
+        mod.launches = mod.twin_calls = 0
 
 
 def phase_slice(device, card, record):
@@ -223,7 +242,8 @@ def phase_slice(device, card, record):
     _log(f"[slice] launch counts of one QDM train+adjust at {cells} cells: "
          f"{json.dumps(counts)}")
     if counts != {"winquantile": 2, "winquantile_twin": 0,
-                  "qdmadjust": 1, "qdmadjust_twin": 0}:
+                  "qdmadjust": 1, "qdmadjust_twin": 0,
+                  "segred": 0, "segred_twin": 0}:
         raise AssertionError(f"main path did not run on the kernels: {counts}")
     record["winquantile"]["launches"] = counts["winquantile"]
     record["qdmadjust"]["launches"] = counts["qdmadjust"]
@@ -353,6 +373,275 @@ def phase_cpu_vs_card(full):
          f"max_abs_err={e1} af max_abs_err={e2} output max_abs_err={e3}")
 
 
+def _segred_lanes(gen, T, C, device):
+    """(T, C) K-scale series: lanes c % 4 == 0 fully valid, 1 partly missing
+    (15 %), 2 all missing, 3 valid but for an all-NaN February 2000."""
+    import torch
+
+    x = torch.randn((T, C), generator=gen, device=device) * 5.0 + 285.0
+    lane = torch.arange(C, device=device) % 4
+    holes = torch.rand((T, C), generator=gen, device=device) < 0.15
+    day = torch.arange(T, device=device)[:, None]
+    x = torch.where(holes & (lane == 1), torch.nan, x)
+    x = torch.where(lane == 2, torch.nan, x)
+    return torch.where((day >= 31) & (day < 59) & (lane == 3), torch.nan, x)
+
+
+def phase_segred_small(gen, device, record):
+    """segred against its twin at (3650, 1024) for every op: counts, min and
+    max bit-equal, sums, means, std and var within 1e-6 relative."""
+    import torch
+
+    from xclim_tpu_torch.core.calendar import date_range, resample_segments
+    from xclim_tpu_torch.ops import segred
+
+    for cal in ("noleap", "360_day"):
+        t = date_range("2000-01-01", periods=TG_DAYS, calendar=cal)
+        x = _segred_lanes(gen, TG_DAYS, SMALL_CELLS, device)
+        for freq in ("MS", "YS", "QS-DEC"):
+            spec = resample_segments(t, freq)
+            errs = {}
+            for op in sorted(segred.SUPPORTED_OPS):
+                got = segred.segment_reduce_onepass(x, spec.starts,
+                                                    spec.counts, op)
+                torch.cuda.synchronize()
+                ref = segred.segment_reduce_onepass_plain(x, spec.starts,
+                                                          spec.counts, op)
+                if got.dtype != ref.dtype:
+                    raise AssertionError(f"segred {op}: {got.dtype} vs "
+                                         f"{ref.dtype}")
+                exact = op in ("count", "min", "max")
+                errs[op] = _compare(
+                    f"segred {op} {freq} {cal}", got, ref,
+                    rtol=0.0 if exact else RTOL, atol=0.0)
+            record["segred"]["max_abs_err"] = max(
+                record["segred"]["max_abs_err"], *errs.values())
+            _log(f"[kernel vs twin] segred ({TG_DAYS}, {SMALL_CELLS}) {freq} "
+                 f"{cal}: max_abs_err {json.dumps(errs)} (count/min/max "
+                 f"bit-equal, the rest within rtol {RTOL})")
+        spec = resample_segments(t, "MS")
+        ms = _cuda_ms(lambda: segred.segment_reduce_onepass(
+            x, spec.starts, spec.counts, "mean"), 20)
+        pms = _cuda_ms(lambda: segred.segment_reduce_onepass_plain(
+            x, spec.starts, spec.counts, "mean"), 3)
+        _log(f"[kernel vs twin] segred mean MS ({TG_DAYS}, {SMALL_CELLS}) "
+             f"{cal}: kernel_ms={ms:.4f} twin_ms={pms:.4f}")
+
+
+#: NaN holes of the tg_mean slice: (lat, lon, first day, end day)
+TG_HOLES = ((0, 0, 400, 410), (0, 1, 0, TG_DAYS), (0, 2, 0, 1),
+            (1, 5, 1000, 1001), (5, 7, TG_DAYS - 1, TG_DAYS),
+            (TG_SIDE - 1, TG_SIDE - 1, 365, 730))
+
+
+def _tas(device):
+    """tas (3650, 512, 512) float32 K, N(285, 5) from a seeded generator, 10
+    noleap years from 2000-01-01, with the holes of TG_HOLES."""
+    import numpy as np
+    import torch
+
+    from xclim_tpu_torch.core.calendar import date_range
+    from xclim_tpu_torch.core.dataarray import ClimArray
+
+    t = date_range("2000-01-01", periods=TG_DAYS, freq="D", calendar="noleap")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    data = torch.randn((TG_DAYS, TG_SIDE, TG_SIDE), generator=gen,
+                       device=device)
+    data.mul_(5.0).add_(285.0)
+    for i, j, t0, t1 in TG_HOLES:
+        data[t0:t1, i, j] = torch.nan
+    coords = {"time": t, "lat": np.arange(TG_SIDE), "lon": np.arange(TG_SIDE)}
+    return ClimArray(data, ("time", "lat", "lon"), coords,
+                     {"units": "K", "standard_name": "air_temperature",
+                      "cell_methods": "time: mean"}, "tas")
+
+
+def _expected_nan(spec):
+    """(nseg, 512, 512) bool: the periods that TG_HOLES leave incomplete."""
+    import torch
+
+    nan = torch.zeros((spec.nseg, TG_SIDE, TG_SIDE), dtype=torch.bool)
+    for i, j, t0, t1 in TG_HOLES:
+        nan[sorted(set(spec.seg_id[t0:t1].tolist())), i, j] = True
+    return nan
+
+
+def _timed(fn, reps=3):
+    """Host seconds of fn() after one warm-up, each run ended by a
+    synchronize: (median, runs)."""
+    import torch
+
+    fn()
+    runs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    return statistics.median(runs), runs
+
+
+def _check_resampled(name, out, spec, device, lo, hi):
+    import torch
+
+    shape = (spec.nseg, TG_SIDE, TG_SIDE)
+    if tuple(out.shape) != shape or out.data.device != device \
+            or out.data.dtype != torch.float32:
+        raise AssertionError(f"{name}: {tuple(out.shape)} {out.data.dtype} "
+                             f"on {out.data.device}, expected {shape}")
+    nan = torch.isnan(out.data).cpu()
+    expect = _expected_nan(spec)
+    if not torch.equal(nan, expect):
+        raise AssertionError(f"{name}: NaN pattern differs from the holes "
+                             f"({int((nan != expect).sum())} periods)")
+    vals = out.data[~nan.to(out.data.device)]
+    vmin, vmax = float(vals.min()), float(vals.max())
+    mean = float(vals.double().mean())
+    if not (lo <= vmin and vmax <= hi):
+        raise AssertionError(f"{name}: values in [{vmin}, {vmax}], expected "
+                             f"within [{lo}, {hi}]")
+    return mean, int(nan.sum())
+
+
+def phase_tg_mean(device, card, record):
+    """The indicator slice at full size: atmos.tg_mean(tas, freq="MS")."""
+    import torch
+
+    from xclim_tpu_torch import indices
+    from xclim_tpu_torch.indicators import atmos
+    from xclim_tpu_torch.ops import segred
+
+    tas = _tas(device)
+    cells = TG_SIDE * TG_SIDE
+    nbytes = tas.data.numel() * 4
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+
+    # the main path's run: counts from zero, read right after
+    _reset_counts()
+    out = atmos.tg_mean(tas, freq="MS")
+    torch.cuda.synchronize()
+    counts = _counts()
+    _log(f"[tg_mean] launch counts of one atmos.tg_mean(tas, freq='MS') at "
+         f"{cells} cells: {json.dumps(counts)} (segred: the monthly mean and "
+         f"the missing-value count)")
+    if counts != {"winquantile": 0, "winquantile_twin": 0, "qdmadjust": 0,
+                  "qdmadjust_twin": 0, "segred": 2, "segred_twin": 0}:
+        raise AssertionError(f"tg_mean did not run on the kernel: {counts}")
+    record["segred"]["launches"] = counts["segred"]
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+
+    # right answer by the repo's own means: shape, the NaN pattern of the
+    # holes under missing_any, monthly means of N(285, 5) near 285 K
+    # (sd 5/sqrt(28..31) < 1 K, so all within 285 +- 7 K), attributes
+    spec = tas.resample("MS").spec
+    mean, n_nan = _check_resampled("tg_mean", out, spec, device, 278.0,
+                                   292.0)
+    if abs(mean - 285.0) > 0.01:
+        raise AssertionError(f"tg_mean mean {mean} K, expected 285 K")
+    want = {"units": "K", "standard_name": "air_temperature",
+            "long_name": "Mean daily mean temperature",
+            "description": "Monthly mean of daily mean temperature.",
+            "cell_methods": "time: mean over days"}
+    got = {k: out.attrs.get(k) for k in want}
+    if got != want or "tg_mean(tas=tas, freq='MS')" not in out.attrs.get(
+            "history", ""):
+        raise AssertionError(f"tg_mean attrs {out.attrs}")
+    _log(f"[tg_mean] output {tuple(out.shape)} float32, mean {mean:.5f} K "
+         f"(expect 285), {n_nan} NaN periods as the holes give, attrs ok")
+
+    ind_s, ind_runs = _timed(lambda: atmos.tg_mean(tas, freq="MS"))
+    del out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    bare = indices.tg_mean(tas, freq="MS")
+    torch.cuda.synchronize()
+    bare_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    if _counts()["segred"] != 1 or _counts()["segred_twin"] != 0:
+        raise AssertionError(f"indices.tg_mean: {_counts()}")
+    del bare
+    idx_s, idx_runs = _timed(lambda: indices.tg_mean(tas, freq="MS"))
+    for what, sec, runs, pk in (
+            ("atmos.tg_mean (indicator: missing mask + attrs)", ind_s,
+             ind_runs, peak),
+            ("indices.tg_mean (bare index)", idx_s, idx_runs, bare_peak)):
+        _log(f"[tg_mean] {what} ({TG_DAYS}, {TG_SIDE}, {TG_SIDE}) on {card}: "
+             f"{sec:.5f} s (median of 3 after a warm-up; runs "
+             f"{[round(v, 5) for v in runs]}), {TG_DAYS * cells / sec:.1f} "
+             f"cell-days/s, peak device memory above the input "
+             f"{pk:.3f} GiB (input {nbytes / 2**30:.3f} GiB)")
+
+    # the minmax stat set through the public path
+    tasmax = tas.copy()
+    tasmax.name = "tasmax"
+    tasmax.attrs = dict(tas.attrs, cell_methods="time: maximum")
+    _reset_counts()
+    tx = atmos.tx_max(tasmax, freq="YS")
+    torch.cuda.synchronize()
+    counts = _counts()
+    if counts["segred"] != 2 or counts["segred_twin"] != 0:
+        raise AssertionError(f"tx_max did not run on the kernel: {counts}")
+    # the max of 365 N(285, 5) days lies above 291 K (z = 1.2) in all but
+    # ~1e-20 of the lanes, and no day of 9.6e8 reaches 330 K (z = 9)
+    txmean, _ = _check_resampled("tx_max", tx, tasmax.resample("YS").spec,
+                                 device, 290.0, 330.0)
+    _log(f"[tg_mean] atmos.tx_max(tasmax, freq='YS'): {tuple(tx.shape)}, "
+         f"mean annual max {txmean:.4f} K (expect ~299.5 for 365 N(285, 5) "
+         f"days), segred launches {counts['segred']}, units "
+         f"{tx.attrs['units']}")
+    del tx, tasmax
+
+    # the kernel against its twin at the slice's own shape and input
+    x2 = tas.data.reshape(TG_DAYS, -1)
+    got = segred.segment_reduce_onepass(x2, spec.starts, spec.counts, "mean")
+    ref = segred.segment_reduce_onepass_plain(x2, spec.starts, spec.counts,
+                                              "mean")
+    err = _compare(f"segred mean{tuple(x2.shape)}", got, ref, atol=0.0)
+    del got, ref
+    ms = _cuda_ms(lambda: segred.segment_reduce_onepass(
+        x2, spec.starts, spec.counts, "mean"), 10)
+    pms = _cuda_ms(lambda: segred.segment_reduce_onepass_plain(
+        x2, spec.starts, spec.counts, "mean"), 2)
+    record["segred"].update(
+        max_abs_err=max(record["segred"]["max_abs_err"], err), ms=ms,
+        plain_ms=pms)
+    _log(f"[kernel vs twin] segred mean MS {tuple(x2.shape)} (slice shape) "
+         f"on {card}: max_abs_err={err} kernel_ms={ms:.4f} twin_ms={pms:.4f}; "
+         f"{nbytes / 1e9:.3f} GB read once: {nbytes / ms / 1e6:.1f} GB/s")
+    return tas
+
+
+def phase_tg_mean_cpu_vs_card(tas):
+    """tg_mean on the first 1024 cells: CPU tensors (twins) vs the card."""
+    import torch
+
+    from xclim_tpu_torch.indicators import atmos
+
+    sub = tas.isel(lat=slice(0, TG_CPU_CELLS // TG_SIDE))
+    cpu = sub.to("cpu")
+    before = _counts()
+    out_c = atmos.tg_mean(cpu, freq="MS")
+    out_g = atmos.tg_mean(sub, freq="MS")
+    torch.cuda.synchronize()
+    after = _counts()
+    if (after["segred_twin"] - before["segred_twin"] != 2
+            or after["segred"] - before["segred"] != 2):
+        raise AssertionError(f"CPU run must use the twin, the card the "
+                             f"kernel: {before} -> {after}")
+    err = _compare("tg_mean cpu vs card", out_g.data, out_c.data, atol=0.0)
+    ga = {k: v for k, v in out_g.attrs.items() if k != "history"}
+    ca = {k: v for k, v in out_c.attrs.items() if k != "history"}
+    if ga != ca or out_g.dims != out_c.dims:
+        raise AssertionError(f"attrs differ: {ga} vs {ca}")
+    _log(f"[cpu twins vs card kernels] tg_mean {TG_CPU_CELLS} cells: "
+         f"max_abs_err={err}, NaN periods {int(torch.isnan(out_c.data).sum())}"
+         f", attrs equal")
+
+
 def main() -> int:
     import torch
 
@@ -376,7 +665,8 @@ def main() -> int:
          f"{torch.cuda.device_count()} visible")
 
     record = {}
-    for name in ("winquantile", "qdmadjust"):
+    _build.build(KERNELS)
+    for name, replaces in KERNELS.items():
         _build.load(name)
         info = _build.build_info[name]
         _log(f"[build] {name}: {info['seconds']:.2f} s")
@@ -385,17 +675,20 @@ def main() -> int:
                 _log(f"[build]   {line.strip()}")
         record[name] = {
             "name": name, "route": "cuda",
-            "source": f"xclim_tpu_torch/csrc/{name}.cu",
-            "replaces": {"winquantile": "xclim_tpu/ops/pallas/winquantile.py:344",
-                         "qdmadjust": "xclim_tpu/ops/pallas/qdmadjust.py:158"}[name],
+            "source": f"xclim_tpu_torch/csrc/{name}.cu", "replaces": replaces,
             "launches": 0, "max_abs_err": 0.0, "ms": None, "plain_ms": None}
 
     q = equally_spaced_nodes(NQ).astype("float32")
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
     phase_kernels_small(gen, device, q, record)
+    phase_segred_small(gen, device, record)
     series = phase_slice(device, card, record)
     phase_cpu_vs_card(series)
+    del series
+    torch.cuda.empty_cache()
+    tas = phase_tg_mean(device, card, record)
+    phase_tg_mean_cpu_vs_card(tas)
 
     _log(json.dumps({"kernels": list(record.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -85,8 +85,19 @@ def test_selection(pair):
     assert isinstance(a.values, np.ndarray)
 
 
-@pytest.mark.parametrize("method", ["resample", "rolling"])
-def test_segment_methods_not_ported_yet(pair, method):
-    a, _ = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(a, method)("MS" if method == "resample" else 5)
+@pytest.mark.parametrize("freq", ["MS", "7D"])
+@pytest.mark.parametrize("op", ["mean", "max", "count", "argmax_doy"])
+def test_resample(pair, op, freq):
+    a, b = pair
+    _same(getattr(a.resample(freq), op)(), getattr(b.resample(freq), op)())
+
+
+@pytest.mark.parametrize("op", ["sum", "mean", "std"])
+@pytest.mark.parametrize("center", [False, True])
+def test_rolling(pair, op, center):
+    a, b = pair
+    # centred data: the rolling variance is E[x^2] - E[x]^2 in float32 on
+    # both sides (xclim_tpu/ops/segments.py:399-404)
+    _same(getattr((a - 280.0).rolling(5, center=center), op)(),
+          getattr((b - 280.0).rolling(5, center=center), op)(),
+          rtol=1e-6, atol=1e-6)

@@ -9,7 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from xclim_tpu_torch.ops import qdmadjust, winquantile
+from xclim_tpu_torch.core.calendar import date_range, resample_segments
+from xclim_tpu_torch.ops import qdmadjust, segred, winquantile
 from xclim_tpu_torch.sdba.utils import equally_spaced_nodes
 
 # the string condition is evaluated when each test is set up, not when the
@@ -92,3 +93,63 @@ def test_qdmadjust_rejects_too_many_years(cuda):
     af = torch.zeros(3, len(Q), 4, device=cuda)
     with pytest.raises(ValueError, match="year slots"):
         qdmadjust.qdm_adjust_doy(xd, af, Q)
+
+
+def _segred_series(T, C, seed):
+    """(T, C) K-scale values: lanes c % 4 == 0 fully valid, 1 partly
+    missing (15 %), 2 all missing, 3 valid but for an all-NaN February."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(285.0, 5.0, (T, C)).astype(np.float32)
+    lane = np.arange(C) % 4
+    x[(rng.random((T, C)) < 0.15) & (lane == 1)] = np.nan
+    x[:, lane == 2] = np.nan
+    x[31:59, lane == 3] = np.nan
+    return x
+
+
+def _segred_close(got, exp, op):
+    got, exp = got.cpu().numpy(), exp.cpu().numpy()
+    assert got.dtype == exp.dtype
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(exp))
+    if op in ("count", "min", "max"):
+        np.testing.assert_array_equal(got, exp)         # bit-equal
+    else:
+        # both round one float64 sum to float32 (1e-6, SURVEY §6)
+        np.testing.assert_allclose(got, exp, rtol=1e-6, equal_nan=True)
+
+
+@pytest.mark.parametrize("cal", ["noleap", "360_day"])
+@pytest.mark.parametrize("freq", ["MS", "YS", "QS-DEC", "D"])
+@pytest.mark.parametrize("op", sorted(segred.SUPPORTED_OPS))
+def test_segred_kernel_matches_twin(cuda, op, freq, cal):
+    T = 730 if cal == "noleap" else 720
+    spec = resample_segments(date_range("2000-01-01", periods=T, calendar=cal),
+                             freq)
+    x = torch.as_tensor(_segred_series(T, 1030, seed=T), device=cuda)
+    before = segred.launches
+    got = segred.segment_reduce_onepass(x, spec.starts, spec.counts, op)
+    torch.cuda.synchronize()
+    assert segred.launches == before + 1
+    _segred_close(got, segred.segment_reduce_onepass_plain(
+        x, spec.starts, spec.counts, op), op)
+
+
+def test_segred_kernel_many_segments(cuda):
+    # more segments than one launch's grid.y (65535) takes
+    T = 70001
+    x = torch.as_tensor(_segred_series(T, 3, seed=1), device=cuda)
+    starts, counts = np.arange(T), np.ones(T, dtype=np.int64)
+    counts[-1] = 0
+    got = segred.segment_reduce_onepass(x, starts, counts, "mean")
+    exp = torch.where(torch.arange(T, device=cuda)[:, None] < T - 1, x,
+                      torch.nan)
+    _segred_close(got, exp, "mean")
+
+
+def test_segred_kernel_uneven_bounds(cuda):
+    x = torch.as_tensor(_segred_series(50, 257, seed=2), device=cuda)
+    starts, counts = [0, 3, 3, 10, 49], [3, 0, 7, 1, 1]
+    for op in sorted(segred.SUPPORTED_OPS):
+        got = segred.segment_reduce_onepass(x, starts, counts, op)
+        _segred_close(got, segred.segment_reduce_onepass_plain(
+            x, starts, counts, op), op)

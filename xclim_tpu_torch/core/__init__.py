@@ -1,1 +1,2 @@
-"""Host-side CF semantics (calendars, units) and the ClimArray data model."""
+"""Host-side CF semantics (calendars, units, options, locales, metadata),
+the ClimArray data model, missing-value masks and the indicator engine."""

@@ -19,10 +19,8 @@ from xclim_tpu_torch.core.calendar import (
     select_time_mask,
 )
 
-__all__ = ["ClimArray"]
-
-_SEGMENTS_TODO = ("needs ops/segments.py, which is not ported yet "
-                  "(ROADMAP Queue 1, first slice after sdba: tg_mean)")
+__all__ = ["ClimArray", "ClimDataset", "full_like", "where", "concat",
+           "broadcast_arrays"]
 
 
 def _tensor(x, like: torch.Tensor | None = None) -> torch.Tensor:
@@ -464,15 +462,15 @@ class ClimArray:
     # ------------------------------------------------------------------
     # resample / rolling
     # ------------------------------------------------------------------
-    def resample(self, freq: str):
-        raise NotImplementedError(f"ClimArray.resample {_SEGMENTS_TODO}")
+    def resample(self, freq: str) -> "Resampler":
+        return Resampler(self, freq)
 
     def segments(self, freq: str) -> SegmentSpec:
         return resample_segments(self.time, freq)
 
     def rolling(self, window: int, center: bool = False,
-                min_periods: int | None = None):
-        raise NotImplementedError(f"ClimArray.rolling {_SEGMENTS_TODO}")
+                min_periods: int | None = None) -> "Roller":
+        return Roller(self, window, center, min_periods)
 
     def broadcast_like(self, other: "ClimArray") -> "ClimArray":
         out_dims = other.dims
@@ -527,3 +525,224 @@ def _reshape_for(arr: ClimArray, out_dims):
     src_shapes = dict(zip(present, data.shape))
     shape = [src_shapes.get(d, 1) for d in out_dims]
     return data.reshape(shape)
+
+
+class Resampler:
+    """``da.resample(freq)`` handle; reductions go to the segment engine
+    (:func:`~xclim_tpu_torch.ops.segments.segment_reduce`)."""
+
+    def __init__(self, da: ClimArray, freq: str):
+        self.da = da
+        self.freq = freq
+        self.spec = resample_segments(da.time, freq)
+
+    def _apply(self, op, keep_attrs=False, **kw):
+        from xclim_tpu_torch.ops.segments import segment_reduce
+
+        da = self.da
+        data = segment_reduce(da.data, self.spec, op, axis=da.time_axis, **kw)
+        coords = dict(da.coords)
+        coords["time"] = self.spec.labels
+        attrs = dict(da.attrs) if keep_attrs else {}
+        return ClimArray(data, da.dims, coords, attrs, da.name)
+
+    def mean(self, keep_attrs=False):
+        return self._apply("mean", keep_attrs=keep_attrs)
+
+    def sum(self, keep_attrs=False):
+        return self._apply("sum", keep_attrs=keep_attrs)
+
+    def max(self, keep_attrs=False):
+        return self._apply("max", keep_attrs=keep_attrs)
+
+    def min(self, keep_attrs=False):
+        return self._apply("min", keep_attrs=keep_attrs)
+
+    def std(self, keep_attrs=False):
+        return self._apply("std", keep_attrs=keep_attrs)
+
+    def var(self, keep_attrs=False):
+        return self._apply("var", keep_attrs=keep_attrs)
+
+    def median(self, keep_attrs=False):
+        return self._apply("median", keep_attrs=keep_attrs)
+
+    def count(self):
+        return self._apply("count")
+
+    def any(self):
+        return self._apply("any")
+
+    def all(self):
+        return self._apply("all")
+
+    def argmax_doy(self):
+        """Day-of-year of the per-period maximum (for *_doy indices)."""
+        return self._arg_doy("max")
+
+    def argmin_doy(self):
+        return self._arg_doy("min")
+
+    def _arg_doy(self, op):
+        from xclim_tpu_torch.ops.segments import segment_argminmax
+
+        da = self.da
+        idx, has = segment_argminmax(da.data, self.spec, op, axis=da.time_axis)
+        doys = torch.as_tensor(
+            np.concatenate([da.time.doy, [0]]).astype(np.float32),
+            device=da.data.device)
+        vals = doys[torch.where(idx >= 0, idx, len(da.time)).long()]
+        vals = torch.where(has, vals, torch.nan)
+        coords = dict(da.coords)
+        coords["time"] = self.spec.labels
+        return ClimArray(vals, da.dims, coords, {}, da.name)
+
+
+class Roller:
+    """``da.rolling(window)`` handle over the time axis."""
+
+    def __init__(self, da: ClimArray, window: int, center: bool, min_periods):
+        self.da = da
+        self.window = window
+        self.center = center
+        self.min_periods = min_periods
+
+    def _apply(self, op):
+        from xclim_tpu_torch.ops.segments import rolling_reduce
+
+        da = self.da
+        data = rolling_reduce(da.data, self.window, op, axis=da.time_axis,
+                              min_periods=self.min_periods, center=self.center)
+        return da.copy(data=data)
+
+    def sum(self):
+        return self._apply("sum")
+
+    def mean(self):
+        return self._apply("mean")
+
+    def max(self):
+        return self._apply("max")
+
+    def min(self):
+        return self._apply("min")
+
+    def std(self):
+        return self._apply("std")
+
+    def var(self):
+        return self._apply("var")
+
+
+class ClimDataset:
+    """Mapping of variable name -> ClimArray with shared coords."""
+
+    def __init__(self, data_vars: dict[str, ClimArray] | None = None,
+                 attrs=None):
+        self.data_vars: dict[str, ClimArray] = dict(data_vars or {})
+        self.attrs = dict(attrs or {})
+
+    def __getitem__(self, key) -> ClimArray:
+        return self.data_vars[key]
+
+    def __setitem__(self, key, val: ClimArray):
+        val = val.rename(key) if val.name != key else val
+        self.data_vars[key] = val
+
+    def __contains__(self, key):
+        return key in self.data_vars
+
+    def __iter__(self):
+        return iter(self.data_vars)
+
+    def __len__(self):
+        return len(self.data_vars)
+
+    def keys(self):
+        return self.data_vars.keys()
+
+    def values(self):
+        return self.data_vars.values()
+
+    def items(self):
+        return self.data_vars.items()
+
+    def get(self, key, default=None):
+        return self.data_vars.get(key, default)
+
+    @property
+    def time(self):
+        for v in self.data_vars.values():
+            if v.time is not None:
+                return v.time
+        return None
+
+    def copy(self):
+        return ClimDataset(dict(self.data_vars), dict(self.attrs))
+
+    def __repr__(self):
+        inner = ", ".join(f"{k}{v.shape}" for k, v in self.data_vars.items())
+        return f"<ClimDataset {inner}>"
+
+
+def full_like(da: ClimArray, fill, dtype=None) -> ClimArray:
+    data = torch.full(da.shape, fill, dtype=dtype or da.dtype,
+                      device=da.data.device)
+    return ClimArray(data, da.dims, dict(da.coords), dict(da.attrs), da.name)
+
+
+def where(cond: ClimArray, x, y) -> ClimArray:
+    """xr.where equivalent."""
+    if isinstance(x, ClimArray):
+        return x.where(cond, y)
+    if isinstance(y, ClimArray):
+        out_dims = _union_dims(y.dims, cond.dims)
+        c = _reshape_for(cond, out_dims)
+        b = _reshape_for(y, out_dims)
+        coords = _merged_coords(y, cond, out_dims)
+        return ClimArray(torch.where(c, x, b), out_dims, coords,
+                         dict(y.attrs), y.name)
+    return cond.copy(data=torch.where(cond.data, x, y))
+
+
+def concat(arrays: list[ClimArray], dim: str, coord=None) -> ClimArray:
+    """Concatenate along a new or existing dim."""
+    first = arrays[0]
+    if dim in first.dims:
+        ax = first.dims.index(dim)
+        data = torch.cat([a.data for a in arrays], dim=ax)
+        coords = dict(first.coords)
+        if dim in coords and all(dim in a.coords for a in arrays):
+            vals = [a.coords[dim] for a in arrays]
+            if isinstance(vals[0], TimeIndex):
+                coords[dim] = TimeIndex(
+                    *(np.concatenate([getattr(v, f) for v in vals])
+                      for f in ("year", "month", "day", "hour", "minute",
+                                "second")),
+                    vals[0].calendar)
+            else:
+                coords[dim] = np.concatenate(vals)
+        return ClimArray(data, first.dims, coords, dict(first.attrs),
+                         first.name)
+    data = torch.stack([a.data for a in arrays], dim=0)
+    dims = (dim,) + first.dims
+    coords = dict(first.coords)
+    if coord is not None:
+        coords[dim] = np.asarray(coord)
+    return ClimArray(data, dims, coords, dict(first.attrs), first.name)
+
+
+def broadcast_arrays(*arrays: ClimArray) -> list[ClimArray]:
+    out_dims = ()
+    for a in arrays:
+        out_dims = _union_dims(out_dims, a.dims)
+    datas = [_reshape_for(a, out_dims) for a in arrays]
+    shape = tuple(max(d.shape[i] for d in datas) for i in range(len(out_dims)))
+    coords = {}
+    for a in arrays:
+        for k, v in a.coords.items():
+            if k in out_dims and k not in coords:
+                coords[k] = v
+    return [ClimArray(torch.broadcast_to(d, shape), out_dims, dict(coords),
+                      dict(a.attrs), a.name)
+            for d, a in zip(datas, arrays)]

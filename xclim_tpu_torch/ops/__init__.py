@@ -1,2 +1,2 @@
-"""Device ops: the sort quantile and the hand-written CUDA kernels with
-their plain PyTorch twins."""
+"""Device ops: the segment engine, the sort quantile and the hand-written
+CUDA kernels with their plain PyTorch twins."""

@@ -18,7 +18,7 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["load", "build_info"]
+__all__ = ["build", "load", "build_info"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _SRC = _PKG / "csrc"
@@ -46,30 +46,55 @@ def _nvcc() -> str:
         "CUDA kernels of xclim_tpu_torch cannot be built")
 
 
+def _so_path(name: str) -> Path:
+    src = _SRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return _OUT / f"lib{name}-{digest}.so"
+
+
+def build(names) -> None:
+    """Build the libraries of ``csrc/<name>.cu`` that are not built yet, one
+    nvcc process per source, all started together. Raises with the
+    compiler's output if any build fails."""
+    todo = []
+    for name in dict.fromkeys(names):
+        if _so_path(name).exists():
+            build_info.setdefault(name, {"seconds": 0.0, "log": ""})
+        else:
+            todo.append(name)
+    if not todo:
+        return
+    nvcc = _nvcc()
+    _OUT.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for name in todo:
+        so = _so_path(name)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_SRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, so, tmp, proc, time.perf_counter()))
+    failed = []
+    for name, so, tmp, proc, t0 in jobs:
+        log = proc.communicate()[0]
+        build_info[name] = {"seconds": time.perf_counter() - t0, "log": log}
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed building {name}.cu "
+                          f"(exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, building it if needed."""
     lib = _libs.get(name)
     if lib is not None:
         return lib
-    src = _SRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = _OUT / f"lib{name}-{digest}.so"
-    info = {"seconds": 0.0, "log": ""}
-    if not so.exists():
-        _OUT.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        info["seconds"] = time.perf_counter() - t0
-        info["log"] = res.stdout + res.stderr
-        if res.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed building {src.name} "
-                               f"(exit {res.returncode}):\n{info['log']}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    build([name])
+    lib = ctypes.CDLL(str(_so_path(name)))
     _libs[name] = lib
-    build_info[name] = info
     return lib
