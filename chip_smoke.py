@@ -25,6 +25,21 @@ Builds the hand-written CUDA kernels from ``xclim_tpu_torch/csrc`` (into
    ``atmos.tx_max(..., freq="YS")`` once, and times segred against its
    twin at the slice's shape;
 6. runs tg_mean on the first 1024 cells with CPU tensors and on the card
+   and compares the outputs;
+7. holds the spells kernel against its twin at (10950, 1024) for every op,
+   windows 1, 3 and 6, MS/YS/QS-DEC, noleap and 360_day, float and bool
+   input, with fully valid, partly missing and all-missing lanes and planted
+   runs (one across a year boundary, one of exactly the window): all four
+   counts bit-equal;
+8. drives the percentile slice at the repo's "tx90p bootstrap 4096" size
+   (64 x 64 cells, 30 noleap years from 1981-01-01, an AR(1) tasmax):
+   ``percentile_doy(tasmax, 5, 90)``, ``atmos.tx90p(..., bootstrap=True)``
+   and ``atmos.warm_spell_duration_index(..., bootstrap=True)``, checks
+   their launch counts and values, times them, and holds segred (tx90p's
+   exceedance sums, plain and 29 replacements x 4096 cells) and spells
+   (WSDI's condition, 29 replacements x 4096 cells) against their twins
+   at the bootstrap's own inputs;
+9. runs the same calls on the first cells with CPU tensors and on the card
    and compares the outputs.
 
 Every phase raises on failure. The last two lines are a JSON object with
@@ -53,9 +68,15 @@ SEED = 1981
 TG_DAYS = 3650  # 10 noleap years from 2000-01-01
 TG_SIDE = 512   # 512 x 512 = 262144 cells
 TG_CPU_CELLS = 1024
+PCT_SIDE = 64   # 64 x 64 = 4096 cells: bench.py's tx90p bootstrap size
+PCT_YEARS = 30
+PCT_CPU_CELLS = 64    # one grid row: the CPU twins of a 30-year bootstrap are slow
+PHI = 0.8       # AR(1) coefficient of the tasmax anomaly
+SPELL_DAYS = 10950
 KERNELS = {"winquantile": "xclim_tpu/ops/pallas/winquantile.py:344",
            "qdmadjust": "xclim_tpu/ops/pallas/qdmadjust.py:158",
-           "segred": "xclim_tpu/ops/pallas/segred.py:176,195"}
+           "segred": "xclim_tpu/ops/pallas/segred.py:176,195",
+           "spells": "xclim_tpu/ops/pallas/spells.py:131"}
 
 
 def _log(*args):
@@ -198,10 +219,10 @@ def _qdm(series):
 
 
 def _ops():
-    from xclim_tpu_torch.ops import qdmadjust, segred, winquantile
+    from xclim_tpu_torch.ops import qdmadjust, segred, spells, winquantile
 
     return {"winquantile": winquantile, "qdmadjust": qdmadjust,
-            "segred": segred}
+            "segred": segred, "spells": spells}
 
 
 def _counts():
@@ -243,7 +264,8 @@ def phase_slice(device, card, record):
          f"{json.dumps(counts)}")
     if counts != {"winquantile": 2, "winquantile_twin": 0,
                   "qdmadjust": 1, "qdmadjust_twin": 0,
-                  "segred": 0, "segred_twin": 0}:
+                  "segred": 0, "segred_twin": 0,
+                  "spells": 0, "spells_twin": 0}:
         raise AssertionError(f"main path did not run on the kernels: {counts}")
     record["winquantile"]["launches"] = counts["winquantile"]
     record["qdmadjust"]["launches"] = counts["qdmadjust"]
@@ -529,7 +551,8 @@ def phase_tg_mean(device, card, record):
          f"{cells} cells: {json.dumps(counts)} (segred: the monthly mean and "
          f"the missing-value count)")
     if counts != {"winquantile": 0, "winquantile_twin": 0, "qdmadjust": 0,
-                  "qdmadjust_twin": 0, "segred": 2, "segred_twin": 0}:
+                  "qdmadjust_twin": 0, "segred": 2, "segred_twin": 0,
+                  "spells": 0, "spells_twin": 0}:
         raise AssertionError(f"tg_mean did not run on the kernel: {counts}")
     record["segred"]["launches"] = counts["segred"]
     peak = (torch.cuda.max_memory_allocated() - base) / 2**30
@@ -642,6 +665,322 @@ def phase_tg_mean_cpu_vs_card(tas):
          f", attrs equal")
 
 
+def _spell_lanes(gen, T, C, device):
+    """(T, C) K-scale series for the spells comparison: lanes c % 4 == 0
+    fully valid i.i.d. N(290, 5) days, 1 the same with 15 % missing, 2 all
+    missing, 3 at 250 K with planted runs at 400 K: days 362-371 (across
+    the first year boundary), 500-505 (exactly 6 days), 800-802 (exactly
+    3) and 1000 (one day)."""
+    import torch
+
+    x = torch.randn((T, C), generator=gen, device=device) * 5.0 + 290.0
+    lane = torch.arange(C, device=device) % 4
+    holes = torch.rand((T, C), generator=gen, device=device) < 0.15
+    x = torch.where(holes & (lane == 1), torch.nan, x)
+    x = torch.where(lane == 2, torch.nan, x)
+    planted = torch.full((T,), 250.0, device=device)
+    for a, b in ((362, 372), (500, 506), (800, 803), (1000, 1001)):
+        planted[a:b] = 400.0
+    return torch.where(lane == 3, planted[:, None], x)
+
+
+def phase_spells_small(gen, device, record):
+    """spells against its twin at (10950, 1024): every op, windows 1, 3, 6,
+    MS/YS/QS-DEC, noleap and 360_day, float and bool input; the four
+    counts must be bit-equal."""
+    import torch
+
+    from xclim_tpu_torch.core.calendar import date_range, resample_segments
+    from xclim_tpu_torch.ops import spells
+
+    cases = 0
+    for cal in ("noleap", "360_day"):
+        t = date_range("1981-01-01", periods=SPELL_DAYS, calendar=cal)
+        x = _spell_lanes(gen, SPELL_DAYS, SMALL_CELLS, device)
+        for freq in ("MS", "YS", "QS-DEC"):
+            spec = resample_segments(t, freq)
+            for window in (1, 3, 6):
+                inputs = [(op, 293.0 if op in (">", ">=") else 287.0)
+                          for op in sorted(spells.OPS)] + [(None, None)]
+                for op, thresh in inputs:
+                    arg = x if op is not None else x > 293.0
+                    got = spells.spell_stats(arg, spec.starts, spec.counts,
+                                             window, op, thresh)
+                    torch.cuda.synchronize()
+                    ref = spells.spell_stats_plain(arg, spec.starts,
+                                                   spec.counts, window, op,
+                                                   thresh)
+                    for g, r, name in zip(got, ref, ("cnt", "wrc", "wre",
+                                                      "lng")):
+                        _compare(f"spells {name} {cal} {freq} w{window} "
+                                 f"op={op}", g, r, rtol=0.0, atol=0.0)
+                    cases += 1
+        # the planted lane: the run across the year boundary is cut in two
+        # by YS (3 + 7 days), the 6-day run counts once at window 6
+        ys = resample_segments(t, "YS")
+        cnt, wrc, wre, lng = spells.spell_stats(x[:, 3:4], ys.starts,
+                                                ys.counts, 6, ">", 293.0)
+        want = [[3.0, 0.0, 0.0, 3.0], [13.0, 13.0, 2.0, 7.0]]
+        got = [[float(v[y, 0]) for v in (cnt, wrc, wre, lng)] for y in (0, 1)]
+        if cal == "noleap" and got != want:
+            raise AssertionError(f"planted runs: {got} != {want}")
+    spec = resample_segments(date_range("1981-01-01", periods=SPELL_DAYS,
+                                        calendar="noleap"), "YS")
+    ms = _cuda_ms(lambda: spells.spell_stats(x, spec.starts, spec.counts, 6,
+                                             ">", 293.0), 20)
+    pms = _cuda_ms(lambda: spells.spell_stats_plain(
+        x, spec.starts, spec.counts, 6, ">", 293.0), 3)
+    _log(f"[kernel vs twin] spells ({SPELL_DAYS}, {SMALL_CELLS}): {cases} "
+         f"cases bit-equal (4 ops + bool, windows 1/3/6, MS/YS/QS-DEC, "
+         f"noleap/360_day); YS w6 float kernel_ms={ms:.4f} twin_ms={pms:.4f}")
+
+
+def _tasmax(device, side, years=PCT_YEARS):
+    """tasmax (years * 365, side, side) float32 K from 1981-01-01, noleap:
+    295 K + a 10 K seasonal cycle (peak in mid-July) + 5 K x an AR(1)
+    anomaly with phi = 0.8 and unit variance, from a seeded generator.
+    Without the autocorrelation, warm spells of 6 days above the 90th
+    percentile would almost never occur."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from xclim_tpu_torch.core.calendar import date_range
+    from xclim_tpu_torch.core.dataarray import ClimArray
+
+    t = date_range("1981-01-01", periods=years * 365, freq="D",
+                   calendar="noleap")
+    T = len(t)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    ar = torch.randn((T, side, side), generator=gen, device=device)
+    ar[1:] *= math.sqrt(1.0 - PHI ** 2)
+    for i in range(1, T):   # ar[i] = phi * ar[i-1] + e[i], in place
+        ar[i].add_(ar[i - 1], alpha=PHI)
+    season = torch.as_tensor(10.0 * np.sin(2 * np.pi * (t.doy - 105) / 365),
+                             dtype=torch.float32, device=device)
+    data = ar.mul_(5.0).add_(season[:, None, None]).add_(295.0)
+    coords = {"time": t, "lat": np.arange(side), "lon": np.arange(side)}
+    return ClimArray(data, ("time", "lat", "lon"), coords,
+                     {"units": "K", "standard_name": "air_temperature",
+                      "cell_methods": "time: maximum"}, "tasmax")
+
+
+def _pct_calls(tasmax):
+    """The slice's three public calls."""
+    from xclim_tpu_torch.core.percentiles import percentile_doy
+    from xclim_tpu_torch.indicators import atmos
+
+    per = percentile_doy(tasmax, window=5, per=90)
+    tx = atmos.tx90p(tasmax, tasmax_per=per, freq="YS", bootstrap=True)
+    wsdi = atmos.warm_spell_duration_index(tasmax, tasmax_per=per, window=6,
+                                           freq="YS", bootstrap=True)
+    return per, tx, wsdi
+
+
+def _check_pct(per, tx, wsdi, side, device):
+    """Values by the repo's own means; returns a summary dict."""
+    import torch
+
+    nper = (365, side, side, 1)
+    if tuple(per.shape) != nper or not bool(torch.isfinite(per.data).all()):
+        raise AssertionError(f"percentile_doy: {tuple(per.shape)}, finite "
+                             f"{bool(torch.isfinite(per.data).all())}")
+    # the outputs keep per's "percentiles" dim (size 1), as the reference's
+    for name, out in (("tx90p", tx), ("wsdi", wsdi)):
+        if tuple(out.shape) != (PCT_YEARS, side, side, 1) \
+                or out.data.device != device:
+            raise AssertionError(f"{name}: {tuple(out.shape)} on "
+                                 f"{out.data.device}")
+        if bool(torch.isnan(out.data).any()):
+            raise AssertionError(f"{name}: NaN in a complete series")
+        if out.attrs.get("units") != "days":
+            raise AssertionError(f"{name} units {out.attrs.get('units')}")
+    # every year is in base, so each is a mean over 29 replacements of the
+    # days above a 90th percentile taken from the other years: 10 % of 365
+    # days, plus the out-of-sample excess of a quantile estimated from 29
+    # autocorrelated years (39.05 days, 10.7 %, on 16 and on 64 cells of
+    # this series). The mean over the cell-years has a standard error well
+    # below a day.
+    txm = float(tx.data.double().mean())
+    if not 35.0 <= txm <= 42.0:
+        raise AssertionError(f"mean tx90p {txm} days, expected 35-42")
+    # days in warm spells are a subset of the days above the threshold, for
+    # each replacement and so for their mean
+    if bool((wsdi.data > tx.data).any()):
+        raise AssertionError("WSDI exceeds tx90p somewhere")
+    frac = float((wsdi.data.sum(dim=0) > 0).double().mean())
+    if frac < 0.9:
+        raise AssertionError(f"WSDI > 0 in only {frac:.3f} of the cells")
+    return {"tx90p_mean_days": txm,
+            "wsdi_mean_days": float(wsdi.data.double().mean()),
+            "cells_with_wsdi": frac,
+            "cell_years_with_wsdi": float((wsdi.data > 0).double().mean())}
+
+
+def _capture(module, name, n, run):
+    """The (args, kwargs) of the first n calls of module.name made by
+    run(); the calls themselves go through."""
+    seen = []
+    kernel = getattr(module, name)
+
+    def capture(*args, **kwargs):
+        if len(seen) < n:
+            seen.append((args, kwargs))
+        return kernel(*args, **kwargs)
+
+    setattr(module, name, capture)
+    try:
+        run()
+    finally:
+        setattr(module, name, kernel)
+    return seen
+
+
+def phase_percentiles(device, card, record):
+    """The percentile slice at full size: percentile_doy, tx90p and WSDI
+    with the bootstrap at 64 x 64 cells x 30 years."""
+    import torch
+
+    from xclim_tpu_torch.core.percentiles import percentile_doy
+    from xclim_tpu_torch.indicators import atmos
+    from xclim_tpu_torch.ops import segred, spells
+
+    tasmax = _tasmax(device, PCT_SIDE)
+    T, cells = tasmax.shape[0], PCT_SIDE * PCT_SIDE
+    torch.cuda.synchronize()
+
+    # the main path's runs: counts from zero before each call, read right
+    # after. tx90p: one segred sum of the exceedance mask for the plain
+    # result and one per in-base year (all 30: the 29 replacements ride on
+    # the batch), plus the missing-value count; WSDI: one spells launch for
+    # the plain result and one per in-base year, plus the same segred count.
+    _reset_counts()
+    per = percentile_doy(tasmax, window=5, per=90)
+    torch.cuda.synchronize()
+    c_per = _counts()
+    _reset_counts()
+    tx = atmos.tx90p(tasmax, tasmax_per=per, freq="YS", bootstrap=True)
+    torch.cuda.synchronize()
+    c_tx = _counts()
+    _reset_counts()
+    wsdi = atmos.warm_spell_duration_index(tasmax, tasmax_per=per, window=6,
+                                           freq="YS", bootstrap=True)
+    torch.cuda.synchronize()
+    c_ws = _counts()
+    zero = {k: 0 for k in c_per}
+    want_tx = dict(zero, segred=PCT_YEARS + 2)
+    want_ws = dict(zero, segred=1, spells=PCT_YEARS + 1)
+    _log(f"[percentiles] launch counts at {cells} cells x {PCT_YEARS} y: "
+         f"percentile_doy {json.dumps(c_per)}; tx90p+bootstrap "
+         f"{json.dumps(c_tx)}; WSDI+bootstrap {json.dumps(c_ws)}")
+    if c_per != zero or c_tx != want_tx or c_ws != want_ws:
+        raise AssertionError(f"the percentile slice missed its kernels: "
+                             f"expected {want_tx} and {want_ws}")
+    record["spells"]["launches"] = c_ws["spells"]
+    summary = _check_pct(per, tx, wsdi, PCT_SIDE, device)
+    _log(f"[percentiles] values: {json.dumps(summary)}")
+    del tx, wsdi
+
+    rate = T * cells
+    for name, fn in (
+            ("percentile_doy(tasmax, 5, 90)",
+             lambda: percentile_doy(tasmax, window=5, per=90)),
+            ("atmos.tx90p(bootstrap=True)",
+             lambda: atmos.tx90p(tasmax, tasmax_per=per, freq="YS",
+                                 bootstrap=True)),
+            ("atmos.warm_spell_duration_index(bootstrap=True)",
+             lambda: atmos.warm_spell_duration_index(
+                 tasmax, tasmax_per=per, window=6, freq="YS",
+                 bootstrap=True))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        sec, runs = _timed(fn)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        _log(f"[percentiles] {name} ({T}, {PCT_SIDE}, {PCT_SIDE}) on {card}: "
+             f"{sec:.4f} s (median of 3 after a warm-up; runs "
+             f"{[round(v, 4) for v in runs]}), {rate / sec:.1f} cell-days/s, "
+             f"peak device memory above the input {peak:.3f} GiB")
+
+    # segred against its twin at the bootstrap's own inputs: the exceedance
+    # sums of the plain result, (T, 4096), and of the first in-base year's
+    # 29 replacements after segment_reduce's replacement-major copy, (T,
+    # 29 * 4096), from the first two segred calls of one tx90p run. Sums
+    # of a 0/1 mask: bit-equal.
+    calls = _capture(segred, "segment_reduce_onepass", 2, lambda: atmos.tx90p(
+        tasmax, tasmax_per=per, freq="YS", bootstrap=True))
+    for args, kwargs in calls:
+        x2, op = args[0], args[3]
+        got = segred.segment_reduce_onepass(*args, **kwargs)
+        ref = segred.segment_reduce_onepass_plain(*args, **kwargs)
+        err = _compare(f"segred {op}{tuple(x2.shape)} at tx90p's mask", got,
+                       ref, rtol=0.0, atol=0.0)
+        del got, ref
+        ms = _cuda_ms(lambda: segred.segment_reduce_onepass(*args, **kwargs),
+                      10)
+        pms = _cuda_ms(lambda: segred.segment_reduce_onepass_plain(
+            *args, **kwargs), 2)
+        record["segred"]["max_abs_err"] = max(record["segred"]["max_abs_err"],
+                                              err)
+        _log(f"[kernel vs twin] segred {op} {tuple(x2.shape)} (tx90p's "
+             f"exceedance mask) on {card}: max_abs_err={err} "
+             f"kernel_ms={ms:.4f} twin_ms={pms:.4f}")
+    del calls, x2, args, kwargs
+
+    # spells against its twin at the bootstrap's own input: the WSDI
+    # condition of the first in-base year's 29 replacements, taken from
+    # the second spells call of one WSDI run
+    (cond, *args), kwargs = _capture(
+        spells, "spell_stats", 2, lambda: atmos.warm_spell_duration_index(
+            tasmax, tasmax_per=per, window=6, freq="YS", bootstrap=True))[1]
+    got = spells.spell_stats(cond, *args, **kwargs)
+    ref = spells.spell_stats_plain(cond, *args, **kwargs)
+    err = max(_compare(f"spells {n} at the bootstrap's condition", g, r,
+                       rtol=0.0, atol=0.0)
+              for g, r, n in zip(got, ref, ("cnt", "wrc", "wre", "lng")))
+    del got, ref
+    ms = _cuda_ms(lambda: spells.spell_stats(cond, *args, **kwargs), 10)
+    pms = _cuda_ms(lambda: spells.spell_stats_plain(cond, *args, **kwargs), 2)
+    record["spells"].update(
+        max_abs_err=max(record["spells"]["max_abs_err"], err), ms=ms,
+        plain_ms=pms)
+    nbytes = cond.numel() * cond.element_size()
+    _log(f"[kernel vs twin] spells bool {tuple(cond.shape)} (the bootstrap's "
+         f"condition, {nbytes / 1e9:.3f} GB) on {card}: max_abs_err={err} "
+         f"kernel_ms={ms:.4f} twin_ms={pms:.4f}; {nbytes / ms / 1e6:.1f} GB/s")
+    return tasmax
+
+
+def phase_percentiles_cpu_vs_card(tasmax):
+    """The slice's calls on the first PCT_CPU_CELLS cells: CPU tensors (the
+    twins) against the card (the kernels)."""
+    import torch
+
+    rows = PCT_CPU_CELLS // PCT_SIDE
+    sub = tasmax.isel(lat=slice(0, rows))
+    before = _counts()
+    t0 = time.perf_counter()
+    outs_c = _pct_calls(sub.to("cpu"))
+    cpu_s = time.perf_counter() - t0
+    outs_g = _pct_calls(sub)
+    torch.cuda.synchronize()
+    after = _counts()
+    d = {k: after[k] - before[k] for k in after}
+    if (d["spells_twin"] != PCT_YEARS + 1 or d["spells"] != PCT_YEARS + 1
+            or d["segred_twin"] != PCT_YEARS + 3
+            or d["segred"] != PCT_YEARS + 3):
+        raise AssertionError(f"CPU run must use the twins, the card the "
+                             f"kernels: {d}")
+    errs = [_compare(f"{name} cpu vs card", g.data, c.data, atol=0.0)
+            for name, g, c in zip(("percentile_doy", "tx90p", "wsdi"),
+                                  outs_g, outs_c)]
+    _log(f"[cpu twins vs card kernels] percentile_doy, tx90p and WSDI with "
+         f"the bootstrap on {PCT_CPU_CELLS} cells x {PCT_YEARS} y: max_abs_err "
+         f"{errs} (CPU side {cpu_s:.1f} s)")
+
+
 def main() -> int:
     import torch
 
@@ -689,6 +1028,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     tas = phase_tg_mean(device, card, record)
     phase_tg_mean_cpu_vs_card(tas)
+    del tas
+    torch.cuda.empty_cache()
+    phase_spells_small(gen, device, record)
+    tasmax = phase_percentiles(device, card, record)
+    phase_percentiles_cpu_vs_card(tasmax)
 
     _log(json.dumps({"kernels": list(record.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -20,11 +20,13 @@ from xclim_tpu.core.calendar import date_range as jdate_range
 from xclim_tpu.core.dataarray import ClimArray as JClimArray
 from xclim_tpu.core.dataarray import ClimDataset as JClimDataset
 from xclim_tpu.core.options import set_options as jset_options
+from xclim_tpu.core.percentiles import percentile_doy as jpercentile_doy
 from xclim_tpu_torch import indices
 from xclim_tpu_torch.core import indicator as indicator_mod
 from xclim_tpu_torch.core.calendar import date_range
 from xclim_tpu_torch.core.dataarray import ClimArray, ClimDataset
 from xclim_tpu_torch.core.options import set_options
+from xclim_tpu_torch.core.percentiles import from_reference_percentiles
 from xclim_tpu_torch.indicators import atmos
 
 NY, NX = 3, 3
@@ -234,3 +236,35 @@ def test_registry_and_test_indicators():
     out = ind(a, freq="YS")
     assert out.name == "tg_mean_test"
     assert out.attrs["description"] == "Annual mean of daily mean temperature."
+
+
+# (indicator, variable, mean, percentile, extra kwargs)
+PERCENTILE_INDICATORS = [
+    ("tg90p", "tas", 285, 90, {}), ("tg10p", "tas", 285, 10, {}),
+    ("tx90p", "tasmax", 290, 90, {}), ("tx10p", "tasmax", 290, 10, {}),
+    ("tn90p", "tasmin", 280, 90, {}), ("tn10p", "tasmin", 280, 10, {}),
+    ("warm_spell_duration_index", "tasmax", 290, 90, {"window": 2}),
+    ("cold_spell_duration_index", "tasmin", 280, 10, {"window": 2})]
+
+
+@pytest.mark.parametrize("bootstrap", [False, True])
+@pytest.mark.parametrize("cal", ["noleap", "standard"])
+@pytest.mark.parametrize("name,var,mu,per,kw", PERCENTILE_INDICATORS,
+                         ids=[i[0] for i in PERCENTILE_INDICATORS])
+def test_percentile_indicator_matches_reference(name, var, mu, per, kw, cal,
+                                                bootstrap):
+    # the same percentiles for both packages: the reference's, computed
+    # over the first three of four years and carried into the port
+    a, b = _pair(var, cal=cal, seed=len(name), years=4, mu=mu)
+    jper = jpercentile_doy(b.sel_time(mask=b.time.year < 2003), window=5,
+                           per=per)
+    per_arr = from_reference_percentiles(np.asarray(jper.data), jper.dims,
+                                         jper.coords, jper.attrs)
+    got = getattr(atmos, name)(a, per_arr, freq="YS", bootstrap=bootstrap,
+                               **kw)
+    exp = getattr(jatmos, name)(b, jper, freq="YS", bootstrap=bootstrap,
+                                **kw)
+    assert got.data.dtype == torch.float32
+    assert "2000-01-01 to 2002-12-31" in got.attrs["description"] \
+        or "window" in kw
+    _same(got, exp)

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from xclim_tpu_torch.core.calendar import date_range, resample_segments
-from xclim_tpu_torch.ops import qdmadjust, segred, winquantile
+from xclim_tpu_torch.ops import qdmadjust, segred, spells, winquantile
 from xclim_tpu_torch.sdba.utils import equally_spaced_nodes
 
 # the string condition is evaluated when each test is set up, not when the
@@ -153,3 +153,75 @@ def test_segred_kernel_uneven_bounds(cuda):
         got = segred.segment_reduce_onepass(x, starts, counts, op)
         _segred_close(got, segred.segment_reduce_onepass_plain(
             x, starts, counts, op), op)
+
+
+def _spell_series(T, C, seed):
+    """(T, C) AR(1) K-scale values (runs above a high threshold exist):
+    lanes c % 4 == 0 fully valid, 1 partly missing (15 %), 2 all missing,
+    3 fully above the threshold (one run per segment)."""
+    rng = np.random.default_rng(seed)
+    e = rng.normal(0.0, 1.0, (T, C))
+    ar = np.zeros((T, C))
+    for t in range(1, T):
+        ar[t] = 0.8 * ar[t - 1] + 0.6 * e[t]
+    x = (290.0 + 5.0 * ar).astype(np.float32)
+    lane = np.arange(C) % 4
+    x[(rng.random((T, C)) < 0.15) & (lane == 1)] = np.nan
+    x[:, lane == 2] = np.nan
+    x[:, lane == 3] = 400.0
+    return x
+
+
+def _spells_equal(got, exp):
+    # integer counts in float32: bit-equal
+    for g, e, name in zip(got, exp, ("cnt", "wrc", "wre", "lng")):
+        np.testing.assert_array_equal(g.cpu().numpy(), e.cpu().numpy(),
+                                      err_msg=name)
+
+
+@pytest.mark.parametrize("cal", ["noleap", "360_day"])
+@pytest.mark.parametrize("freq", ["MS", "YS", "QS-DEC"])
+@pytest.mark.parametrize("op", sorted(spells.OPS))
+@pytest.mark.parametrize("window", [1, 3, 6])
+def test_spells_kernel_matches_twin(cuda, op, window, freq, cal):
+    T = 1095 if cal == "noleap" else 1080
+    spec = resample_segments(date_range("2000-01-01", periods=T, calendar=cal),
+                             freq)
+    x = torch.as_tensor(_spell_series(T, 1030, seed=T + window), device=cuda)
+    thresh = 293.0 if op in (">", ">=") else 287.0
+    before = spells.launches
+    got = spells.spell_stats(x, spec.starts, spec.counts, window, op, thresh)
+    torch.cuda.synchronize()
+    assert spells.launches == before + 1
+    _spells_equal(got, spells.spell_stats_plain(x, spec.starts, spec.counts,
+                                                window, op, thresh))
+
+
+@pytest.mark.parametrize("window", [1, 6])
+def test_spells_kernel_bool_condition_in_batch_layout(cuda, window):
+    # the bootstrap's condition: logical (time, lat, lon, replacement),
+    # replacement-major in memory; read in place with its batch stride
+    T = 730
+    spec = resample_segments(date_range("1981-01-01", periods=T,
+                                        calendar="noleap"), "YS")
+    x = torch.as_tensor(_spell_series(T, 7 * 9, seed=3), device=cuda)
+    x = x.reshape(T, 7, 9, 1)
+    th = torch.as_tensor(np.random.default_rng(4).normal(
+        292.0, 2.0, (5, T, 7, 9)).astype(np.float32), device=cuda)
+    cond = x > th.permute(1, 2, 3, 0)
+    assert not cond.is_contiguous()
+    got = spells.spell_stats(cond, spec.starts, spec.counts, window)
+    _spells_equal(got, spells.spell_stats_plain(cond, spec.starts,
+                                                spec.counts, window))
+    assert got[0].shape == (2, 7, 9, 5)
+
+
+def test_spells_kernel_uneven_bounds_and_nan_thresholds(cuda):
+    x = torch.as_tensor(_spell_series(50, 257, seed=5), device=cuda)
+    starts, counts = [0, 3, 3, 10, 49], [3, 0, 7, 1, 1]
+    # a NaN threshold holds nowhere: every count is 0
+    for op in sorted(spells.OPS):
+        for thresh in (290.0, float("nan")):
+            got = spells.spell_stats(x, starts, counts, 2, op, thresh)
+            _spells_equal(got, spells.spell_stats_plain(x, starts, counts, 2,
+                                                        op, thresh))

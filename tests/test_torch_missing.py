@@ -19,6 +19,7 @@ from xclim_tpu_torch.core import missing
 from xclim_tpu_torch.core.calendar import date_range, resample_segments
 from xclim_tpu_torch.core.dataarray import ClimArray
 from xclim_tpu_torch.core.options import set_options
+from xclim_tpu_torch.ops.runlength import longest_run
 
 NY, NX = 3, 4
 
@@ -127,6 +128,6 @@ def test_longest_run_helper(freq):
     t = date_range("2000-01-01", periods=365, calendar="noleap")
     jt = jdate_range("2000-01-01", periods=365, calendar="noleap")
     spec, jspec = resample_segments(t, freq), jresample_segments(jt, freq)
-    got = missing._longest_run(torch.as_tensor(b), spec, 0)
+    got = longest_run(torch.as_tensor(b), axis=0, spec=spec)
     exp = jlongest_run(jnp.asarray(b), axis=0, spec=jspec)
     np.testing.assert_array_equal(got.numpy(), np.asarray(exp))

@@ -30,12 +30,15 @@ __all__ = [
     "day_of_year",
     "days_in_month",
     "days_in_year",
+    "days_since_to_doy",
     "doy_from_string",
+    "doy_to_days_since",
     "get_calendar",
     "is_leap_year",
     "max_doy",
     "ordinal_to_date",
     "parse_offset",
+    "percentile_doy_table",
     "resample_segments",
     "select_time_mask",
     "SegmentSpec",
@@ -814,3 +817,76 @@ def select_time_mask(
     lo_ok = (key >= lo) if include_bounds[0] else (key > lo)
     hi_ok = (key <= hi) if include_bounds[1] else (key < hi)
     return (lo_ok & hi_ok) if lo <= hi else (lo_ok | hi_ok)
+
+
+# ---------------------------------------------------------------------------
+# doy <-> days-since helpers (xclim core/calendar.py:1004,:1075)
+# ---------------------------------------------------------------------------
+
+
+def doy_to_days_since(doy_vals: np.ndarray, years: np.ndarray, start_doy: int,
+                      calendar: str = "standard") -> np.ndarray:
+    """Convert day-of-year values (one per year) to days since `start_doy` of that year."""
+    ndays = days_in_year(years, calendar).astype(np.float64)
+    out = np.asarray(doy_vals, dtype=np.float64) - start_doy
+    return np.where(out < 0, out + ndays, out)
+
+
+def days_since_to_doy(days: np.ndarray, years: np.ndarray, start_doy: int,
+                      calendar: str = "standard") -> np.ndarray:
+    """Inverse of :func:`doy_to_days_since`."""
+    ndays = days_in_year(years, calendar).astype(np.float64)
+    out = np.asarray(days, dtype=np.float64) + start_doy
+    return np.where(out > ndays, out - ndays, out)
+
+
+# ---------------------------------------------------------------------------
+# percentile_doy gather table (xclim core/calendar.py:396 percentile_doy)
+# ---------------------------------------------------------------------------
+
+
+def percentile_doy_table(time: TimeIndex, window: int = 5) -> tuple[np.ndarray, np.ndarray]:
+    """Static gather table for day-of-year climatological percentiles.
+
+    For each day-of-year d (1..max_doy present) the reference takes a centred
+    rolling window of `window` days and groups by doy over all years
+    (xclim core/calendar.py:443-483); here that is one static gather.
+
+    Returns
+    -------
+    table : int32 (n_doy, n_years * window)
+        Indices into the time axis, year-major then window offset; -1 marks
+        missing samples (series edges, absent leap days), which the quantile
+        treats as NaN.
+    doys : int32 (n_doy,)
+        The day-of-year value of each row.
+    """
+    if window % 2 != 1:
+        raise ValueError("window must be odd")
+    half = window // 2
+    n = len(time)
+    cal = time.calendar
+    years = np.unique(time.year)
+    doys = np.arange(1, max_doy(cal) + 1, dtype=np.int64)
+    doys = doys[np.isin(doys, np.unique(time.doy))]
+
+    # position lookup: ordinal -> index (daily data)
+    ords = time.ordinal
+    o0 = ords[0]
+    pos = np.full(int(ords[-1] - o0 + 1), -1, dtype=np.int64)
+    pos[ords - o0] = np.arange(n)
+
+    # centre ordinal of each (doy, year); -1 where the doy does not exist that
+    # year (366 in a common year)
+    dy = doys[:, None]
+    yr = years[None, :]
+    valid = dy <= days_in_year(yr, cal)
+    start_of_year = date_to_ordinal(yr, 1, np.ones_like(yr), cal)
+    center = np.where(valid, start_of_year + dy - 1, -(10**9))
+    offs = np.arange(-half, half + 1, dtype=np.int64)
+    tgt = center[:, :, None] + offs[None, None, :]  # (n_doy, n_years, window)
+    inrange = (tgt >= o0) & (tgt <= ords[-1]) & valid[:, :, None]
+    idx = np.where(inrange, tgt - o0, 0)
+    table = np.where(inrange, pos[idx], -1)
+    table = np.where(table >= 0, table, -1)
+    return table.reshape(len(doys), -1).astype(np.int32), doys.astype(np.int32)

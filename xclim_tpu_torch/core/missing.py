@@ -26,6 +26,7 @@ from xclim_tpu_torch.core.options import (
     OPTIONS,
     register_missing_method,
 )
+from xclim_tpu_torch.ops.runlength import longest_run
 from xclim_tpu_torch.ops.segments import segment_reduce
 
 __all__ = [
@@ -210,7 +211,7 @@ class MissingWMO(MissingTwoSteps):
         missing_days = self._count_arr(count, spec, ax, valid.ndim,
                                        valid.device) - nvalid
         cond1 = missing_days >= self.options["nm"]
-        longest = _longest_run(~valid, spec, ax)
+        longest = longest_run(~valid, axis=ax, spec=spec)
         cond2 = longest >= self.options["nc"]
         return cond1 | cond2
 
@@ -247,26 +248,6 @@ class AtLeastNValid(MissingTwoSteps):
     def is_missing(self, valid, count, spec, ax):
         nvalid = self._nvalid(valid, spec, ax)
         return nvalid < self.options["n"]
-
-
-def _longest_run(b: torch.Tensor, spec, ax: int) -> torch.Tensor:
-    """Longest run of True along axis ``ax`` within each segment of
-    ``spec`` (0 where there is none): the reference's
-    ``ops/runlength.longest_run`` with resample-before-run-length, as plain
-    torch. A run's length at step t is t minus the last step before it
-    that broke it (a False step, or the step before a segment start); the
-    running maximum of those break positions gives it without a scan."""
-    bf = b.movedim(ax, 0)
-    T = bf.shape[0]
-    t = torch.arange(T, device=b.device).reshape((T,) + (1,) * (bf.ndim - 1))
-    seg_start = torch.zeros(T, dtype=torch.bool, device=b.device)
-    seg_start[torch.as_tensor(spec.starts, dtype=torch.int64,
-                              device=b.device)] = True
-    seg_start = seg_start.reshape(t.shape)
-    breaks = torch.where(~bf, t, torch.where(seg_start, t - 1, -1))
-    last_break = torch.cummax(breaks.expand(bf.shape), dim=0).values
-    run = torch.where(bf, t - last_break, 0).to(torch.float32)
-    return segment_reduce(run.movedim(0, ax), spec, "max", axis=ax)
 
 
 # --- shortcut functions (xclim:core/missing.py:525+) ---

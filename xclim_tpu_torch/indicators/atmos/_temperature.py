@@ -3,7 +3,9 @@
 
 Realm subclasses mirror the reference ladder (Temp(Daily) etc.,
 _temperature.py:117-140); instances are plain declarative constructions.
-Ported so far: the indicators whose compute is in ``indices/_simple.py``.
+Ported so far: the indicators whose compute is in ``indices/_simple.py``,
+the six doy-percentile day counts and the warm and cold spell duration
+indices.
 """
 
 from __future__ import annotations
@@ -15,18 +17,26 @@ from xclim_tpu_torch.core.indicator import (
 )
 
 __all__ = [
+    "cold_spell_duration_index",
     "frost_days",
     "hot_days",
     "ice_days",
+    "tg10p",
     "tg_max",
     "tg_mean",
     "tg_min",
+    "tg90p",
+    "tn10p",
     "tn_max",
     "tn_mean",
     "tn_min",
+    "tn90p",
+    "tx10p",
     "tx_max",
     "tx_mean",
     "tx_min",
+    "tx90p",
+    "warm_spell_duration_index",
 ]
 
 
@@ -180,4 +190,94 @@ ice_days = TempWithIndexing(
                 "below {thresh}.",
     cell_methods="time: sum over days",
     compute=indices.ice_days,
+)
+
+tg90p = TempWithIndexing(
+    identifier="tg90p",
+    title="Days with mean temperature above the 90th percentile",
+    units="days",
+    long_name="Number of days with mean temperature above the 90th percentile",
+    description="{freq} number of days with mean temperature above the 90th "
+                "percentile ({tas_per_period} period).",
+    cell_methods="time: sum over days",
+    compute=indices.tg90p,
+)
+
+tg10p = TempWithIndexing(
+    identifier="tg10p",
+    title="Days with mean temperature below the 10th percentile",
+    units="days",
+    long_name="Number of days with mean temperature below the 10th percentile",
+    description="{freq} number of days with mean temperature below the 10th "
+                "percentile ({tas_per_period} period).",
+    cell_methods="time: sum over days",
+    compute=indices.tg10p,
+)
+
+tx90p = TempWithIndexing(
+    identifier="tx90p",
+    title="Days with maximum temperature above the 90th percentile",
+    units="days",
+    long_name="Number of days with maximum temperature above the 90th percentile",
+    description="{freq} number of days with maximum temperature above the 90th "
+                "percentile ({tasmax_per_period} period).",
+    cell_methods="time: sum over days",
+    compute=indices.tx90p,
+)
+
+tx10p = TempWithIndexing(
+    identifier="tx10p",
+    title="Days with maximum temperature below the 10th percentile",
+    units="days",
+    long_name="Number of days with maximum temperature below the 10th percentile",
+    description="{freq} number of days with maximum temperature below the 10th "
+                "percentile ({tasmax_per_period} period).",
+    cell_methods="time: sum over days",
+    compute=indices.tx10p,
+)
+
+tn90p = TempWithIndexing(
+    identifier="tn90p",
+    title="Days with minimum temperature above the 90th percentile",
+    units="days",
+    long_name="Number of days with minimum temperature above the 90th percentile",
+    description="{freq} number of days with minimum temperature above the 90th "
+                "percentile ({tasmin_per_period} period).",
+    cell_methods="time: sum over days",
+    compute=indices.tn90p,
+)
+
+tn10p = TempWithIndexing(
+    identifier="tn10p",
+    title="Days with minimum temperature below the 10th percentile",
+    units="days",
+    long_name="Number of days with minimum temperature below the 10th percentile",
+    description="{freq} number of days with minimum temperature below the 10th "
+                "percentile ({tasmin_per_period} period).",
+    cell_methods="time: sum over days",
+    compute=indices.tn10p,
+)
+
+cold_spell_duration_index = Temp(
+    identifier="cold_spell_duration_index",
+    title="Cold spell duration index",
+    units="days",
+    long_name="Days part of a run of at least {window} days with minimum "
+              "temperature below the 10th percentile",
+    description="{freq} number of days with at least {window} consecutive days "
+                "where the minimum temperature is below the 10th percentile.",
+    cell_methods="time: sum over days",
+    compute=indices.cold_spell_duration_index,
+)
+
+warm_spell_duration_index = Temp(
+    identifier="warm_spell_duration_index",
+    title="Warm spell duration index",
+    units="days",
+    long_name="Days part of a run of at least {window} days with maximum "
+              "temperature above the 90th percentile",
+    description="{freq} number of days with at least {window} consecutive days "
+                "where the maximum temperature is above the 90th percentile.",
+    cell_methods="time: sum over days",
+    compute=indices.warm_spell_duration_index,
 )
