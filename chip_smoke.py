@@ -40,7 +40,21 @@ Builds the hand-written CUDA kernels from ``xclim_tpu_torch/csrc`` (into
    (WSDI's condition, 29 replacements x 4096 cells) against their twins
    at the bootstrap's own inputs;
 9. runs the same calls on the first cells with CPU tensors and on the card
-   and compares the outputs.
+   and compares the outputs;
+10. drives the ensembles slice at bench's "ensembles 192x448" size (30
+    members x 365 noleap days x 192 x 448 cells, 3.77 GB of float32) with
+    planted NaN cells: ``create_ensemble``, ``ensemble_percentiles(ens,
+    [10, 50, 90])`` and ``robustness_fractions(fut, hist, test="ttest")``,
+    checks their launch counts and values, times them, holds the
+    axisquantile kernel against its twin at the call's own input and at a
+    few small shapes, and times ``torch.nanquantile`` on the same input;
+11. runs the same two calls on the first 1024 cells with CPU tensors and on
+    the card and compares the outputs.
+
+Each kernel's record carries its bound (``bound_ms``: the larger of its
+bytes over 3.35 TB/s and its operations over 67 TFLOP/s, the H100 SXM's
+published peaks, computed from this run's inputs) and, where one PyTorch
+call computes the same function, that call's time (``library_ms``).
 
 Every phase raises on failure. The last two lines are a JSON object with
 one entry per kernel and the result line
@@ -73,14 +87,44 @@ PCT_YEARS = 30
 PCT_CPU_CELLS = 64    # one grid row: the CPU twins of a 30-year bootstrap are slow
 PHI = 0.8       # AR(1) coefficient of the tasmax anomaly
 SPELL_DAYS = 10950
+ENS_MEMBERS = 30
+ENS_DAYS = 365      # noleap days from 2000-01-01
+ENS_LAT, ENS_LON = 192, 448   # bench.py's "ensembles 192x448"
+ENS_CPU = (4, 256)  # lat x lon: the first 1024 cells
+ENS_VALUES = [10, 50, 90]
+P_RTOL = 1e-3       # p-values: lgamma, exp and log round differently
+P_ATOL = 1e-6       # on the CPU and the card (tests/test_torch_ensembles.py)
+P_NEAR_ONE = 3e-3   # p >= 0.5: x = df / (df + t^2) rounds to 1 - k ulp
+HBM_BYTES_S = 3.35e12   # H100 SXM: device memory rate
+F32_OPS_S = 67e12       # H100 SXM: float32 rate outside the tensor cores
 KERNELS = {"winquantile": "xclim_tpu/ops/pallas/winquantile.py:344",
            "qdmadjust": "xclim_tpu/ops/pallas/qdmadjust.py:158",
            "segred": "xclim_tpu/ops/pallas/segred.py:176,195",
-           "spells": "xclim_tpu/ops/pallas/spells.py:131"}
+           "spells": "xclim_tpu/ops/pallas/spells.py:131",
+           "axisquantile": "xclim_tpu/ops/pallas/axisquantile.py:112,211"}
 
 
 def _log(*args):
     print(*args, flush=True)
+
+
+def _bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: bytes moved (each input read
+    once, each output written once) over the memory rate, or operations
+    over the float32 rate, whichever is larger."""
+    by_bytes = nbytes / HBM_BYTES_S * 1e3
+    by_ops = ops / F32_OPS_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def _sort_compares(n):
+    """Comparisons a comparison sort needs for columns of n valid
+    values (a tensor of counts): sum of n * log2(n)."""
+    import torch
+
+    n = n.double()
+    return float(torch.where(n > 1, n * torch.log2(n.clamp(min=1)), 0.0).sum())
 
 
 def _compare(name, got, ref, rtol=RTOL, atol=ATOL) -> float:
@@ -219,10 +263,16 @@ def _qdm(series):
 
 
 def _ops():
-    from xclim_tpu_torch.ops import qdmadjust, segred, spells, winquantile
+    from xclim_tpu_torch.ops import (
+        axisquantile,
+        qdmadjust,
+        segred,
+        spells,
+        winquantile,
+    )
 
     return {"winquantile": winquantile, "qdmadjust": qdmadjust,
-            "segred": segred, "spells": spells}
+            "segred": segred, "spells": spells, "axisquantile": axisquantile}
 
 
 def _counts():
@@ -265,7 +315,8 @@ def phase_slice(device, card, record):
     if counts != {"winquantile": 2, "winquantile_twin": 0,
                   "qdmadjust": 1, "qdmadjust_twin": 0,
                   "segred": 0, "segred_twin": 0,
-                  "spells": 0, "spells_twin": 0}:
+                  "spells": 0, "spells_twin": 0,
+                  "axisquantile": 0, "axisquantile_twin": 0}:
         raise AssertionError(f"main path did not run on the kernels: {counts}")
     record["winquantile"]["launches"] = counts["winquantile"]
     record["qdmadjust"]["launches"] = counts["qdmadjust"]
@@ -340,9 +391,17 @@ def phase_slice(device, card, record):
     ms = _cuda_ms(lambda: winquantile.doy_window_quantiles(xd, q, WINDOW), 3)
     pms = _cuda_ms(lambda: winquantile.doy_window_quantiles_plain(
         xd, q, WINDOW), 1)
+    # bound: the slices read once, the nodes written once. The function
+    # needs only nq order statistics of each window, and neighbouring
+    # windows share all but two of their slices: an order-statistic tree
+    # that slides with the window (one slice in, one out, nq ranks read,
+    # log2(930) = 10 steps each) needs ~7 G operations here, under the
+    # bytes. Counted: the interpolation, 4 operations a node
+    n_doy, Y, C = xd.shape
+    nodes = n_doy * len(q) * C
     record["winquantile"].update(
         max_abs_err=max(record["winquantile"]["max_abs_err"], err), ms=ms,
-        plain_ms=pms)
+        plain_ms=pms, **_bound((xd.numel() + nodes) * 4, 4 * nodes))
     _log(f"[kernel vs twin] winquantile {tuple(xd.shape)} window={WINDOW} "
          f"(slice shape): max_abs_err={err} kernel_ms={ms:.3f} "
          f"twin_ms={pms:.3f}")
@@ -358,9 +417,13 @@ def phase_slice(device, card, record):
     err = _compare(f"qdmadjust{tuple(sd.shape)}", got, ref)
     ms = _cuda_ms(lambda: qdmadjust.qdm_adjust_doy(sd, af, q, "+"), 10)
     pms = _cuda_ms(lambda: qdmadjust.qdm_adjust_doy_plain(sd, af, q, "+"), 2)
+    # bound: xd and af read once, the result written once; operations: the
+    # rank of each valid value among its group's (n_valid^2 compares)
+    nv = (~torch.isnan(sd)).sum(dim=1).double()
     record["qdmadjust"].update(
         max_abs_err=max(record["qdmadjust"]["max_abs_err"], err), ms=ms,
-        plain_ms=pms)
+        plain_ms=pms, **_bound((2 * sd.numel() + af.numel()) * 4,
+                               float((nv * nv).sum())))
     _log(f"[kernel vs twin] qdmadjust {tuple(sd.shape)} (slice shape): "
          f"max_abs_err={err} kernel_ms={ms:.3f} twin_ms={pms:.3f}")
     return series
@@ -552,9 +615,9 @@ def phase_tg_mean(device, card, record):
          f"the missing-value count)")
     if counts != {"winquantile": 0, "winquantile_twin": 0, "qdmadjust": 0,
                   "qdmadjust_twin": 0, "segred": 2, "segred_twin": 0,
-                  "spells": 0, "spells_twin": 0}:
+                  "spells": 0, "spells_twin": 0, "axisquantile": 0,
+                  "axisquantile_twin": 0}:
         raise AssertionError(f"tg_mean did not run on the kernel: {counts}")
-    record["segred"]["launches"] = counts["segred"]
     peak = (torch.cuda.max_memory_allocated() - base) / 2**30
 
     # right answer by the repo's own means: shape, the NaN pattern of the
@@ -629,9 +692,8 @@ def phase_tg_mean(device, card, record):
         x2, spec.starts, spec.counts, "mean"), 10)
     pms = _cuda_ms(lambda: segred.segment_reduce_onepass_plain(
         x2, spec.starts, spec.counts, "mean"), 2)
-    record["segred"].update(
-        max_abs_err=max(record["segred"]["max_abs_err"], err), ms=ms,
-        plain_ms=pms)
+    record["segred"]["max_abs_err"] = max(record["segred"]["max_abs_err"],
+                                          err)
     _log(f"[kernel vs twin] segred mean MS {tuple(x2.shape)} (slice shape) "
          f"on {card}: max_abs_err={err} kernel_ms={ms:.4f} twin_ms={pms:.4f}; "
          f"{nbytes / 1e9:.3f} GB read once: {nbytes / ms / 1e6:.1f} GB/s")
@@ -841,6 +903,7 @@ def _capture(module, name, n, run):
 def phase_percentiles(device, card, record):
     """The percentile slice at full size: percentile_doy, tx90p and WSDI
     with the bootstrap at 64 x 64 cells x 30 years."""
+    import numpy as np
     import torch
 
     from xclim_tpu_torch.core.percentiles import percentile_doy
@@ -879,6 +942,7 @@ def phase_percentiles(device, card, record):
         raise AssertionError(f"the percentile slice missed its kernels: "
                              f"expected {want_tx} and {want_ws}")
     record["spells"]["launches"] = c_ws["spells"]
+    record["segred"]["launches"] = c_tx["segred"]
     summary = _check_pct(per, tx, wsdi, PCT_SIDE, device)
     _log(f"[percentiles] values: {json.dumps(summary)}")
     del tx, wsdi
@@ -909,24 +973,38 @@ def phase_percentiles(device, card, record):
     # 29 replacements after segment_reduce's replacement-major copy, (T,
     # 29 * 4096), from the first two segred calls of one tx90p run. Sums
     # of a 0/1 mask: bit-equal.
+    # The second call, the larger, gives the segred record its times, its
+    # bound and the library call: torch.segment_reduce computes the same
+    # NaN-free sums. The port never calls it.
     calls = _capture(segred, "segment_reduce_onepass", 2, lambda: atmos.tx90p(
         tasmax, tasmax_per=per, freq="YS", bootstrap=True))
     for args, kwargs in calls:
-        x2, op = args[0], args[3]
+        x2, starts, counts, op = args
         got = segred.segment_reduce_onepass(*args, **kwargs)
         ref = segred.segment_reduce_onepass_plain(*args, **kwargs)
         err = _compare(f"segred {op}{tuple(x2.shape)} at tx90p's mask", got,
                        ref, rtol=0.0, atol=0.0)
-        del got, ref
+        lengths = torch.as_tensor(np.asarray(counts), device=x2.device)
+        lib = torch.segment_reduce(x2, "sum", lengths=lengths, axis=0)
+        lib_err = float((lib - got).abs().max())
+        del got, ref, lib
         ms = _cuda_ms(lambda: segred.segment_reduce_onepass(*args, **kwargs),
                       10)
         pms = _cuda_ms(lambda: segred.segment_reduce_onepass_plain(
             *args, **kwargs), 2)
+        lms = _cuda_ms(lambda: torch.segment_reduce(x2, "sum",
+                                                    lengths=lengths, axis=0),
+                       10)
         record["segred"]["max_abs_err"] = max(record["segred"]["max_abs_err"],
                                               err)
+        bound = _bound((x2.numel() + len(counts) * x2.shape[1]) * 4,
+                       x2.numel())
+        record["segred"].update(ms=ms, plain_ms=pms, library_ms=lms, **bound)
         _log(f"[kernel vs twin] segred {op} {tuple(x2.shape)} (tx90p's "
              f"exceedance mask) on {card}: max_abs_err={err} "
-             f"kernel_ms={ms:.4f} twin_ms={pms:.4f}")
+             f"kernel_ms={ms:.4f} twin_ms={pms:.4f} torch.segment_reduce_ms="
+             f"{lms:.4f} (max diff {lib_err}) bound_ms="
+             f"{bound['bound_ms']:.4f} ({bound['bound_by']})")
     del calls, x2, args, kwargs
 
     # spells against its twin at the bootstrap's own input: the WSDI
@@ -943,10 +1021,13 @@ def phase_percentiles(device, card, record):
     del got, ref
     ms = _cuda_ms(lambda: spells.spell_stats(cond, *args, **kwargs), 10)
     pms = _cuda_ms(lambda: spells.spell_stats_plain(cond, *args, **kwargs), 2)
+    # bound: the 1-byte condition read once, four (B, nseg, C) float32
+    # results written once; operations: ~4 a day and column
+    nbytes = cond.numel() * cond.element_size()
+    outs = 4 * len(args[0]) * cond.numel() // cond.shape[0] * 4
     record["spells"].update(
         max_abs_err=max(record["spells"]["max_abs_err"], err), ms=ms,
-        plain_ms=pms)
-    nbytes = cond.numel() * cond.element_size()
+        plain_ms=pms, **_bound(nbytes + outs, 4 * cond.numel()))
     _log(f"[kernel vs twin] spells bool {tuple(cond.shape)} (the bootstrap's "
          f"condition, {nbytes / 1e9:.3f} GB) on {card}: max_abs_err={err} "
          f"kernel_ms={ms:.4f} twin_ms={pms:.4f}; {nbytes / ms / 1e6:.1f} GB/s")
@@ -979,6 +1060,346 @@ def phase_percentiles_cpu_vs_card(tasmax):
     _log(f"[cpu twins vs card kernels] percentile_doy, tx90p and WSDI with "
          f"the bootstrap on {PCT_CPU_CELLS} cells x {PCT_YEARS} y: max_abs_err "
          f"{errs} (CPU side {cpu_s:.1f} s)")
+
+
+def phase_axisquantile_small(gen, device, record):
+    """axisquantile against its twin at small shapes: M = 2, 13, 30 and 64
+    samples at (alpha, beta) = (1/3, 1/3), on the leading, a middle and the
+    last axis (post = 1), with 20 % holes, an all-missing and a
+    single-valid column: value-equal."""
+    import torch
+
+    from xclim_tpu_torch.ops import axisquantile
+
+    q = [0.0, 0.01, 0.1, 0.5, 0.9, 0.99, 1.0]
+    ab = (1.0 / 3.0, 1.0 / 3.0)
+    for M in (2, 13, 30, 64):
+        for axis in (0, 1, 2):
+            shape = [64, 37]
+            shape.insert(axis, M)
+            x = torch.randn(shape, generator=gen, device=device) * 5.0 + 285.0
+            holes = torch.rand(shape, generator=gen, device=device) < 0.2
+            x = torch.where(holes, torch.nan, x)
+            xm = x.movedim(axis, 0)
+            xm[:, 0, 0] = torch.nan
+            xm[1:, 0, 1] = torch.nan
+            got = axisquantile.axis_quantile_small(x, q, axis, *ab)
+            torch.cuda.synchronize()
+            ref = axisquantile.axis_quantile_small_plain(x, q, axis, *ab)
+            _compare(f"axisquantile M={M} axis={axis}", got, ref, rtol=0.0,
+                     atol=0.0)
+    _log("[kernel vs twin] axisquantile at M = 2, 13, 30, 64 x axis 0, 1, 2 "
+         "(post = 1), (alpha, beta) = (1/3, 1/3), 7 nodes: value-equal")
+
+
+def _profile(name, fn, card, top=10):
+    """torch.profiler over one fn() after a warm-up: wall time, summed
+    device time of its kernels, the device's idle share of the wall, and
+    the kernels with the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    # kernels only: an aten op's entry repeats the device time of the
+    # kernels it launched
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
+                  key=dev_us, reverse=True)
+    busy_ms = sum(dev_us(e) for e in rows) / 1e3
+    if not rows:
+        _log(f"[profile] {name}: no device time in the trace; wall "
+             f"{wall_ms:.3f} ms")
+        return
+    _log(f"[profile] {name} on {card}: wall {wall_ms:.3f} ms (profiled), "
+         f"kernel time {busy_ms:.3f} ms in {sum(e.count for e in rows)} "
+         f"launches, idle {max(0.0, 1.0 - busy_ms / wall_ms) * 100:.1f} %")
+    for e in rows[:top]:
+        _log(f"[profile]   {dev_us(e) / 1e3:9.3f} ms  {e.count:5d}x  "
+             f"{e.key[:90]}")
+
+
+def _ensemble(device):
+    """30 members of tas (365 noleap days from 2000-01-01, 192 x 448 cells)
+    from a seeded generator: 285 K + 5 K of daily noise + a member-specific
+    warming over the year (0-2 K, so fut and hist differ for some members
+    and not others). Planted NaN: cell (0, 0) misses every member, cell
+    (0, 1) all but member 0, cell (1, j) members 0..j (j < 10)."""
+    import numpy as np
+    import torch
+
+    from xclim_tpu_torch.core.calendar import date_range
+    from xclim_tpu_torch.core.dataarray import ClimArray
+    from xclim_tpu_torch.ensembles import create_ensemble
+
+    t = date_range("2000-01-01", periods=ENS_DAYS, freq="D", calendar="noleap")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    ramp = torch.linspace(0.0, 1.0, ENS_DAYS, device=device)[:, None, None]
+    warm = torch.rand((ENS_MEMBERS,), generator=gen, device=device) * 2.0
+    coords = {"time": t, "lat": np.arange(ENS_LAT), "lon": np.arange(ENS_LON)}
+    members = []
+    for m in range(ENS_MEMBERS):
+        d = torch.randn((ENS_DAYS, ENS_LAT, ENS_LON), generator=gen,
+                        device=device)
+        d.mul_(5.0).add_(285.0).add_(ramp * warm[m])
+        d[:, 0, 0] = torch.nan
+        if m >= 1:
+            d[:, 0, 1] = torch.nan
+        d[:, 1, m:10] = torch.nan
+        members.append(ClimArray(d, ("time", "lat", "lon"), coords,
+                                 {"units": "K",
+                                  "standard_name": "air_temperature"}, "tas"))
+    return create_ensemble(members)
+
+
+def _ens_calls(ens):
+    """The slice's two public calls, as bench.py:773-778 composes them."""
+    from xclim_tpu_torch.ensembles import (
+        ensemble_percentiles,
+        robustness_fractions,
+    )
+
+    per = ensemble_percentiles(ens, values=ENS_VALUES)
+    fut = ens.isel(time=slice(183, 365))
+    hist = ens.isel(time=slice(0, 182))
+    return per, robustness_fractions(fut, hist, test="ttest")
+
+
+def _check_ens(ens, per, rf):
+    """Values by the repo's own means; returns a summary dict."""
+    import torch
+
+    p10, p50, p90 = (per[float(v)].data for v in ENS_VALUES)
+    shape = (ENS_DAYS, ENS_LAT, ENS_LON)
+    if any(tuple(p.shape) != shape for p in (p10, p50, p90)):
+        raise AssertionError(f"percentiles {tuple(p10.shape)}, expected {shape}")
+    nan = torch.isnan(p50)
+    expect = torch.zeros(shape, dtype=torch.bool, device=nan.device)
+    expect[:, 0, 0] = True
+    if not all(torch.equal(torch.isnan(p), expect) for p in (p10, p50, p90)):
+        raise AssertionError("percentiles: NaN away from the all-NaN cell")
+    if bool((p10[~nan] > p50[~nan]).any() or (p50[~nan] > p90[~nan]).any()):
+        raise AssertionError("p10 <= p50 <= p90 fails")
+    single = ens.data[0, :, 0, 1]
+    if not all(torch.equal(p[:, 0, 1], single) for p in (p10, p50, p90)):
+        raise AssertionError("the single valid member's value is not every "
+                             "percentile of its cell")
+    fr = {k: rf[k].data for k in rf.keys() if k != "pvals"}
+    for k, v in fr.items():
+        if tuple(v.shape) != (ENS_LAT, ENS_LON) or bool(
+                ((v < 0) | (v > 1) | torch.isnan(v)).any()):
+            raise AssertionError(f"fraction {k}: outside [0, 1]")
+    # changed counts the valid members that changed significantly; the
+    # significant positive and negative ones are disjoint parts of it
+    if bool((fr["changed_positive"] + fr["changed_negative"]
+             > fr["changed"] + 1e-6).any()):
+        raise AssertionError("changed_positive + changed_negative > changed")
+    valid = fr["valid"]
+    want = [(0, 0, 0.0), (0, 1, 1 / ENS_MEMBERS)] + [
+        (1, j, (ENS_MEMBERS - j - 1) / ENS_MEMBERS) for j in range(10)]
+    for i, j, v in want:
+        if abs(float(valid[i, j]) - v) > 1e-6:
+            raise AssertionError(f"valid[{i}, {j}] = {float(valid[i, j])}, "
+                                 f"expected {v}")
+    changed = float(fr["changed"].double().mean())
+    if not 0.05 < changed < 0.95:
+        raise AssertionError(f"mean changed fraction {changed}: the members' "
+                             f"warming should split them")
+    pv = rf["pvals"].data
+    if tuple(pv.shape) != (ENS_MEMBERS, ENS_LAT, ENS_LON):
+        raise AssertionError(f"pvals {tuple(pv.shape)}")
+    return {"p50_mean_K": float(p50[~nan].double().mean()),
+            "p90_minus_p10_mean_K": float((p90 - p10)[~nan].double().mean()),
+            "changed_mean": changed,
+            "positive_mean": float(fr["positive"].double().mean()),
+            "valid_mean": float(valid.double().mean())}
+
+
+def phase_ensembles(device, card, record):
+    """The ensembles slice at full size: ensemble_percentiles + ttest
+    robustness_fractions over 30 members x 365 days x 192 x 448 cells."""
+    import torch
+
+    from xclim_tpu_torch.ensembles import (
+        ensemble_percentiles,
+        robustness_fractions,
+    )
+    from xclim_tpu_torch.ops import axisquantile
+
+    ens = _ensemble(device)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    nbytes = ens.data.numel() * 4
+    cells = ENS_LAT * ENS_LON
+
+    # the main path's runs: counts from zero before each call, read right
+    # after. ensemble_percentiles: one axisquantile launch (all three nodes
+    # in one pass); robustness_fractions(ttest): none (time moments and the
+    # incomplete beta function are plain torch).
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    per = ensemble_percentiles(ens, values=ENS_VALUES)
+    torch.cuda.synchronize()
+    c_per = _counts()
+    _reset_counts()
+    rf = robustness_fractions(ens.isel(time=slice(183, 365)),
+                              ens.isel(time=slice(0, 182)), test="ttest")
+    torch.cuda.synchronize()
+    c_rf = _counts()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    zero = {k: 0 for k in c_per}
+    _log(f"[ensembles] launch counts at {ENS_MEMBERS} members x {ENS_DAYS} "
+         f"days x {cells} cells: ensemble_percentiles {json.dumps(c_per)}; "
+         f"robustness_fractions(ttest) {json.dumps(c_rf)}")
+    if c_per != dict(zero, axisquantile=1) or c_rf != zero:
+        raise AssertionError("the ensembles slice missed its kernel")
+    record["axisquantile"]["launches"] = c_per["axisquantile"]
+    summary = _check_ens(ens, per, rf)
+    _log(f"[ensembles] values: {json.dumps(summary)}; peak device memory of "
+         f"the pair above the input {peak:.3f} GiB (input "
+         f"{nbytes / 2**30:.3f} GiB)")
+    del per, rf
+
+    rate = ENS_MEMBERS * ENS_DAYS * cells
+    for name, fn in (
+            ("ensemble_percentiles(ens, [10, 50, 90])",
+             lambda: ensemble_percentiles(ens, values=ENS_VALUES)),
+            ("robustness_fractions(fut, hist, test='ttest')",
+             lambda: robustness_fractions(ens.isel(time=slice(183, 365)),
+                                          ens.isel(time=slice(0, 182)),
+                                          test="ttest")),
+            ("percentiles + robustness (the pair)", lambda: _ens_calls(ens))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sec, runs = _timed(fn)
+        pk = (torch.cuda.max_memory_allocated() - base) / 2**30
+        _log(f"[ensembles] {name} ({ENS_MEMBERS}, {ENS_DAYS}, {ENS_LAT}, "
+             f"{ENS_LON}) on {card}: {sec:.5f} s (median of 3 after a "
+             f"warm-up; runs {[round(v, 5) for v in runs]}), "
+             f"{rate / sec:.1f} member-cell-days/s, peak device memory above "
+             f"the input {pk:.3f} GiB")
+
+    _profile("ensembles pair", lambda: _ens_calls(ens), card)
+
+    # the kernel against its twin, and torch.nanquantile (alpha = beta = 1:
+    # the same function; the port never calls it), at the call's own input
+    (args, kwargs), = _capture(axisquantile, "axis_quantile_small", 1,
+                               lambda: ensemble_percentiles(
+                                   ens, values=ENS_VALUES))
+    x, q = args[0], args[1]
+    got = axisquantile.axis_quantile_small(*args, **kwargs)
+    torch.cuda.synchronize()
+    ref = axisquantile.axis_quantile_small_plain(*args, **kwargs)
+    err = _compare(f"axisquantile{tuple(x.shape)} at the ensemble's input",
+                   got, ref, rtol=0.0, atol=0.0)
+    del ref
+    qt = torch.as_tensor(q, dtype=torch.float32, device=x.device)
+
+    def library():
+        return torch.nanquantile(x, qt, dim=0)
+    lib = library()
+    lib_err = float(torch.nan_to_num((lib - got).abs()).max())
+    del lib
+    ms = _cuda_ms(lambda: axisquantile.axis_quantile_small(*args, **kwargs),
+                  10)
+    pms = _cuda_ms(lambda: axisquantile.axis_quantile_small_plain(
+        *args, **kwargs), 2)
+    lms = _cuda_ms(library, 2)
+    cols = x.numel() // x.shape[0]
+    # bound: x read once, the nodes written once; operations: a comparison
+    # sort of each column's valid members, ~8 per node for the selection
+    bound = _bound((x.numel() + len(q) * cols) * 4,
+                   _sort_compares((~torch.isnan(x)).sum(dim=0))
+                   + 8 * len(q) * cols)
+    record["axisquantile"].update(
+        max_abs_err=max(record["axisquantile"]["max_abs_err"], err), ms=ms,
+        plain_ms=pms, library_ms=lms, **bound)
+    _log(f"[kernel vs twin] axisquantile {tuple(x.shape)} (the ensemble's "
+         f"input, {nbytes / 1e9:.3f} GB) on {card}: max_abs_err={err} "
+         f"kernel_ms={ms:.4f} twin_ms={pms:.4f} torch.nanquantile_ms="
+         f"{lms:.4f} (max diff to the kernel {lib_err}) "
+         f"bound_ms={bound['bound_ms']:.4f} ({bound['bound_by']}); "
+         f"{(x.numel() + len(q) * cols) * 4 / ms / 1e6:.1f} GB/s")
+    return ens
+
+
+def phase_ensembles_cpu_vs_card(ens):
+    """The slice's calls on the first 1024 cells: CPU tensors (the twin)
+    against the card (the kernel). Percentiles value-equal; p-values within
+    P_RTOL (P_NEAR_ONE absolute from 0.5 up); fractions equal, except
+    changed* in cells where a member's p-value lies within P_RTOL of
+    p_change = 0.05, and positive, negative and agree where one lies within
+    P_NEAR_ONE of 1."""
+    import torch
+
+    sub = ens.isel(lat=slice(0, ENS_CPU[0]), lon=slice(0, ENS_CPU[1]))
+    before = _counts()
+    per_c, rf_c = _ens_calls(sub.to("cpu"))
+    per_g, rf_g = _ens_calls(sub)
+    torch.cuda.synchronize()
+    after = _counts()
+    d = {k: after[k] - before[k] for k in after}
+    if d["axisquantile_twin"] != 1 or d["axisquantile"] != 1:
+        raise AssertionError(f"CPU run must use the twin, the card the "
+                             f"kernel: {d}")
+    errs = {f"p{int(v)}": _compare(f"p{int(v)} cpu vs card",
+                                   per_g[float(v)].data, per_c[float(v)].data,
+                                   rtol=0.0, atol=0.0) for v in ENS_VALUES}
+    # float32 x = df / (df + t^2) resolves t^2 only above df * 6e-8, so a
+    # p-value near 1 carries an absolute error up to ~0.8 * sqrt(181 *
+    # 6e-8) = 2.6e-3 on either side; below 0.5 the relative bound holds
+    pg, pc = rf_g["pvals"].data.cpu(), rf_c["pvals"].data
+    high = pc >= 0.5
+    errs["pvals"] = max(
+        _compare("pvals < 0.5 cpu vs card", pg[~high], pc[~high],
+                 rtol=P_RTOL, atol=P_ATOL),
+        _compare("pvals >= 0.5 cpu vs card", pg[high], pc[high], rtol=0.0,
+                 atol=P_NEAR_ONE))
+    # a member whose p-value sits within P_RTOL of p_change may flip
+    # `changed` and so changed_*; one within P_NEAR_ONE of 1 has |fut - hist|
+    # within rounding of 0, whose sign may flip positive, negative and agree.
+    # No cell is exempt from `valid`.
+    near_change = ((pc - 0.05).abs() <= P_RTOL * 0.05 + P_ATOL).any(dim=0)
+    near_one = (pc >= 1.0 - P_NEAR_ONE).any(dim=0)
+    exempt = {"changed": near_change, "changed_positive": near_change,
+              "changed_negative": near_change, "positive": near_one,
+              "negative": near_one, "agree": near_one}
+    # a member's p-value lies within P_NEAR_ONE of 1 with chance P_NEAR_ONE
+    # when it shows no change: at most 1 - (1 - 3e-3)^30 = 8.6 % of cells
+    ncell = near_one.numel()
+    share = {"near_p_change": float(near_change.float().mean()),
+             "near_one": float(near_one.float().mean())}
+    if share["near_p_change"] >= 0.05 or share["near_one"] >= 0.10:
+        raise AssertionError(f"too many exempt cells: {share}")
+    for k in rf_c.keys():
+        if k == "pvals":
+            continue
+        g, c = rf_g[k].data.cpu(), rf_c[k].data
+        ok = ~exempt.get(k, torch.zeros_like(near_one))
+        if not torch.equal(g[ok], c[ok]):
+            raise AssertionError(f"{k}: cpu and card fractions differ")
+    _log(f"[cpu twin vs card kernel] ensemble_percentiles and "
+         f"robustness_fractions(ttest) on {ncell} cells: "
+         f"max_abs_err {json.dumps(errs)} (percentiles value-equal, p-values "
+         f"within rtol {P_RTOL} below 0.5, {P_NEAR_ONE} above); fractions "
+         f"equal: valid in all cells, changed* in "
+         f"{int((~near_change).sum())} ({int(near_change.sum())} exempt: a "
+         f"p-value within tolerance of 0.05, bound 5 %), positive, negative "
+         f"and agree in {int((~near_one).sum())} ({int(near_one.sum())} "
+         f"exempt: a p-value within {P_NEAR_ONE} of 1, bound 10 %)")
 
 
 def main() -> int:
@@ -1015,7 +1436,8 @@ def main() -> int:
         record[name] = {
             "name": name, "route": "cuda",
             "source": f"xclim_tpu_torch/csrc/{name}.cu", "replaces": replaces,
-            "launches": 0, "max_abs_err": 0.0, "ms": None, "plain_ms": None}
+            "launches": 0, "max_abs_err": 0.0, "ms": None, "plain_ms": None,
+            "bound_ms": None, "bound_by": None, "library_ms": None}
 
     q = equally_spaced_nodes(NQ).astype("float32")
     gen = torch.Generator(device=device)
@@ -1033,6 +1455,11 @@ def main() -> int:
     phase_spells_small(gen, device, record)
     tasmax = phase_percentiles(device, card, record)
     phase_percentiles_cpu_vs_card(tasmax)
+    del tasmax
+    torch.cuda.empty_cache()
+    phase_axisquantile_small(gen, device, record)
+    ens = phase_ensembles(device, card, record)
+    phase_ensembles_cpu_vs_card(ens)
 
     _log(json.dumps({"kernels": list(record.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -49,7 +49,8 @@ def test_no_jax_or_triton_import(path):
     assert not roots & {"jax", "jaxlib", "triton", "xclim_tpu"}, roots
 
 
-@pytest.mark.parametrize("name", ["winquantile", "qdmadjust", "segred"])
+@pytest.mark.parametrize("name", ["winquantile", "qdmadjust", "segred",
+                                  "spells", "axisquantile"])
 def test_kernels_are_cuda_sources_for_sm90a(name):
     from xclim_tpu_torch.ops import _build
 

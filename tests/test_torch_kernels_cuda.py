@@ -10,7 +10,14 @@ import pytest
 import torch
 
 from xclim_tpu_torch.core.calendar import date_range, resample_segments
-from xclim_tpu_torch.ops import qdmadjust, segred, spells, winquantile
+from xclim_tpu_torch.ops import (
+    axisquantile,
+    qdmadjust,
+    segred,
+    spells,
+    winquantile,
+)
+from xclim_tpu_torch.ops.quantile import nan_quantile
 from xclim_tpu_torch.sdba.utils import equally_spaced_nodes
 
 # the string condition is evaluated when each test is set up, not when the
@@ -225,3 +232,81 @@ def test_spells_kernel_uneven_bounds_and_nan_thresholds(cuda):
             got = spells.spell_stats(x, starts, counts, 2, op, thresh)
             _spells_equal(got, spells.spell_stats_plain(x, starts, counts, 2,
                                                         op, thresh))
+
+
+def _axis_samples(M, axis, seed, nanfrac):
+    """(M, 7, 300) K-scale samples moved so the M lie on `axis`, with
+    all-NaN, single-valid and tie columns."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(285.0, 5.0, (M, 7, 300)).astype(np.float32)
+    x[rng.random(x.shape) < nanfrac] = np.nan
+    x[:, 0, 0] = np.nan
+    x[1:, 0, 1] = np.nan
+    x[::2, 0, 2] = x[0, 0, 2]
+    x[:, 1, 3] = np.round(x[:, 1, 3])
+    return np.moveaxis(x, 0, axis).copy()
+
+
+def _value_equal(got, exp):
+    # the same float32 op sequence, value for value (-0.0 == 0.0)
+    got, exp = got.cpu().numpy(), exp.cpu().numpy()
+    assert got.shape == exp.shape
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(exp))
+    ok = ~np.isnan(exp)
+    assert (got[ok] == exp[ok]).all()
+
+
+AXQ = np.asarray([0.0, 0.01, 0.1, 0.5, 0.9, 0.99, 1.0], np.float32)
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+@pytest.mark.parametrize("alpha,beta", [(1.0, 1.0), (1 / 3, 1 / 3),
+                                        (0.0, 0.0)])
+@pytest.mark.parametrize("M,nanfrac", [(1, 0.0), (2, 0.1), (3, 0.5),
+                                       (13, 0.2), (30, 0.0), (30, 0.3),
+                                       (32, 0.1), (33, 0.05), (64, 0.4)])
+def test_axisquantile_kernel_matches_twin(cuda, M, nanfrac, alpha, beta,
+                                          axis):
+    x = torch.as_tensor(_axis_samples(M, axis, M * 10 + axis, nanfrac),
+                        device=cuda)
+    before = axisquantile.launches
+    got = axisquantile.axis_quantile_small(x, AXQ, axis, alpha, beta)
+    torch.cuda.synchronize()
+    assert axisquantile.launches == before + 1
+    _value_equal(got, axisquantile.axis_quantile_small_plain(x, AXQ, axis,
+                                                             alpha, beta))
+
+
+def test_axisquantile_dispatch_on_the_card(cuda):
+    x = torch.as_tensor(_axis_samples(30, 0, 1, 0.1), device=cuda)
+    launches, twins = axisquantile.launches, axisquantile.twin_calls
+    got = nan_quantile(x, AXQ, axis=0)
+    assert axisquantile.launches == launches + 1
+    _value_equal(got, axisquantile.axis_quantile_small_plain(x, AXQ, 0))
+    # any number of nodes goes to the kernel
+    q = np.linspace(0.0, 1.0, 200, dtype=np.float32)
+    _value_equal(nan_quantile(x, q, axis=0),
+                 axisquantile.axis_quantile_small_plain(x, q, 0))
+    assert axisquantile.launches == launches + 2
+    # M = 65 and float64 take the plain path; no call counts as a twin call
+    nan_quantile(torch.zeros(65, 9, device=cuda), AXQ, axis=0)
+    nan_quantile(x.double(), AXQ, axis=0)
+    assert axisquantile.launches == launches + 2
+    assert axisquantile.twin_calls == twins
+
+
+def test_axisquantile_non_contiguous_and_many_nodes(cuda):
+    x = torch.as_tensor(_axis_samples(30, 2, 5, 0.2), device=cuda)
+    xt = x.transpose(0, 1)
+    assert not xt.is_contiguous()
+    q = np.linspace(0.0, 1.0, 200, dtype=np.float32)
+    _value_equal(axisquantile.axis_quantile_small(xt, q, 2),
+                 axisquantile.axis_quantile_small_plain(xt, q, 2))
+
+
+def test_axisquantile_rejects_what_it_does_not_take(cuda):
+    with pytest.raises(ValueError, match="1 to 64"):
+        axisquantile.axis_quantile_small(torch.zeros(65, 4, device=cuda),
+                                         AXQ, 0)
+    with pytest.raises(ValueError, match="no axisquantile kernel"):
+        axisquantile.axis_quantile_small(torch.zeros(30, 4), AXQ, 0)

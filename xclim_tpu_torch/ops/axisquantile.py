@@ -1,0 +1,105 @@
+"""Quantiles over a short axis (at most 64 samples): the ensemble kernel.
+
+Ensemble percentiles reduce over ~30 realizations for every cell and day.
+:func:`axis_quantile_small` computes the NaN-skipping Hyndman-Fan quantiles
+of :func:`~xclim_tpu_torch.ops.quantile.nan_quantile` over one axis of a
+CUDA tensor with the hand-written kernel ``csrc/axisquantile.cu`` (one
+thread per column of the (pre, M, post) view, a register sorting network)
+and raises if the launch fails; it serves no other device.
+:func:`~xclim_tpu_torch.ops.quantile.nan_quantile` sends it every CUDA
+float32 call with 1 < M <= 64. :func:`axis_quantile_small_plain` is the
+plain PyTorch twin: the sort formulation, on any device.
+
+``launches`` counts kernel launches; ``twin_calls`` the calls that
+``nan_quantile`` served with the twin because the tensor lay on the CPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from xclim_tpu_torch.ops import _build
+from xclim_tpu_torch.ops.quantile import _node_constants, nan_quantile_plain
+
+__all__ = ["MAX_AXIS", "axis_quantile_small", "axis_quantile_small_plain"]
+
+#: kernel launches made by axis_quantile_small
+launches = 0
+#: nan_quantile calls served with the plain twin (CPU tensors)
+twin_calls = 0
+
+#: longest reduce axis the kernel sorts in registers
+MAX_AXIS = 64
+
+
+@functools.lru_cache(maxsize=64)
+def _device_nodes(nodes: bytes, device: torch.device) -> torch.Tensor:
+    """The node constants on the device, copied once per set (a copy from
+    host memory would wait for the device on every call)."""
+    return torch.frombuffer(bytearray(nodes), dtype=torch.float32).to(device)
+
+
+def _q_host(q) -> np.ndarray:
+    if isinstance(q, torch.Tensor):
+        q = q.detach().cpu().numpy()
+    return np.asarray(q, dtype=np.float32).reshape(-1)
+
+
+def axis_quantile_small(x: torch.Tensor, q, axis: int = 0,
+                        alpha: float = 1.0, beta: float = 1.0) -> torch.Tensor:
+    """Quantiles over ``axis`` (1 <= M <= 64 samples) of a CUDA float32
+    tensor: shape (nq,) + x.shape without the axis, on x's device, with the
+    semantics and the bits of
+    :func:`~xclim_tpu_torch.ops.quantile.nan_quantile_plain`."""
+    global launches
+    if x.device.type != "cuda":
+        raise ValueError(f"no axisquantile kernel for device {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"x must be float32, got {x.dtype}")
+    ax = axis % x.ndim
+    M = x.shape[ax]
+    if not 1 <= M <= MAX_AXIS:
+        raise ValueError(f"axis of {M} samples: the kernel takes 1 to "
+                         f"{MAX_AXIS}")
+    qv, coff = _node_constants(_q_host(q), alpha, beta)
+    nq = len(qv)
+    xc = x.contiguous()
+    pre = int(np.prod(x.shape[:ax], dtype=np.int64))
+    post = int(np.prod(x.shape[ax + 1:], dtype=np.int64))
+    rest = x.shape[:ax] + x.shape[ax + 1:]
+    out = torch.empty((nq, pre * post), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out.reshape((nq,) + rest)
+    nodes = _device_nodes(np.concatenate([qv, coff]).tobytes(), x.device)
+    fn = _function()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(xc.data_ptr(), out.data_ptr(), nodes.data_ptr(), M, nq, pre,
+                 post, stream)
+    if err != 0:
+        raise RuntimeError(f"axisquantile kernel launch failed: CUDA error "
+                           f"{err}")
+    launches += 1
+    return out.reshape((nq,) + rest)
+
+
+def _function():
+    lib = _build.load("axisquantile")
+    fn = lib.xtt_axisquantile
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def axis_quantile_small_plain(x: torch.Tensor, q, axis: int = 0,
+                              alpha: float = 1.0,
+                              beta: float = 1.0) -> torch.Tensor:
+    """Plain PyTorch twin of the kernel, on x's device: the sort
+    formulation of :func:`~xclim_tpu_torch.ops.quantile.nan_quantile_plain`
+    with the same host-rounded nodes."""
+    return nan_quantile_plain(x, _q_host(q), axis, alpha, beta)

@@ -1,4 +1,4 @@
-"""NaN-aware Hyndman-Fan quantiles (sort formulation).
+"""NaN-aware Hyndman-Fan quantiles.
 
 Replicates the semantics of xclim's percentile kernel
 (``_nan_quantile``, xclim:src/xclim/core/utils.py:494-558), as the reference's
@@ -13,15 +13,30 @@ Replicates the semantics of xclim's percentile kernel
 
 The float32 op sequence is the reference's: ``h = n*q + (q*(1-a-b)+a) - 1``,
 clip to ``[0, n-1]``, floor, ``gamma = h - floor(h)``, ``v0*(1-gamma) +
-v1*gamma``. The two order statistics are gathered from the sorted axis
-(torch.sort puts NaNs last).
+v1*gamma``.
+
+:func:`nan_quantile` dispatches as the reference's does
+(xclim_tpu/ops/quantile.py:32-66, :88-147): a CUDA float32 tensor whose
+reduce axis holds 2 to 64 samples goes to the hand-written axisquantile
+kernel (:func:`~xclim_tpu_torch.ops.axisquantile.axis_quantile_small`);
+everything else to :func:`nan_quantile_plain`, the sort formulation, which
+gives the kernel's bits.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["nan_quantile", "nan_percentile"]
+__all__ = ["nan_quantile", "nan_quantile_plain", "nan_percentile"]
+
+
+def _node_constants(q, alpha: float, beta: float):
+    """(qvals, coffs) rounded at float32 exactly where nan_quantile's op
+    sequence rounds them: q, then q*(1-a-b) + a."""
+    qv = np.asarray(q, dtype=np.float32).reshape(-1)
+    coff = (qv * np.float32(1 - alpha - beta)) + np.float32(alpha)
+    return qv, coff.astype(np.float32)
 
 
 def nan_quantile(x: torch.Tensor, q, axis: int = -1, alpha: float = 1.0,
@@ -40,7 +55,28 @@ def nan_quantile(x: torch.Tensor, q, axis: int = -1, alpha: float = 1.0,
     tensor with shape q.shape + x.shape-without-axis (quantile axis first,
     matching xclim ``_nan_quantile``), on x's device.
     """
-    q = torch.as_tensor(q, dtype=torch.float32, device=x.device).reshape(-1)
+    # imported here: ops.axisquantile imports this module
+    from xclim_tpu_torch.ops import axisquantile
+
+    ax = axis % x.ndim
+    if 1 < x.shape[ax] <= axisquantile.MAX_AXIS and x.dtype == torch.float32:
+        if x.device.type == "cuda":
+            return axisquantile.axis_quantile_small(x, q, ax, alpha, beta)
+        if x.device.type == "cpu":
+            axisquantile.twin_calls += 1
+    return nan_quantile_plain(x, q, ax, alpha, beta)
+
+
+def nan_quantile_plain(x: torch.Tensor, q, axis: int = -1, alpha: float = 1.0,
+                       beta: float = 1.0) -> torch.Tensor:
+    """The sort formulation of :func:`nan_quantile`, on any device: the two
+    order statistics are gathered from the sorted axis (torch.sort puts
+    NaNs last)."""
+    if isinstance(q, torch.Tensor):
+        q = q.to(device=x.device, dtype=torch.float32).reshape(-1)
+    else:
+        q = torch.as_tensor(np.asarray(q, dtype=np.float32).reshape(-1),
+                            device=x.device)
     xm = x.movedim(axis % x.ndim, -1)
     xs = torch.sort(xm, dim=-1).values                 # NaNs sort to the end
     n = (~torch.isnan(xm)).sum(dim=-1, keepdim=True).to(torch.float32)

@@ -11,7 +11,8 @@ from the (n_doy, Y, C) doy slices:
   holds more than 1024 samples) and raises if the launch fails;
 * on a CPU tensor it runs :func:`doy_window_quantiles_plain`, the plain
   PyTorch twin: the windowed gather plus the sort quantile of
-  :func:`~xclim_tpu_torch.ops.quantile.nan_quantile`, chunked over cells.
+  :func:`~xclim_tpu_torch.ops.quantile.nan_quantile_plain`, chunked over
+  cells (never the dispatcher, so the twin stays plain on the card).
 
 ``launches`` and ``twin_calls`` count the calls each path served.
 """
@@ -20,11 +21,10 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from xclim_tpu_torch.ops import _build
-from xclim_tpu_torch.ops.quantile import nan_quantile
+from xclim_tpu_torch.ops.quantile import _node_constants, nan_quantile_plain
 
 __all__ = ["doy_window_quantiles", "doy_window_quantiles_plain"]
 
@@ -42,14 +42,6 @@ _SLAB_BYTES = 1 << 30
 
 def _pow2(n: int) -> int:
     return 1 << (int(n) - 1).bit_length()
-
-
-def _node_constants(q, alpha: float, beta: float):
-    """(qvals, coffs) rounded at float32 exactly where nan_quantile's op
-    sequence rounds them: q, then q*(1-a-b) + a."""
-    qv = np.asarray(q, dtype=np.float32).reshape(-1)
-    coff = (qv * np.float32(1 - alpha - beta)) + np.float32(alpha)
-    return qv, coff.astype(np.float32)
 
 
 def _check(xg: torch.Tensor, window: int):
@@ -134,6 +126,6 @@ def doy_window_quantiles_plain(xg: torch.Tensor, q, window: int,
     for c0 in range(0, C, slab):
         part = xg[:, :, c0:c0 + slab]
         g = part[rows].reshape(n_doy, window * Y, part.shape[-1])
-        res = nan_quantile(g, qv, axis=1, alpha=alpha, beta=beta)
+        res = nan_quantile_plain(g, qv, axis=1, alpha=alpha, beta=beta)
         out[:, :, c0:c0 + slab] = res.movedim(0, 1)
     return out
