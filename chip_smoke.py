@@ -8,14 +8,17 @@ Builds the hand-written CUDA kernels from ``xclim_tpu_torch/csrc`` (into
 
 1. prints each kernel's build time, the card's name and power limit;
 2. holds each kernel against its plain PyTorch twin on the card at 1024
-   cells, with fully valid, partly missing and all-missing lanes (segred:
-   every op, MS/YS/QS-DEC, noleap and 360_day, and an all-NaN month);
+   cells, with fully valid, partly missing and all-missing lanes
+   (winquantile value-equal at windows 5, 31 and 61, 30 and 60 years, a
+   sparse doy 366 and tied values; segred: every op, MS/YS/QS-DEC, noleap
+   and 360_day, and an all-NaN month);
 3. drives the sdba QDM slice at the repo's "QDM 16k" size (128 x 128 cells,
    30 noleap years, day-of-year window 31, 50 quantiles) through
    ``QuantileDeltaMapping.train(...).adjust(...)``, checks that it went
    through the kernels (launch counts) and that the result is right, times
-   it, runs EQM once, and times each kernel against its twin at the slice's
-   shapes;
+   it, runs EQM once, times each kernel against its twin at the slice's
+   shapes, and runs winquantile's stage profile there (each stage's
+   result held against its plain expression);
 4. runs the same public call on the first 256 cells with CPU tensors (the
    twins) and on the card (the kernels) and compares the outputs;
 5. drives the indicator slice ``atmos.tg_mean(tas, freq="MS")`` at the
@@ -29,7 +32,8 @@ Builds the hand-written CUDA kernels from ``xclim_tpu_torch/csrc`` (into
 7. holds the spells kernel against its twin at (10950, 1024) for every op,
    windows 1, 3 and 6, MS/YS/QS-DEC, noleap and 360_day, float and bool
    input, with fully valid, partly missing and all-missing lanes and planted
-   runs (one across a year boundary, one of exactly the window): all four
+   runs (one across a year boundary, one of exactly the window), then YS
+   and one segment over the whole series at 1024 and 1000 cells: all four
    counts bit-equal;
 8. drives the percentile slice at the repo's "tx90p bootstrap 4096" size
    (64 x 64 cells, 30 noleap years from 1981-01-01, an AR(1) tasmax):
@@ -37,8 +41,8 @@ Builds the hand-written CUDA kernels from ``xclim_tpu_torch/csrc`` (into
    and ``atmos.warm_spell_duration_index(..., bootstrap=True)``, checks
    their launch counts and values, times them, and holds segred (tx90p's
    exceedance sums, plain and 29 replacements x 4096 cells) and spells
-   (WSDI's condition, 29 replacements x 4096 cells) against their twins
-   at the bootstrap's own inputs;
+   (WSDI's condition, 29 replacements x 4096 cells) against their twins at
+   the bootstrap's own inputs;
 9. runs the same calls on the first cells with CPU tensors and on the card
    and compares the outputs;
 10. drives the ensembles slice at bench's "ensembles 192x448" size (30
@@ -60,6 +64,13 @@ Every phase raises on failure. The last two lines are a JSON object with
 one entry per kernel and the result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device it exits with status 2 and prints no result.
+
+    PYTHONPATH=<checkout> python3 -P chip_smoke.py --kernel-times
+
+prints one JSON line of the winquantile and spells times at this script's
+shapes (``kernel_times``) for the package of ``<checkout>`` (``-P`` keeps
+this script's own directory off the module path), and nothing else: run
+it for two checkouts in turns within one call to compare them on one card.
 """
 
 from __future__ import annotations
@@ -97,11 +108,19 @@ P_ATOL = 1e-6       # on the CPU and the card (tests/test_torch_ensembles.py)
 P_NEAR_ONE = 3e-3   # p >= 0.5: x = df / (df + t^2) rounds to 1 - k ulp
 HBM_BYTES_S = 3.35e12   # H100 SXM: device memory rate
 F32_OPS_S = 67e12       # H100 SXM: float32 rate outside the tensor cores
-KERNELS = {"winquantile": "xclim_tpu/ops/pallas/winquantile.py:344",
-           "qdmadjust": "xclim_tpu/ops/pallas/qdmadjust.py:158",
-           "segred": "xclim_tpu/ops/pallas/segred.py:176,195",
-           "spells": "xclim_tpu/ops/pallas/spells.py:131",
-           "axisquantile": "xclim_tpu/ops/pallas/axisquantile.py:112,211"}
+#: record name -> (build target of xclim_tpu_torch/ops/_build.py, the TPU
+#: kernel it replaces)
+KERNELS = {"winquantile": ("winquantile",
+                           "xclim_tpu/ops/pallas/winquantile.py:344"),
+           "qdmadjust": ("qdmadjust", "xclim_tpu/ops/pallas/qdmadjust.py:158"),
+           "segred": ("segred", "xclim_tpu/ops/pallas/segred.py:176,195"),
+           "spells": ("spells", "xclim_tpu/ops/pallas/spells.py:131"),
+           "axisquantile": ("axisquantile",
+                            "xclim_tpu/ops/pallas/axisquantile.py:112,211"),
+           # the winquantile kernel built with its stage entry: the card
+           # profile that replaces the TPU kernel's profiling variants
+           "winquantile_stages": ("winquantile_stages",
+                                  "tools/prof_winquantile.py:255")}
 
 
 def _log(*args):
@@ -186,25 +205,47 @@ def _lanes(gen, n_doy, Y, C, device, doy366_sparse=False):
     return x
 
 
+#: winquantile at 1024 cells, (n_doy, Y, C), window, input: the sliding
+#: kernel's paths, register sort at the chunk starts (w31 and w5 x 30
+#: years), shared-memory sort (w61 x 30 = 1830 and w31 x 60 = 1860
+#: samples), a sparse doy 366 and values tied at 0.5 K
+WQ_CASES = (((365, YEARS, SMALL_CELLS), WINDOW, "plain"),
+            ((366, YEARS, SMALL_CELLS), 5, "sparse366"),
+            ((365, YEARS, SMALL_CELLS), 61, "plain"),
+            ((365, 2 * YEARS, SMALL_CELLS), WINDOW, "plain"),
+            ((365, YEARS, SMALL_CELLS), WINDOW, "tied"))
+
+
+def _wq_input(gen, shape, kind, device):
+    import torch
+
+    x = _lanes(gen, *shape, device, doy366_sparse=kind == "sparse366")
+    return torch.round(x * 2.0) / 2.0 if kind == "tied" else x
+
+
 def phase_kernels_small(gen, device, q, record):
     import torch
 
     from xclim_tpu_torch.ops import qdmadjust, winquantile
 
-    cases = [("winquantile", (365, YEARS, SMALL_CELLS), WINDOW, False),
-             ("winquantile", (366, YEARS, SMALL_CELLS), 5, True)]
-    for name, shape, window, sparse in cases:
-        x = _lanes(gen, *shape, device, doy366_sparse=sparse)
+    # each winquantile case value-equal to the twin
+    for shape, window, kind in WQ_CASES:
+        x = _wq_input(gen, shape, kind, device)
         got = winquantile.doy_window_quantiles(x, q, window)
         torch.cuda.synchronize()
         ref = winquantile.doy_window_quantiles_plain(x, q, window)
-        err = _compare(f"{name}{shape} w{window}", got, ref)
-        ms = _cuda_ms(lambda: winquantile.doy_window_quantiles(x, q, window), 5)
+        err = _compare(f"winquantile{shape} w{window} {kind}", got, ref,
+                       rtol=0.0, atol=0.0)
+        ms = _cuda_ms(
+            lambda: winquantile.doy_window_quantiles(x, q, window), 5)
         pms = _cuda_ms(
             lambda: winquantile.doy_window_quantiles_plain(x, q, window), 2)
-        record[name]["max_abs_err"] = max(record[name]["max_abs_err"], err)
-        _log(f"[kernel vs twin] {name} {shape} window={window}: "
-             f"max_abs_err={err} kernel_ms={ms:.3f} twin_ms={pms:.3f}")
+        record["winquantile"]["max_abs_err"] = max(
+            record["winquantile"]["max_abs_err"], err)
+        _log(f"[kernel vs twin] winquantile {shape} window={window} {kind} "
+             f"({winquantile.doy_chunks(shape[0], shape[2], window, shape[1])}"
+             f" doy chunks): max_abs_err={err} (value-equal) "
+             f"kernel_ms={ms:.3f} twin_ms={pms:.3f}")
     for n_doy in (365, 366):
         for kind in ("+", "*"):
             x = _lanes(gen, n_doy, YEARS, SMALL_CELLS, device,
@@ -280,12 +321,14 @@ def _counts():
     for name, mod in _ops().items():
         out[name] = mod.launches
         out[f"{name}_twin"] = mod.twin_calls
+    out["winquantile_stages"] = _ops()["winquantile"].stage_launches
     return out
 
 
 def _reset_counts():
     for mod in _ops().values():
         mod.launches = mod.twin_calls = 0
+    _ops()["winquantile"].stage_launches = 0
 
 
 def phase_slice(device, card, record):
@@ -298,6 +341,7 @@ def phase_slice(device, card, record):
         QuantileDeltaMapping,
     )
     from xclim_tpu_torch.sdba.utils import gather_doy_slices, gather_groups
+    from xclim_tpu_torch.tools.prof_winquantile import stage_times
 
     series = _series(device, (SIDE, SIDE))
     T = series["sim"].shape[0]
@@ -316,7 +360,8 @@ def phase_slice(device, card, record):
                   "qdmadjust": 1, "qdmadjust_twin": 0,
                   "segred": 0, "segred_twin": 0,
                   "spells": 0, "spells_twin": 0,
-                  "axisquantile": 0, "axisquantile_twin": 0}:
+                  "axisquantile": 0, "axisquantile_twin": 0,
+                  "winquantile_stages": 0}:
         raise AssertionError(f"main path did not run on the kernels: {counts}")
     record["winquantile"]["launches"] = counts["winquantile"]
     record["qdmadjust"]["launches"] = counts["qdmadjust"]
@@ -387,7 +432,8 @@ def phase_slice(device, card, record):
     q = adj.ds["quantiles"].astype("float32")
     got = winquantile.doy_window_quantiles(xd, q, WINDOW)
     ref = winquantile.doy_window_quantiles_plain(xd, q, WINDOW)
-    err = _compare(f"winquantile{tuple(xd.shape)}", got, ref)
+    err = _compare(f"winquantile{tuple(xd.shape)}", got, ref, rtol=0.0,
+                   atol=0.0)
     ms = _cuda_ms(lambda: winquantile.doy_window_quantiles(xd, q, WINDOW), 3)
     pms = _cuda_ms(lambda: winquantile.doy_window_quantiles_plain(
         xd, q, WINDOW), 1)
@@ -403,8 +449,32 @@ def phase_slice(device, card, record):
         max_abs_err=max(record["winquantile"]["max_abs_err"], err), ms=ms,
         plain_ms=pms, **_bound((xd.numel() + nodes) * 4, 4 * nodes))
     _log(f"[kernel vs twin] winquantile {tuple(xd.shape)} window={WINDOW} "
-         f"(slice shape): max_abs_err={err} kernel_ms={ms:.3f} "
-         f"twin_ms={pms:.3f}")
+         f"(slice shape, {winquantile.doy_chunks(n_doy, C, WINDOW, Y)} doy "
+         f"chunks) on {card}: max_abs_err={err} (value-equal) "
+         f"kernel_ms={ms:.3f} twin_ms={pms:.3f} "
+         f"bound_ms={record['winquantile']['bound_ms']:.4f}")
+
+    # the stage profile: the same kernel stopped after each stage, each
+    # stage's result held against its plain expression (the last against
+    # the twin's quantiles above)
+    serr = 0.0
+    for stage, name in enumerate(winquantile.STAGES):
+        sgot = winquantile.doy_window_stage(xd, q, WINDOW, stage)
+        torch.cuda.synchronize()
+        sref = (ref if stage == 2
+                else winquantile.stage_plain(xd, q, WINDOW, stage))
+        serr = max(serr, _compare(f"winquantile stage {name}", sgot, sref,
+                                  rtol=0.0, atol=0.0))
+        del sgot, sref
+    stage_ms = stage_times(xd, q, WINDOW, reps=3)
+    record["winquantile_stages"].update(
+        max_abs_err=serr, ms=stage_ms["full"], plain_ms=pms,
+        stage_ms=stage_ms,
+        **{k: record["winquantile"][k] for k in ("bound_ms", "bound_by")})
+    _log(f"[winquantile stages] {tuple(xd.shape)} window={WINDOW} on {card}:"
+         f" {json.dumps({k: round(v, 4) for k, v in stage_ms.items()})} ms "
+         f"(load+presort, + sort and slides, + node selection); each stage "
+         f"equal to its plain expression (max_abs_err={serr})")
     del got, ref
 
     adj_table = Grouper("time.dayofyear", WINDOW).device_adjust_table(
@@ -616,7 +686,7 @@ def phase_tg_mean(device, card, record):
     if counts != {"winquantile": 0, "winquantile_twin": 0, "qdmadjust": 0,
                   "qdmadjust_twin": 0, "segred": 2, "segred_twin": 0,
                   "spells": 0, "spells_twin": 0, "axisquantile": 0,
-                  "axisquantile_twin": 0}:
+                  "axisquantile_twin": 0, "winquantile_stages": 0}:
         raise AssertionError(f"tg_mean did not run on the kernel: {counts}")
     peak = (torch.cuda.max_memory_allocated() - base) / 2**30
 
@@ -792,9 +862,87 @@ def phase_spells_small(gen, device, record):
                                              ">", 293.0), 20)
     pms = _cuda_ms(lambda: spells.spell_stats_plain(
         x, spec.starts, spec.counts, 6, ">", 293.0), 3)
+    # bound: the float32 series read once, four (nseg, C) results written
+    # once
+    bound = _bound((x.numel() + 4 * len(spec.starts) * x.shape[1]) * 4,
+                   4 * x.numel())
     _log(f"[kernel vs twin] spells ({SPELL_DAYS}, {SMALL_CELLS}): {cases} "
          f"cases bit-equal (4 ops + bool, windows 1/3/6, MS/YS/QS-DEC, "
-         f"noleap/360_day); YS w6 float kernel_ms={ms:.4f} twin_ms={pms:.4f}")
+         f"noleap/360_day); YS w6 float kernel_ms={ms:.4f} twin_ms={pms:.4f} "
+         f"bound_ms={bound['bound_ms']:.4f} ({bound['bound_by']})")
+
+    # one segment over the whole series (cut into parts in time and
+    # joined) and 1000 cells (one cell a thread for a condition, not 4)
+    times = {}
+    for label, arg, segs, op, thresh in _spell_cases(gen, device):
+        got = spells.spell_stats(arg, *segs, 6, op, thresh)
+        torch.cuda.synchronize()
+        ref = spells.spell_stats_plain(arg, *segs, 6, op, thresh)
+        for g, r, name in zip(got, ref, ("cnt", "wrc", "wre", "lng")):
+            _compare(f"spells {name} {label}", g, r, rtol=0.0, atol=0.0)
+        times[label] = _cuda_ms(
+            lambda: spells.spell_stats(arg, *segs, 6, op, thresh), 20)
+    _log(f"[kernel vs twin] spells ({SPELL_DAYS}, C) w6, YS and one segment "
+         f"over the whole series, 1024 and 1000 cells, float and bool: "
+         f"bit-equal; kernel_ms "
+         f"{json.dumps({k: round(v, 4) for k, v in times.items()})}")
+
+
+def _spell_cases(gen, device):
+    """(label, input, (starts, counts), op, thresh) of spells at
+    (SPELL_DAYS, C): YS and one segment over the whole series, 1024 and
+    1000 cells, a float series and its condition."""
+    from xclim_tpu_torch.core.calendar import date_range, resample_segments
+
+    ys = resample_segments(date_range("1981-01-01", periods=SPELL_DAYS,
+                                      calendar="noleap"), "YS")
+    for cells in (SMALL_CELLS, 1000):
+        x = _spell_lanes(gen, SPELL_DAYS, cells, device)
+        for seg, segs in (("YS", (ys.starts, ys.counts)),
+                          ("whole series", ([0], [SPELL_DAYS]))):
+            yield f"{seg} {cells} float", x, segs, ">", 293.0
+            yield f"{seg} {cells} bool", x > 293.0, segs, None, None
+
+
+def kernel_times(device) -> dict:
+    """Milliseconds of winquantile and spells at the shapes this script
+    times, through their public wrappers only (``doy_window_quantiles``,
+    ``spell_stats``), on inputs made from SEED: the WQ_CASES, QDM's
+    (365, 30, 16384) slices at window 31, the _spell_cases, and a
+    bootstrap-shaped condition (29 replacement-major copies of (10950,
+    4096), 10 % True, YS). Every version of the port has those wrappers,
+    so this times an older checkout of the package too (``--kernel-times``
+    in main)."""
+    import torch
+
+    from xclim_tpu_torch.core.calendar import date_range, resample_segments
+    from xclim_tpu_torch.ops import spells, winquantile
+    from xclim_tpu_torch.sdba.utils import equally_spaced_nodes
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    q = equally_spaced_nodes(NQ).astype("float32")
+    out = {}
+    for shape, window, kind in WQ_CASES:
+        x = _wq_input(gen, shape, kind, device)
+        out[f"winquantile {shape} w{window} {kind}"] = _cuda_ms(
+            lambda: winquantile.doy_window_quantiles(x, q, window), 5)
+    x = torch.randn((365, YEARS, SIDE * SIDE), generator=gen,
+                    device=device) * 5.0 + 285.0
+    out[f"winquantile {tuple(x.shape)} w{WINDOW} QDM"] = _cuda_ms(
+        lambda: winquantile.doy_window_quantiles(x, q, WINDOW), 3)
+    del x
+    for label, arg, segs, op, thresh in _spell_cases(gen, device):
+        out[f"spells {label}"] = _cuda_ms(
+            lambda: spells.spell_stats(arg, *segs, 6, op, thresh), 20)
+    ys = resample_segments(date_range("1981-01-01", periods=SPELL_DAYS,
+                                      calendar="noleap"), "YS")
+    cond = (torch.randint(0, 10, (29, SPELL_DAYS, PCT_SIDE * PCT_SIDE),
+                          generator=gen, device=device, dtype=torch.uint8)
+            == 0).permute(1, 2, 0)
+    out[f"spells bootstrap {tuple(cond.shape)} YS bool"] = _cuda_ms(
+        lambda: spells.spell_stats(cond, ys.starts, ys.counts, 6), 10)
+    return out
 
 
 def _tasmax(device, side, years=PCT_YEARS):
@@ -1018,7 +1166,7 @@ def phase_percentiles(device, card, record):
     err = max(_compare(f"spells {n} at the bootstrap's condition", g, r,
                        rtol=0.0, atol=0.0)
               for g, r, n in zip(got, ref, ("cnt", "wrc", "wre", "lng")))
-    del got, ref
+    del ref
     ms = _cuda_ms(lambda: spells.spell_stats(cond, *args, **kwargs), 10)
     pms = _cuda_ms(lambda: spells.spell_stats_plain(cond, *args, **kwargs), 2)
     # bound: the 1-byte condition read once, four (B, nseg, C) float32
@@ -1030,7 +1178,9 @@ def phase_percentiles(device, card, record):
         plain_ms=pms, **_bound(nbytes + outs, 4 * cond.numel()))
     _log(f"[kernel vs twin] spells bool {tuple(cond.shape)} (the bootstrap's "
          f"condition, {nbytes / 1e9:.3f} GB) on {card}: max_abs_err={err} "
-         f"kernel_ms={ms:.4f} twin_ms={pms:.4f}; {nbytes / ms / 1e6:.1f} GB/s")
+         f"kernel_ms={ms:.4f} twin_ms={pms:.4f}; {nbytes / ms / 1e6:.1f} GB/s; "
+         f"bound_ms={record['spells']['bound_ms']:.4f}")
+    del got
     return tasmax
 
 
@@ -1409,6 +1559,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
               "kernels need an NVIDIA GPU", file=sys.stderr)
         return 2
+    import xclim_tpu_torch
     from xclim_tpu_torch.ops import _build
     from xclim_tpu_torch.sdba.utils import equally_spaced_nodes
 
@@ -1423,19 +1574,26 @@ def main() -> int:
     _log(f"card: {card}")
     _log(f"device: {torch.cuda.get_device_name(0)}, "
          f"{torch.cuda.device_count()} visible")
+    if sys.argv[1:] == ["--kernel-times"]:
+        _log(json.dumps({"package": xclim_tpu_torch.__file__,
+                         "ms": kernel_times(device)}))
+        return 0
 
     record = {}
-    _build.build(KERNELS)
-    for name, replaces in KERNELS.items():
-        _build.load(name)
-        info = _build.build_info[name]
-        _log(f"[build] {name}: {info['seconds']:.2f} s")
+    targets = sorted({target for target, _ in KERNELS.values()})
+    _build.build(targets)
+    for target in targets:
+        _build.load(target)
+        info = _build.build_info[target]
+        _log(f"[build] {target}: {info['seconds']:.2f} s")
         for line in info["log"].splitlines():
             if ("ptxas" in line and "Used" in line) or "spill" in line:
                 _log(f"[build]   {line.strip()}")
+    for name, (target, replaces) in KERNELS.items():
         record[name] = {
             "name": name, "route": "cuda",
-            "source": f"xclim_tpu_torch/csrc/{name}.cu", "replaces": replaces,
+            "source": "xclim_tpu_torch/csrc/" + _build.source(target).name,
+            "replaces": replaces,
             "launches": 0, "max_abs_err": 0.0, "ms": None, "plain_ms": None,
             "bound_ms": None, "bound_by": None, "library_ms": None}
 

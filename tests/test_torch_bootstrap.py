@@ -141,7 +141,8 @@ def _carried_per(b, per, base_years=4):
     jper = jpercentile_doy(b.sel_time(mask=b.time.year < 2000 + base_years),
                            window=5, per=per)
     return jper, from_reference_percentiles(np.asarray(jper.data), jper.dims,
-                                            jper.coords, jper.attrs)
+                                            jper.coords, jper.attrs,
+                                            device="cpu")
 
 
 CASES = [("tx90p", "tasmax", 90, {}), ("tn10p", "tasmin", 10, {}),

@@ -1,0 +1,102 @@
+"""Where the port puts data. Host data given without a device goes to
+``xclim_tpu_torch.default_device()`` (the card; it raises without one), and
+a tensor keeps its device. No path inside the package reaches the default:
+with it made to raise, the public calls of every slice run on CPU tensors."""
+
+import numpy as np
+import pytest
+import torch
+
+import xclim_tpu_torch
+from xclim_tpu_torch.core.calendar import date_range
+from xclim_tpu_torch.core.dataarray import ClimArray
+from xclim_tpu_torch.core.percentiles import (
+    from_reference_percentiles,
+    percentile_doy,
+)
+
+YEARS = 4
+
+
+@pytest.fixture
+def no_default(monkeypatch):
+    """default_device() raises for the test's duration."""
+    def forbidden():
+        raise AssertionError("a path reached default_device()")
+
+    monkeypatch.setattr(xclim_tpu_torch, "default_device", forbidden)
+
+
+def _series(name, mu, seed, cells=3):
+    t = date_range("1981-01-01", periods=YEARS * 365, calendar="noleap")
+    rng = np.random.default_rng(seed)
+    x = rng.normal(mu, 5.0, (len(t), cells)).astype(np.float32)
+    x[rng.random(x.shape) < 0.02] = np.nan
+    return ClimArray(torch.as_tensor(x), ("time", "x"), {"time": t},
+                     {"units": "K", "standard_name": "air_temperature",
+                      "cell_methods": "time: mean"}, name)
+
+
+def test_host_data_needs_a_device_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.zeros((3, 2), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ClimArray(x, ("time", "x"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        from_reference_percentiles(x, ("dayofyear", "x"), {}, {})
+    assert ClimArray(x, ("time", "x"), device="cpu").device.type == "cpu"
+    assert from_reference_percentiles(
+        x, ("dayofyear", "x"), {}, {}, device="cpu").device.type == "cpu"
+
+
+def test_tensors_keep_their_device_and_copies_follow(no_default):
+    a = ClimArray(torch.zeros(3, 2), ("time", "x"))
+    assert a.device.type == "cpu"
+    assert a.copy(data=np.ones((3, 2), np.float32)).device.type == "cpu"
+    assert (a + np.ones(2, np.float32)).device.type == "cpu"
+
+
+def test_tg_mean_on_cpu_tensors(no_default):
+    from xclim_tpu_torch.indicators import atmos
+
+    out = atmos.tg_mean(_series("tas", 285.0, 1), freq="MS")
+    assert out.device.type == "cpu" and out.shape == (YEARS * 12, 3)
+
+
+def test_qdm_train_adjust_on_cpu_tensors(no_default):
+    from xclim_tpu_torch.sdba import Grouper, QuantileDeltaMapping
+
+    adj = QuantileDeltaMapping.train(
+        _series("ref", 285.0, 2), _series("hist", 287.0, 3),
+        group=Grouper("time.dayofyear", 31), nquantiles=10, kind="+")
+    out = adj.adjust(_series("sim", 289.0, 4))
+    assert out.device.type == "cpu" and out.shape == (YEARS * 365, 3)
+
+
+def test_percentiles_and_bootstrap_on_cpu_tensors(no_default):
+    from xclim_tpu_torch.indicators import atmos
+
+    tasmax = _series("tasmax", 295.0, 5)
+    tasmax.attrs["cell_methods"] = "time: maximum"
+    per = percentile_doy(tasmax, window=5, per=90)
+    assert per.device.type == "cpu"
+    tx = atmos.tx90p(tasmax, tasmax_per=per, freq="YS", bootstrap=True)
+    wsdi = atmos.warm_spell_duration_index(tasmax, tasmax_per=per, window=3,
+                                           freq="YS", bootstrap=True)
+    assert tx.device.type == wsdi.device.type == "cpu"
+
+
+def test_ensemble_percentiles_on_cpu_tensors(no_default):
+    from xclim_tpu_torch.ensembles import (
+        create_ensemble,
+        ensemble_percentiles,
+        robustness_fractions,
+    )
+
+    ens = create_ensemble([_series("tas", 285.0, 10 + m) for m in range(5)])
+    per = ensemble_percentiles(ens, values=[10, 50, 90])
+    assert all(v.device.type == "cpu" for v in per.values())
+    rf = robustness_fractions(ens.isel(time=slice(730, 1460)),
+                              ens.isel(time=slice(0, 730)), test="ttest",
+                              weights=np.ones(5))
+    assert rf["changed"].device.type == "cpu"

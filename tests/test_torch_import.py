@@ -72,10 +72,32 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         _build.load("winquantile")
 
 
+def test_stage_profile_is_a_separate_build():
+    # the shipped winquantile library leaves the profiling stages out; the
+    # winquantile_stages target compiles the same source with them
+    from xclim_tpu_torch.ops import _build
+
+    src = _build.source("winquantile_stages")
+    assert src == _build.source("winquantile") == PKG / "csrc" / "winquantile.cu"
+    assert _build._so_path("winquantile_stages") != _build._so_path(
+        "winquantile")
+    assert "-DXTT_WINQUANTILE_STAGES" in _build._flags("winquantile_stages")
+    assert "-DXTT_WINQUANTILE_STAGES" not in _build._flags("winquantile")
+    text = src.read_text()
+    guard = text.index("#ifdef XTT_WINQUANTILE_STAGES")
+    assert guard < text.index('extern "C" int xtt_winquantile_stages(')
+    assert text.index('extern "C" int xtt_winquantile(') < guard
+
+
 def test_default_device_is_cpu_here():
+    """Host data goes to the card; without one, default_device() raises
+    (naming device="cpu") instead of carrying on on the CPU."""
     import torch
 
     import xclim_tpu_torch
 
-    expect = "cuda" if torch.cuda.is_available() else "cpu"
-    assert xclim_tpu_torch.default_device().type == expect
+    if torch.cuda.is_available():
+        assert xclim_tpu_torch.default_device().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            xclim_tpu_torch.default_device()

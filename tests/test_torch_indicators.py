@@ -259,7 +259,8 @@ def test_percentile_indicator_matches_reference(name, var, mu, per, kw, cal,
     jper = jpercentile_doy(b.sel_time(mask=b.time.year < 2003), window=5,
                            per=per)
     per_arr = from_reference_percentiles(np.asarray(jper.data), jper.dims,
-                                         jper.coords, jper.attrs)
+                                         jper.coords, jper.attrs,
+                                         device="cpu")
     got = getattr(atmos, name)(a, per_arr, freq="YS", bootstrap=bootstrap,
                                **kw)
     exp = getattr(jatmos, name)(b, jper, freq="YS", bootstrap=bootstrap,

@@ -46,6 +46,15 @@ def _slices(n_doy, Y, C, seed, nanfrac=0.1):
     return x
 
 
+def _value_equal(got, exp):
+    # the same float32 op sequence, value for value (-0.0 == 0.0)
+    got, exp = got.cpu().numpy(), exp.cpu().numpy()
+    assert got.shape == exp.shape
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(exp))
+    ok = ~np.isnan(exp)
+    assert (got[ok] == exp[ok]).all()
+
+
 def _close(got, exp):
     got, exp = got.cpu().numpy(), exp.cpu().numpy()
     np.testing.assert_array_equal(np.isnan(got), np.isnan(exp))
@@ -76,6 +85,77 @@ def test_winquantile_rejects_oversized_window(cuda):
     x = torch.zeros(365, 300, 2, device=cuda)
     with pytest.raises(ValueError, match="exceeds"):
         winquantile.doy_window_quantiles(x, Q, 31)
+
+
+def _cases(n_doy, Y, C, seed, kind):
+    """(n_doy, Y, C) slices for the sliding kernel: lane 0 all NaN, lane 1
+    one valid sample in the whole series, lane 2 one valid sample per
+    slice, the rest 10 % missing; ``kind`` adds heavy ties (values rounded
+    to 0.5 K), +-inf samples, or a doy 366 that only the leap years have
+    (as tests/test_torch_winquantile.py builds them)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(285.0, 5.0, (n_doy, Y, C)).astype(np.float32)
+    x[rng.random(x.shape) < 0.1] = np.nan
+    x[:, :, 0] = np.nan
+    keep = x[n_doy // 2, 0, 1]
+    x[:, :, 1] = np.nan
+    x[n_doy // 2, 0, 1] = keep
+    x[:, 1:, 2] = np.nan
+    if kind == "ties":
+        x = np.round(x * 2.0) / 2.0
+    elif kind == "inf":
+        x[rng.random(x.shape) < 0.05] = np.inf
+        x[rng.random(x.shape) < 0.05] = -np.inf
+    elif kind == "sparse366":
+        x[365, :, :] = np.nan
+        x[365, 3::4, :] = rng.normal(285.0, 5.0, (len(range(3, Y, 4)), C))
+    return x.astype(np.float32)
+
+
+SLIDE_CASES = [
+    (365, 30, 1, "normal"), (365, 30, 5, "normal"), (365, 30, 31, "normal"),
+    (365, 30, 61, "normal"), (365, 1, 31, "normal"), (365, 2, 31, "normal"),
+    (365, 60, 31, "normal"), (360, 30, 31, "normal"),
+    (366, 30, 31, "sparse366"), (366, 8, 5, "sparse366"),
+    (365, 30, 31, "ties"), (365, 30, 61, "ties"), (365, 30, 31, "inf"),
+    (365, 2, 1, "inf"), (7, 3, 9, "normal"), (5, 4, 5, "ties")]
+
+
+# every path of the sliding kernel (window 1; register sort at the chunk
+# starts up to 1024 samples; shared-memory sort above) under three plans:
+# as shipped (many chunks at 67 cells), one chunk per doy (every window
+# sorted in full, nothing slides), and one chunk per cell group (each
+# block slides through every doy)
+@pytest.mark.parametrize("plan", ["shipped", "chunk_per_doy", "one_chunk"])
+@pytest.mark.parametrize("n_doy,Y,window,kind", SLIDE_CASES)
+def test_winquantile_sliding_cases_value_equal(cuda, monkeypatch, n_doy, Y,
+                                               window, kind, plan):
+    target = {"shipped": None, "chunk_per_doy": 1 << 30, "one_chunk": 1}
+    if target[plan] is not None:
+        monkeypatch.setattr(winquantile, "TARGET_BLOCKS", target[plan])
+        monkeypatch.setattr(winquantile, "TARGET_BLOCKS_SMEM", target[plan])
+    x = torch.as_tensor(_cases(n_doy, Y, 67, seed=n_doy * Y + window,
+                               kind=kind), device=cuda)
+    before = winquantile.launches
+    got = winquantile.doy_window_quantiles(x, Q, window)
+    torch.cuda.synchronize()
+    assert winquantile.launches == before + 1
+    _value_equal(got, winquantile.doy_window_quantiles_plain(x, Q, window))
+
+
+@pytest.mark.parametrize("stage", [0, 1, 2])
+@pytest.mark.parametrize("n_doy,Y,window,kind", [
+    (365, 30, 31, "normal"), (365, 30, 61, "ties"), (365, 30, 1, "inf"),
+    (366, 30, 5, "sparse366")])
+def test_winquantile_stages_match_their_plain_expressions(cuda, stage, n_doy,
+                                                          Y, window, kind):
+    x = torch.as_tensor(_cases(n_doy, Y, 1000, seed=stage, kind=kind),
+                        device=cuda)
+    before = winquantile.stage_launches
+    got = winquantile.doy_window_stage(x, Q, window, stage)
+    torch.cuda.synchronize()
+    assert winquantile.stage_launches == before + 1
+    _value_equal(got, winquantile.stage_plain(x, Q, window, stage))
 
 
 @pytest.mark.parametrize("kind", ["+", "*"])
@@ -234,6 +314,71 @@ def test_spells_kernel_uneven_bounds_and_nan_thresholds(cuda):
                                                         op, thresh))
 
 
+def _edge_segments(kind, T):
+    if kind == "whole":
+        return [0], [T]
+    if kind == "day":
+        return list(range(T)), [1] * T
+    spec = resample_segments(date_range("1981-01-01", periods=T,
+                                        calendar="noleap"), "YS")
+    return spec.starts, spec.counts
+
+
+# one segment over the whole series, one-day segments and YS periods,
+# windows longer than a segment, and cell counts that take 4 or 1 cells a
+# thread (1030 and 1001 are no multiple of 4; a condition with one-day
+# segments at 1000 and 4096 cells takes 4)
+@pytest.mark.parametrize("kind", ["whole", "day", "YS"])
+@pytest.mark.parametrize("window", [1, 3, 400])
+@pytest.mark.parametrize("cells", [1001, 1000, 1030, 4096])
+@pytest.mark.parametrize("cond", [False, True])
+def test_spells_kernel_edge_segments(cuda, kind, window, cells, cond):
+    T = 730
+    x = torch.as_tensor(_spell_series(T, cells, seed=cells + window),
+                        device=cuda)
+    starts, counts = _edge_segments(kind, T)
+    arg, op, thresh = (x > 293.0, None, None) if cond else (x, ">", 293.0)
+    got = spells.spell_stats(arg, starts, counts, window, op, thresh)
+    torch.cuda.synchronize()
+    _spells_equal(got, spells.spell_stats_plain(arg, starts, counts, window,
+                                                op, thresh))
+
+
+# the bootstrap's replacement-major condition at each width the kernel
+# picks: 4 cells a thread with one-day segments (5 x 730 x 256 threads),
+# one with YS (5 x 2 x 1024, too few for 4)
+@pytest.mark.parametrize("kind", ["day", "YS"])
+@pytest.mark.parametrize("window", [1, 6])
+def test_spells_kernel_widths_in_batch_layout(cuda, kind, window):
+    T = 730
+    starts, counts = _edge_segments(kind, T)
+    x = torch.as_tensor(_spell_series(T, 1024, seed=11), device=cuda)
+    th = torch.as_tensor(np.random.default_rng(12).normal(
+        292.0, 2.0, (5, T, 1024)).astype(np.float32), device=cuda)
+    cond = x[:, :, None] > th.permute(1, 2, 0)
+    assert not cond.is_contiguous()
+    before = spells.launches
+    got = spells.spell_stats(cond, starts, counts, window)
+    torch.cuda.synchronize()
+    assert spells.launches == before + 1
+    _spells_equal(got, spells.spell_stats_plain(cond, starts, counts,
+                                                window))
+
+
+@pytest.mark.parametrize("window", [1, 6, 100])
+def test_spells_kernel_time_split_in_batch_layout(cuda, window):
+    # one segment over the series, batched: cut into parts in time, joined
+    T = 730
+    x = torch.as_tensor(_spell_series(T, 63, seed=13), device=cuda)
+    th = torch.as_tensor(np.random.default_rng(14).normal(
+        292.0, 2.0, (5, T, 63)).astype(np.float32), device=cuda)
+    cond = x[:, :, None] > th.permute(1, 2, 0)
+    assert spells.time_parts(5, 1, 63, [T]) > 1
+    got = spells.spell_stats(cond, [0], [T], window)
+    torch.cuda.synchronize()
+    _spells_equal(got, spells.spell_stats_plain(cond, [0], [T], window))
+
+
 def _axis_samples(M, axis, seed, nanfrac):
     """(M, 7, 300) K-scale samples moved so the M lie on `axis`, with
     all-NaN, single-valid and tie columns."""
@@ -245,15 +390,6 @@ def _axis_samples(M, axis, seed, nanfrac):
     x[::2, 0, 2] = x[0, 0, 2]
     x[:, 1, 3] = np.round(x[:, 1, 3])
     return np.moveaxis(x, 0, axis).copy()
-
-
-def _value_equal(got, exp):
-    # the same float32 op sequence, value for value (-0.0 == 0.0)
-    got, exp = got.cpu().numpy(), exp.cpu().numpy()
-    assert got.shape == exp.shape
-    np.testing.assert_array_equal(np.isnan(got), np.isnan(exp))
-    ok = ~np.isnan(exp)
-    assert (got[ok] == exp[ok]).all()
 
 
 AXQ = np.asarray([0.0, 0.01, 0.1, 0.5, 0.9, 0.99, 1.0], np.float32)

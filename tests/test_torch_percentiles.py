@@ -125,7 +125,7 @@ def _carried(cal):
     _, b = _pair(cal, seed=7)
     jp = jpercentile_doy(b, window=5, per=90)
     tp = from_reference_percentiles(np.asarray(jp.data), jp.dims, jp.coords,
-                                    jp.attrs)
+                                    jp.attrs, device="cpu")
     return jp, tp
 
 
@@ -197,7 +197,7 @@ def test_calc_perc_matches_reference(per, alpha, beta):
     x = rng.normal(0.0, 3.0, (4, 5, 40)).astype(np.float32)
     x[rng.random(x.shape) < 0.2] = np.nan
     x[0, 0] = np.nan
-    got = utils.calc_perc(x, per, alpha=alpha, beta=beta)
+    got = utils.calc_perc(x, per, alpha=alpha, beta=beta, device="cpu")
     exp = jutils.calc_perc(x, per, alpha=alpha, beta=beta)
     assert isinstance(got, np.ndarray) and got.shape == exp.shape
     # besides the order statistics' rounding, the reference's compiler fuses
@@ -209,7 +209,8 @@ def test_calc_perc_matches_reference(per, alpha, beta):
              * (np.nanmax(x) - np.nanmin(x)))
     np.testing.assert_array_equal(np.isnan(got), np.isnan(exp))
     np.testing.assert_allclose(got, exp, rtol=0, atol=bound)
-    got = utils.nan_calc_percentiles(x, per, axis=1, alpha=alpha, beta=beta)
+    got = utils.nan_calc_percentiles(x, per, axis=1, alpha=alpha, beta=beta,
+                                     device="cpu")
     exp = jutils.nan_calc_percentiles(x, per, axis=1, alpha=alpha, beta=beta)
     assert got.shape == exp.shape
     np.testing.assert_array_equal(np.isnan(got), np.isnan(exp))

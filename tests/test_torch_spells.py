@@ -170,3 +170,96 @@ def test_wrapper_checks_and_counters():
     before = (spells.launches, spells.twin_calls)
     spells.spell_stats(x, [0, 5], [5, 5], 2, ">", 0.0)
     assert (spells.launches, spells.twin_calls) == (before[0], before[1] + 1)
+
+
+def _edge_specs(kind, T):
+    """(port starts/counts, reference SegmentSpec) for the cases the
+    kernel's (batch, segment, cells) split must handle: one segment over
+    the whole series, one-day segments, and YS periods."""
+    from xclim_tpu.core.calendar import SegmentSpec as JSegmentSpec
+
+    if kind == "YS":
+        spec, jspec = _specs("noleap", "YS", T)
+        return (spec.starts, spec.counts), jspec
+    if kind == "whole":
+        seg_id = np.zeros(T, np.int32)
+    else:                                   # one-day segments
+        seg_id = np.arange(T, dtype=np.int32)
+    nseg = int(seg_id[-1]) + 1
+    counts = np.bincount(seg_id, minlength=nseg).astype(np.int32)
+    jspec = JSegmentSpec(freq=kind, seg_id=seg_id, nseg=nseg, counts=counts,
+                         expected=counts, labels=None)
+    return (jspec.starts, counts), jspec
+
+
+# segments shorter than the window (one day; a 400-day window in 365-day
+# years), one segment over the whole series, and cell counts that are not
+# a multiple of the kernel's 4-cell groups
+@pytest.mark.parametrize("kind", ["whole", "day", "YS"])
+@pytest.mark.parametrize("window", [1, 3, 400])
+@pytest.mark.parametrize("cells", [5, 17])
+def test_twin_matches_interpret_kernel_edge_segments(kind, window, cells):
+    T = 730
+    x = np.tile(_series(T, seed=window + cells), (1, 2))[:, :cells]
+    (starts, counts), jspec = _edge_specs(kind, T)
+    got = spells.spell_stats(torch.as_tensor(x), starts, counts, window, ">",
+                             THRESH)
+    exp = fused_spell_stats(jnp.asarray(x), jspec, THRESH, window, ">",
+                            interpret=True)
+    for g, e, name in zip(got, exp, ("cnt", "wrc", "wre", "lng")):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(e), err_msg=name)
+
+
+@pytest.mark.parametrize("kind", ["whole", "YS"])
+def test_twin_matches_xla_route_at_1000_cells(kind):
+    T = 730
+    rng = np.random.default_rng(7)
+    b = rng.random((T, 1000)) < 0.6
+    (starts, counts), jspec = _edge_specs(kind, T)
+    got = spells.spell_stats(torch.as_tensor(b), starts, counts, 3)
+    jb = jnp.asarray(b)
+    exp = (jsegment_reduce(jb.astype(jnp.float32), jspec, "sum"),
+           jrl.windowed_run_count(jb, 3, spec=jspec),
+           jrl.windowed_run_events(jb, 3, spec=jspec),
+           jrl.longest_run(jb, spec=jspec))
+    for g, e, name in zip(got, exp, ("cnt", "wrc", "wre", "lng")):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(e), err_msg=name)
+
+
+def test_batch_layout_matches_interpret_kernel():
+    # the bootstrap's replacement-major condition against the reference's
+    # kernel, one replacement at a time (True as 1.0 > 0.5)
+    T = 730
+    spec, jspec = _specs("noleap", "YS", T)
+    x = torch.as_tensor(_series(T, seed=8))
+    th = torch.as_tensor(np.random.default_rng(9).normal(
+        0.0, 0.5, (3, T, CELLS)).astype(np.float32))
+    cond = x[:, :, None] > th.permute(1, 2, 0)
+    got = spells.spell_stats(cond, spec.starts, spec.counts, 3)
+    for r in range(3):
+        exp = fused_spell_stats(jnp.asarray(cond[:, :, r].float().numpy()),
+                                jspec, 0.5, 3, ">", interpret=True)
+        for g, e in zip(got, exp):
+            np.testing.assert_array_equal(g[:, :, r].numpy(), np.asarray(e))
+
+
+def test_devices_without_a_kernel_are_refused():
+    # neither the CPU twin nor the CUDA kernel: raise, never fall back
+    before = (spells.launches, spells.twin_calls)
+    with pytest.raises(ValueError, match="no spells kernel"):
+        spells.spell_stats(torch.zeros(10, 16, dtype=torch.bool,
+                                       device="meta"), [0], [10], 2)
+    assert (spells.launches, spells.twin_calls) == before
+
+
+@pytest.mark.parametrize("B,nseg,C,longest,want", [
+    (29, 30, 4096, 365, 1), (1, 30, 1024, 365, 3), (1, 1, 1024, 10950, 66),
+    (1, 1, 1000, 10950, 68), (1, 1, 4, 100, 1), (1, 0, 4, 0, 1),
+    (1, 730, 4096, 1, 1)])
+def test_time_parts(B, nseg, C, longest, want):
+    counts = [longest] * nseg
+    got = spells.time_parts(B, nseg, C, counts)
+    assert got == want
+    # enough threads, or parts of at least SPLIT_DAYS days
+    assert (B * nseg * C * got >= spells.SPLIT_THREADS
+            or got == max(1, longest // spells.SPLIT_DAYS))

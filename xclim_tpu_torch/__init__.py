@@ -14,6 +14,12 @@ __all__ = ["default_device"]
 
 
 def default_device() -> torch.device:
-    """Where to create new data: the current CUDA device when one is
-    present, else the CPU. Data already on a device stays there."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """Where host data given without a device goes: the current CUDA
+    device. Data already on a device stays there. Raises when no CUDA
+    device is present: host data then needs ``device="cpu"`` (or a CPU
+    tensor), so that nothing lands on the CPU unasked."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device='cpu' or a CPU tensor to run the "
+            "port's plain twins on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())

@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+import xclim_tpu_torch
 from xclim_tpu_torch.core.calendar import (
     SegmentSpec,
     TimeIndex,
@@ -23,10 +24,16 @@ __all__ = ["ClimArray", "ClimDataset", "full_like", "where", "concat",
            "broadcast_arrays"]
 
 
-def _tensor(x, like: torch.Tensor | None = None) -> torch.Tensor:
+def _tensor(x, like: torch.Tensor | None = None,
+            device=None) -> torch.Tensor:
+    """x as a tensor: a tensor keeps its device; host values go to
+    ``like``'s device, else ``device``, else the default device."""
     if isinstance(x, torch.Tensor):
         return x
-    device = like.device if like is not None else None
+    if like is not None:
+        device = like.device
+    elif device is None:
+        device = xclim_tpu_torch.default_device()
     if isinstance(x, float) or (isinstance(x, np.ndarray)
                                 and x.dtype == np.float64):
         return torch.as_tensor(x, dtype=torch.float32, device=device)
@@ -107,9 +114,12 @@ class ClimArray:
     __slots__ = ("data", "dims", "coords", "attrs", "name")
     __array_priority__ = 100
 
-    def __init__(self, data, dims, coords=None, attrs=None, name=None):
+    def __init__(self, data, dims, coords=None, attrs=None, name=None,
+                 device=None):
+        # a tensor keeps its device; host data goes to `device`, else to
+        # xclim_tpu_torch.default_device() (the card; raises without one)
         if not isinstance(data, torch.Tensor):
-            data = _tensor(data)
+            data = _tensor(data, device=device)
         self.data = data
         self.dims = tuple(dims)
         if len(self.dims) != data.ndim:
@@ -163,7 +173,8 @@ class ClimArray:
 
     def copy(self, data=None) -> "ClimArray":
         return ClimArray(self.data if data is None else data, self.dims,
-                         dict(self.coords), dict(self.attrs), self.name)
+                         dict(self.coords), dict(self.attrs), self.name,
+                         device=self.data.device)
 
     def rename(self, name) -> "ClimArray":
         out = self.copy()

@@ -159,8 +159,8 @@ def from_reference_percentiles(data, dims, coords: dict, attrs: dict,
     """A percentile array of the port from the JAX package's
     ``percentile_doy`` output, passed as host values: ``data`` a numpy array,
     ``dims``/``coords``/``attrs`` the reference array's. The data move to
-    ``device`` as float32; the attrs (``climatology_bounds``, ``window``,
-    ``alpha``, ``beta``) are what the bootstrap reads."""
-    return ClimArray(torch.tensor(np.asarray(data, dtype=np.float32),
-                                  device=device),
-                     dims, dict(coords), dict(attrs), name)
+    ``device`` (default: :func:`xclim_tpu_torch.default_device`) as
+    float32; the attrs (``climatology_bounds``, ``window``, ``alpha``,
+    ``beta``) are what the bootstrap reads."""
+    return ClimArray(np.array(data, dtype=np.float32), dims, dict(coords),
+                     dict(attrs), name, device=device)

@@ -2,7 +2,9 @@
 //
 // Replaces: xclim_tpu/ops/pallas/winquantile.py, doy_window_quantiles
 // (Pallas kernels _kernel / _kernel_dyadic and _select_nodes, launched by
-// pl.pallas_call in _call).
+// pl.pallas_call in _call), and, through xtt_winquantile_stages, the
+// profiling variants of tools/prof_winquantile.py (_call, its
+// pl.pallas_call at :255: DMA + presort / merge / select).
 //
 // What it computes: for each day of year g and cell c, the NaN-skipping
 // Hyndman-Fan quantiles at nq nodes of every sample in the doy slices
@@ -10,29 +12,56 @@
 // with NaN = missing, C contiguous; output (n_doy, nq, C). A window with no
 // valid sample gives NaN.
 //
-// What bounds it on the card: the sort. Each (doy, cell) pair is an
-// independent problem of window*Y samples (930 at window 31 and 30 years),
-// and there are n_doy*C of them (6 M at 16384 cells): ~P2*log2(P2)^2/4
-// compare-exchanges each (28 K at P2 = 1024). Device memory traffic is
-// only window*Y reads per pair, mostly served from L2 because neighbouring
-// doys share slices.
+// What bounds it on the card: issuing the work that keeps each window
+// sorted. Bytes are few (the slices read a few times, mostly from L2, and
+// the nodes written once); sorting every (doy, cell) window from scratch
+// (the previous design) cost ~28 K compare-exchanges a pair at 930
+// samples, and every sample was sorted again in each of its 31 windows.
 //
-// Design: one block takes one doy and CT neighbouring cells (CT = 8 at the
-// slice size), so each global read is a 32-byte run of CT cells. The block
-// copies the CT windows into shared memory (NaN -> +inf, valid samples
-// counted per cell) and sorts each one, padded with +inf to a power of two
-// P2; then it reads the two order statistics of each node. The +inf padding
-// is exact: the first n_valid sorted entries are exactly the sorted valid
-// samples, and only those ranks are read. The windowed gather never exists
-// in device memory (it would be 22 GB at 16384 cells x 30 years).
-//   * P2 <= 1024 (window 31 up to 33 years): winquantile_reg_kernel. Warp w
-//     sorts cell w's window in registers, R = P2/32 values a lane: bitonic
-//     stages whose partners lie in one lane are register compare-exchanges,
-//     the others __shfl_xor_sync; no block barrier inside the sort.
-//   * larger windows (up to P2 = 8192): winquantile_smem_kernel, a bitonic
-//     sort in shared memory with one block barrier per stage.
-// The TPU kernel's lane blocking, DMA slab, dyadic run cache and 3e38 NaN
-// sentinel are not carried over.
+// Design: a sliding sorted window, as the TPU kernel merged presorted runs.
+//  1. presort_kernel sorts each doy slice of Y values per cell once (NaN ->
+//     +inf, a warp's register bitonic sort up to 1024 padded values, a
+//     block's shared-memory sort above) into a scratch (n_doy, C, Y) array:
+//     the sorted valid samples, then NaN.
+//  2. slide_kernel: a block takes CT neighbouring cells and one chunk of the
+//     doy axis (the host splits n_doy into chunks so that the grid has a
+//     few thousand blocks; one chunk per doy sorts every window in full and
+//     skips the presort). At the chunk's first doy it gathers and
+//     bitonic-sorts each cell's whole window (register path for P2 <= 1024
+//     with CT = 8, one warp a cell; shared-memory path up to P2 = 8192
+//     with CT = 8192 / P2). Then each step g -> g+1 removes the presorted
+//     slice g-half and merges in the presorted slice g+half+1, writing the
+//     new window into the second of two shared buffers:
+//       * removed value j (sorted run rout) takes old position
+//         lower_bound(old, rout[j]) + (j - lower_bound(rout, rout[j])): the
+//         k-th duplicate among the removed values takes the k-th equal
+//         entry, so the removed positions are distinct;
+//       * a kept entry at old position i moves to i - (removed positions
+//         before i) + upper_bound(rin, value). Thread t merges the run of
+//         E old entries from t * E (E odd, so a warp's 32 lanes start in 32
+//         banks): one binary search in each short run at its start, then
+//         the two counts only advance;
+//       * inserted value j moves to j + lower_bound(old, u) -
+//         lower_bound(rout, u) (kept entries below u).
+//     Inserted entries land before kept equal ones; only values are read,
+//     so any tie order gives the same quantiles. The valid count is the
+//     running sum of the slices' non-NaN entries.
+//  3. select_nodes reads the two order statistics of each node from the
+//     sorted window; the block writes 8 neighbouring cells of a node as one
+//     32-byte run.
+// Window 1 needs no slide: each doy's window is its presorted slice.
+// The +inf padding is exact: the first n_valid sorted entries are exactly
+// the sorted valid samples (a valid +inf equals the padding), and only
+// those ranks are read.
+//
+// Stages (template STAGE, the profile of tools/prof_winquantile.py; the
+// entry point xtt_winquantile_stages, and so stages 0 and 1, are compiled
+// only with -DXTT_WINQUANTILE_STAGES, the build target winquantile_stages):
+//   0 presort + the per-doy loads of the window's slices and the running
+//     valid count; writes the count per (doy, cell) as float32 (nq = 1);
+//   1 + the chunk-start sort and the slides; writes the window's smallest
+//     valid value (NaN without one);
+//   2 + node selection: the shipped kernel (xtt_winquantile).
 //
 // Rounding: the node arithmetic repeats the reference's float32 op
 // sequence (h = n*q + coff - 1, clip, floor, gamma, v0*(1-gamma) +
@@ -44,23 +73,40 @@
 #include <math.h>
 #include <stddef.h>
 
+#include <algorithm>
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarp = 32;
+constexpr int kMaxP2 = 8192;
+constexpr int kRegP2 = 1024;
+// blocks of the presort pass: 16 a SM on 132 SMs
+constexpr int kPresortBlocks = 132 * 16;
 
-// Row stride of the shared tile: padded by 32/CT floats so the CT cells of
-// one sample index fall into distinct banks while the window is loaded.
+// Row stride of a shared tile: padded by 32/CT floats so the CT cells of
+// one sample index fall into distinct banks while a window is loaded.
 __host__ __device__ constexpr int row_stride(int P2, int CT) {
   return P2 + 32 / CT;
+}
+
+__host__ __device__ constexpr int cells_per_block(int P2) {
+  return P2 <= kRegP2 ? kThreads / kWarp : kMaxP2 / P2;
+}
+
+__host__ int pow2_at_least(int n) {
+  int p = kWarp;
+  while (p < n) p <<= 1;
+  return p;
 }
 
 // Copies the windows of doy g for cells c0 .. c0+CT-1 into s (row ct holds
 // cell c0+ct; +inf for missing samples and padding) and counts the valid
 // samples of each cell into nvalid[ct]. Ends with a block barrier.
-__device__ void load_windows(const float* __restrict__ x, float* s,
-                             int* nvalid, int g, int c0, int n_doy, int Y,
-                             int C, int window, int P2, int CT) {
+__device__ __forceinline__ void load_windows(const float* __restrict__ x,
+                                             float* s, int* nvalid, int g,
+                                             int c0, int n_doy, int Y, int C,
+                                             int window, int P2, int CT) {
   const int tid = threadIdx.x;
   const int stride = row_stride(P2, CT);
   const int half = window / 2;
@@ -90,45 +136,6 @@ __device__ void load_windows(const float* __restrict__ x, float* s,
   }
   if (count) atomicAdd(&nvalid[my_ct], count);
   __syncthreads();
-}
-
-// Writes the nq node quantiles of each cell from its sorted row. Rank k of
-// row ct sits at s[ct * stride + pos(k)]: pos(k) = k for the shared-memory
-// sort, (k % R) * 32 + k / R for the register sort (R > 0).
-template <int R>
-__device__ void select_nodes(const float* s, const int* nvalid,
-                             float* __restrict__ out,
-                             const float* __restrict__ qv,
-                             const float* __restrict__ coff, int g, int c0,
-                             int C, int nq, int stride, int CT) {
-  for (int e = threadIdx.x; e < nq * CT; e += kThreads) {
-    const int ct = e % CT;
-    const int j = e / CT;
-    const int c = c0 + ct;
-    if (c >= C) continue;
-    const int nv = nvalid[ct];
-    float res = NAN;
-    if (nv > 0) {
-      const float n = (float)nv;
-      const float nm1 = n - 1.0f;  // exact: nv < 2^24
-      float h = __fadd_rn(__fadd_rn(__fmul_rn(n, qv[j]), coff[j]), -1.0f);
-      h = fminf(fmaxf(h, 0.0f), nm1);
-      const float fl = floorf(h);
-      const int k0 = (int)fl;
-      const float gam = __fsub_rn(h, fl);
-      const int k1 = min(k0 + 1, nv - 1);
-      const float* row = s + ct * stride;
-      int p0 = k0;
-      int p1 = k1;
-      if constexpr (R > 0) {
-        p0 = (k0 % R) * kWarp + k0 / R;
-        p1 = (k1 % R) * kWarp + k1 / R;
-      }
-      res = __fadd_rn(__fmul_rn(row[p0], __fsub_rn(1.0f, gam)),
-                      __fmul_rn(row[p1], gam));
-    }
-    out[((size_t)g * nq + j) * C + c] = res;
-  }
 }
 
 // One bitonic stage (merge size SIZE, partner distance K) on the warp's
@@ -173,56 +180,31 @@ __device__ __forceinline__ void bitonic_sort(float (&v)[R], int lane) {
   if constexpr (SIZE < R * kWarp) bitonic_sort<R, SIZE * 2>(v, lane);
 }
 
-// P2 <= 1024: one warp per cell, R values a lane, CT = 8 cells a block.
+// Sorts the CT <= 8 rows of s ascending in place (natural order), warp w
+// taking row w in registers: P2 = 32 * R. Ends with a block barrier.
 template <int R>
-__global__ void __launch_bounds__(kThreads)
-winquantile_reg_kernel(const float* __restrict__ x, float* __restrict__ out,
-                       const float* __restrict__ qv,
-                       const float* __restrict__ coff, int n_doy, int Y,
-                       int C, int window, int nq) {
-  constexpr int P2 = R * kWarp;
-  constexpr int CT = kThreads / kWarp;
-  constexpr int stride = row_stride(P2, CT);
-  __shared__ float s[CT * stride];
-  __shared__ int nvalid[CT];
-
-  const int g = blockIdx.y;
-  const int c0 = blockIdx.x * CT;
-  load_windows(x, s, nvalid, g, c0, n_doy, Y, C, window, P2, CT);
-
+__device__ __forceinline__ void sort_rows_reg(float* s, int stride, int CT) {
   const int warp = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  float* row = s + warp * stride;
-  // lane l, register r holds logical element i = l * R + r; it is loaded
-  // from row position r * 32 + l (any assignment works before a sort, and
-  // this one reads and writes the row without bank conflicts)
-  float v[R];
+  if (warp < CT) {
+    const int lane = threadIdx.x % kWarp;
+    float* row = s + warp * stride;
+    // lane l, register r holds logical element i = l * R + r; any
+    // assignment works before a sort, and this one loads without conflicts
+    float v[R];
 #pragma unroll
-  for (int r = 0; r < R; ++r) v[r] = row[r * kWarp + lane];
-
-  bitonic_sort<R, 2>(v, lane);
-
+    for (int r = 0; r < R; ++r) v[r] = row[r * kWarp + lane];
+    bitonic_sort<R, 2>(v, lane);
+    __syncwarp();
 #pragma unroll
-  for (int r = 0; r < R; ++r) row[r * kWarp + lane] = v[r];
+    for (int r = 0; r < R; ++r) row[lane * R + r] = v[r];
+  }
   __syncthreads();
-  select_nodes<R>(s, nvalid, out, qv, coff, g, c0, C, nq, stride, CT);
 }
 
-// Any P2 up to 8192: block-wide bitonic sort of the CT rows in shared memory.
-__global__ void __launch_bounds__(kThreads)
-winquantile_smem_kernel(const float* __restrict__ x, float* __restrict__ out,
-                        const float* __restrict__ qv,
-                        const float* __restrict__ coff, int n_doy, int Y,
-                        int C, int window, int nq, int P2, int CT) {
-  extern __shared__ float smem[];
-  const int stride = row_stride(P2, CT);
-  float* s = smem;
-  int* nvalid = reinterpret_cast<int*>(smem + CT * stride);
-
-  const int g = blockIdx.y;
-  const int c0 = blockIdx.x * CT;
-  load_windows(x, s, nvalid, g, c0, n_doy, Y, C, window, P2, CT);
-
+// Block-wide bitonic sort of the CT rows of P2 values in shared memory.
+// Ends with a block barrier.
+__device__ __forceinline__ void sort_rows_smem(float* s, int stride, int P2,
+                                               int CT) {
   const int half_p2 = P2 / 2;
   for (int size = 2; size <= P2; size <<= 1) {
     for (int k = size >> 1; k > 0; k >>= 1) {
@@ -242,51 +224,396 @@ winquantile_smem_kernel(const float* __restrict__ x, float* __restrict__ out,
       __syncthreads();
     }
   }
-  select_nodes<0>(s, nvalid, out, qv, coff, g, c0, C, nq, stride, CT);
 }
 
 template <int R>
-cudaError_t launch_reg(const float* x, float* out, const float* qv,
-                       const float* coff, int n_doy, int Y, int C,
-                       int window, int nq, cudaStream_t stream) {
-  constexpr int CT = kThreads / kWarp;
-  const dim3 grid((C + CT - 1) / CT, n_doy);
-  winquantile_reg_kernel<R><<<grid, kThreads, 0, stream>>>(
-      x, out, qv, coff, n_doy, Y, C, window, nq);
+__device__ __forceinline__ void sort_rows(float* s, int stride, int P2,
+                                          int CT) {
+  if constexpr (R > 0) {
+    sort_rows_reg<R>(s, stride, CT);
+  } else {
+    sort_rows_smem(s, stride, P2, CT);
+  }
+}
+
+// Entries of the sorted a[0..n) below v / not above v.
+__device__ __forceinline__ int lower_bound(const float* a, int n, float v) {
+  int lo = 0;
+  while (n > 0) {
+    const int h = n >> 1;
+    if (a[lo + h] < v) {
+      lo += h + 1;
+      n -= h + 1;
+    } else {
+      n = h;
+    }
+  }
+  return lo;
+}
+
+__device__ __forceinline__ int upper_bound(const float* a, int n, float v) {
+  int lo = 0;
+  while (n > 0) {
+    const int h = n >> 1;
+    if (a[lo + h] <= v) {
+      lo += h + 1;
+      n -= h + 1;
+    } else {
+      n = h;
+    }
+  }
+  return lo;
+}
+
+// Entries of the ascending int array a[0..n) below v.
+__device__ __forceinline__ int lower_bound_int(const int* a, int n, int v) {
+  int lo = 0;
+  while (n > 0) {
+    const int h = n >> 1;
+    if (a[lo + h] < v) {
+      lo += h + 1;
+      n -= h + 1;
+    } else {
+      n = h;
+    }
+  }
+  return lo;
+}
+
+// Writes the nq node quantiles of each cell from its sorted row (rank k
+// at s[ct * stride + k]); 8 neighbouring cells of one node are one run.
+__device__ __forceinline__ void select_nodes(const float* s, const int* nvalid,
+                             float* __restrict__ out,
+                             const float* __restrict__ qv,
+                             const float* __restrict__ coff, int g, int c0,
+                             int C, int nq, int stride, int CT) {
+  for (int e = threadIdx.x; e < nq * CT; e += kThreads) {
+    const int ct = e % CT;
+    const int j = e / CT;
+    const int c = c0 + ct;
+    if (c >= C) continue;
+    const int nv = nvalid[ct];
+    float res = NAN;
+    if (nv > 0) {
+      const float n = (float)nv;
+      const float nm1 = n - 1.0f;  // exact: nv < 2^24
+      float h = __fadd_rn(__fadd_rn(__fmul_rn(n, qv[j]), coff[j]), -1.0f);
+      h = fminf(fmaxf(h, 0.0f), nm1);
+      const float fl = floorf(h);
+      const int k0 = (int)fl;
+      const float gam = __fsub_rn(h, fl);
+      const int k1 = min(k0 + 1, nv - 1);
+      const float* row = s + ct * stride;
+      res = __fadd_rn(__fmul_rn(row[k0], __fsub_rn(1.0f, gam)),
+                      __fmul_rn(row[k1], gam));
+    }
+    out[((size_t)g * nq + j) * C + c] = res;
+  }
+}
+
+// Sample y of the presorted slices entering (x) and leaving (y) the
+// window at the slide into doy gn; NaN when gn is outside the chunk.
+__device__ __forceinline__ float2 slide_samples(const float* __restrict__ ps,
+                                               int gn, int g1, int half,
+                                               int n_doy, int C, int Y, int c,
+                                               int y) {
+  if (gn >= g1) return make_float2(NAN, NAN);
+  int d_out = (gn - 1 - half) % n_doy;
+  if (d_out < 0) d_out += n_doy;
+  const int d_in = (gn + half) % n_doy;
+  return make_float2(ps[((size_t)d_in * C + c) * Y + y],
+                     ps[((size_t)d_out * C + c) * Y + y]);
+}
+
+// Presorts each doy slice: (n_doy, Y, C) -> (n_doy, C, Y), each cell's Y
+// values ascending, valid samples first, NaN after. Grid (cell groups,
+// doy strides): block (cg, k) takes doys k, k + gridDim.y, ...; P2 >= Y,
+// CT = cells_per_block(P2).
+template <int R>
+__global__ void __launch_bounds__(kThreads)
+presort_kernel(const float* __restrict__ x, float* __restrict__ ps,
+               int n_doy, int Y, int C, int P2_arg, int CT_arg) {
+  extern __shared__ float smem[];
+  // compile-time on the register path, so divisions by them are shifts
+  const int P2 = R > 0 ? R * kWarp : P2_arg;
+  const int CT = R > 0 ? cells_per_block(R * kWarp) : CT_arg;
+  const int stride = row_stride(P2, CT);
+  float* s = smem;
+  int* nvalid = reinterpret_cast<int*>(smem + CT * stride);
+  const int c0 = blockIdx.x * CT;
+  for (int d = blockIdx.y; d < n_doy; d += gridDim.y) {
+    load_windows(x, s, nvalid, d, c0, n_doy, Y, C, 1, P2, CT);
+    sort_rows<R>(s, stride, P2, CT);
+    for (int e = threadIdx.x; e < CT * Y; e += kThreads) {
+      const int ct = e / Y;
+      const int y = e - ct * Y;
+      const int c = c0 + ct;
+      if (c < C)
+        ps[((size_t)d * C + c) * Y + y] =
+            y < nvalid[ct] ? s[ct * stride + y] : NAN;
+    }
+    __syncthreads();
+  }
+}
+
+// The sliding window. Grid (cell groups, chunks of the doy axis). Shared:
+// two window buffers of CT rows, the incoming and outgoing sorted slices
+// and the removed positions (CT x Y each), the valid counts. With one
+// chunk per doy (nchunk == n_doy) every window is sorted in full and
+// nothing slides.
+template <int R, int STAGE>
+__global__ void __launch_bounds__(kThreads)
+slide_kernel(const float* __restrict__ x, const float* __restrict__ ps,
+             float* __restrict__ out, const float* __restrict__ qv,
+             const float* __restrict__ coff, int n_doy, int Y, int C,
+             int window, int nq, int nchunk, int P2_arg, int CT_arg) {
+  extern __shared__ float smem[];
+  // compile-time on the register path, so divisions by them are shifts
+  const int P2 = R > 0 ? R * kWarp : P2_arg;
+  const int CT = R > 0 ? cells_per_block(R * kWarp) : CT_arg;
+  const int stride = row_stride(P2, CT);
+  float* cur = smem;
+  float* nxt = cur + CT * stride;
+  float* rin = nxt + CT * stride;
+  float* rout = rin + CT * Y;
+  int* rp = reinterpret_cast<int*>(rout + CT * Y);
+  int* nvalid = rp + CT * Y;
+
+  const int c0 = blockIdx.x * CT;
+  const int g0 = (int)((long long)blockIdx.y * n_doy / nchunk);
+  const int g1 = (int)((long long)(blockIdx.y + 1) * n_doy / nchunk);
+  const int half = window / 2;
+  const int W = window * Y;
+  // the threads of cell ct: gs of them, t its own index among them
+  const int gs = kThreads / CT;
+  const int ct = threadIdx.x / gs;
+  const int t = threadIdx.x - ct * gs;
+  const int c = c0 + ct;
+  const bool live = c < C;
+  // kept entries of a slide: thread t merges the run [t*E, t*E + E) of the
+  // old window; E odd, so the 32 lanes of a warp start in 32 banks
+  const int E = ((W + gs - 1) / gs) | 1;
+
+  // sample y = t of the slices entering and leaving at the slide into doy
+  // g0 + 1, and then one slide ahead, so the loads overlap the merge
+  float2 pre = make_float2(NAN, NAN);
+  if (window > 1 && live && t < Y)
+    pre = slide_samples(ps, g0 + 1, g1, half, n_doy, C, Y, c, t);
+
+  if (window > 1) {
+    load_windows(x, cur, nvalid, g0, c0, n_doy, Y, C, window, P2, CT);
+    if constexpr (STAGE >= 1) sort_rows<R>(cur, stride, P2, CT);
+  }
+  for (int g = g0; g < g1; ++g) {
+    float* row = cur + ct * stride;
+    float* my_in = rin + ct * Y;
+    float* my_out = rout + ct * Y;
+    int* my_rp = rp + ct * Y;
+    if (window == 1) {
+      // the window is the presorted slice g
+      if (t == 0) nvalid[ct] = 0;
+      __syncthreads();
+      int cnt = 0;
+      for (int y = t; y < Y; y += gs) {
+        const float v = live ? ps[((size_t)g * C + c) * Y + y] : NAN;
+        cnt += !isnan(v);
+        row[y] = isnan(v) ? INFINITY : v;
+      }
+      if (cnt) atomicAdd(&nvalid[ct], cnt);
+      __syncthreads();
+    } else if (g > g0) {
+      // slide: slice g-1-half leaves, slice g+half enters
+      int d_out = (g - 1 - half) % n_doy;
+      if (d_out < 0) d_out += n_doy;
+      const int d_in = (g + half) % n_doy;
+      int cnt = 0;
+      for (int y = t; y < Y; y += gs) {
+        float vi = pre.x, vo = pre.y;
+        if (y != t) {
+          vi = vo = NAN;
+          if (live) {
+            vi = ps[((size_t)d_in * C + c) * Y + y];
+            vo = ps[((size_t)d_out * C + c) * Y + y];
+          }
+        }
+        cnt += (int)!isnan(vi) - (int)!isnan(vo);
+        my_in[y] = isnan(vi) ? INFINITY : vi;
+        my_out[y] = isnan(vo) ? INFINITY : vo;
+      }
+      // a warp's threads serve one cell (gs >= 32)
+      cnt = __reduce_add_sync(0xffffffffu, cnt);
+      if (threadIdx.x % kWarp == 0 && cnt) atomicAdd(&nvalid[ct], cnt);
+      if (live && t < Y)
+        pre = slide_samples(ps, g + 1, g1, half, n_doy, C, Y, c, t);
+      __syncthreads();
+      if constexpr (STAGE >= 1) {
+        for (int j = t; j < Y; j += gs) {
+          const float v = my_out[j];
+          my_rp[j] = lower_bound(row, W, v) + (j - lower_bound(my_out, Y, v));
+        }
+        __syncthreads();
+        float* dst = nxt + ct * stride;
+        const int i0 = t * E;
+        const int i1 = min(W, i0 + E);
+        if (i0 < i1) {
+          // r: removed positions below i; k: inserted values <= row[i];
+          // both only grow along the run. The next of each is held in a
+          // register (NaN and -1 past the end compare false).
+          int r = lower_bound_int(my_rp, Y, i0);
+          int k = upper_bound(my_in, Y, row[i0]);
+          float next_in = k < Y ? my_in[k] : NAN;
+          int next_rp = r < Y ? my_rp[r] : -1;
+          for (int i = i0; i < i1; ++i) {
+            const float v = row[i];
+            while (next_in <= v) {
+              ++k;
+              next_in = k < Y ? my_in[k] : NAN;
+            }
+            if (i == next_rp) {
+              ++r;
+              next_rp = r < Y ? my_rp[r] : -1;
+              continue;
+            }
+            dst[i - r + k] = v;
+          }
+        }
+        for (int j = t; j < Y; j += gs) {
+          const float u = my_in[j];
+          dst[j + lower_bound(row, W, u) - lower_bound(my_out, Y, u)] = u;
+        }
+        __syncthreads();
+        float* tmp = cur;
+        cur = nxt;
+        nxt = tmp;
+      }
+    }
+    if constexpr (STAGE == 2) {
+      select_nodes(cur, nvalid, out, qv, coff, g, c0, C, nq, stride, CT);
+    } else if (t == 0 && live) {
+      const int nv = nvalid[ct];
+      out[(size_t)g * C + c] =
+          STAGE == 0 ? (float)nv : (nv > 0 ? cur[ct * stride] : NAN);
+    }
+    __syncthreads();
+  }
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory (above 48 KB only
+// when asked).
+template <typename K>
+cudaError_t set_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <int R>
+cudaError_t launch_presort(const float* x, float* ps, int n_doy, int Y,
+                           int C, int P2, cudaStream_t st) {
+  const int CT = cells_per_block(P2);
+  const size_t smem =
+      (size_t)CT * row_stride(P2, CT) * sizeof(float) + CT * sizeof(int);
+  cudaError_t err = set_smem(presort_kernel<R>, smem);
+  if (err != cudaSuccess) return err;
+  // a few resident blocks per SM, each looping over its doys: one block
+  // per (cell group, doy) would spend its time being scheduled
+  const int groups = (C + CT - 1) / CT;
+  const int strides =
+      std::min(n_doy, std::max(1, kPresortBlocks / std::max(groups, 1)));
+  const dim3 grid(groups, strides);
+  presort_kernel<R><<<grid, kThreads, smem, st>>>(x, ps, n_doy, Y, C, P2, CT);
   return cudaGetLastError();
+}
+
+template <int R, int STAGE>
+cudaError_t launch_slide(const float* x, const float* ps, float* out,
+                         const float* qv, const float* coff, int n_doy,
+                         int Y, int C, int window, int nq, int nchunk,
+                         int P2, cudaStream_t st) {
+  const int CT = cells_per_block(P2);
+  const size_t rows = (size_t)CT * row_stride(P2, CT) * sizeof(float);
+  const size_t smem =
+      2 * rows + 3 * (size_t)CT * Y * sizeof(float) + CT * sizeof(int);
+  cudaError_t err = set_smem(slide_kernel<R, STAGE>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((C + CT - 1) / CT, nchunk);
+  slide_kernel<R, STAGE><<<grid, kThreads, smem, st>>>(
+      x, ps, out, qv, coff, n_doy, Y, C, window, nq, nchunk, P2, CT);
+  return cudaGetLastError();
+}
+
+template <int STAGE>
+cudaError_t run(const float* x, float* ps, float* out, const float* qv,
+                const float* coff, int n_doy, int Y, int C, int window,
+                int nq, int nchunk, cudaStream_t st) {
+  if (window < 1 || window % 2 == 0 || Y < 0 || nchunk < 1 ||
+      nchunk > n_doy || (long long)window * Y > kMaxP2)
+    return cudaErrorInvalidValue;
+  const int pw = pow2_at_least(window * Y);
+  int py = pow2_at_least(Y);
+  cudaError_t err = cudaSuccess;
+  // one chunk per doy with window > 1 sorts every window in full and reads
+  // no presorted slice
+  if (window > 1 && nchunk == n_doy) py = 0;
+  switch (py) {
+    case 0: break;
+    case 32: err = launch_presort<1>(x, ps, n_doy, Y, C, py, st); break;
+    case 64: err = launch_presort<2>(x, ps, n_doy, Y, C, py, st); break;
+    case 128: err = launch_presort<4>(x, ps, n_doy, Y, C, py, st); break;
+    case 256: err = launch_presort<8>(x, ps, n_doy, Y, C, py, st); break;
+    case 512: err = launch_presort<16>(x, ps, n_doy, Y, C, py, st); break;
+    case 1024: err = launch_presort<32>(x, ps, n_doy, Y, C, py, st); break;
+    default: err = launch_presort<0>(x, ps, n_doy, Y, C, py, st);
+  }
+  if (err != cudaSuccess) return err;
+#define XTT_SLIDE(R)                                                      \
+  launch_slide<R, STAGE>(x, ps, out, qv, coff, n_doy, Y, C, window, nq, \
+                         nchunk, pw, st)
+  switch (pw) {
+    case 32: return XTT_SLIDE(1);
+    case 64: return XTT_SLIDE(2);
+    case 128: return XTT_SLIDE(4);
+    case 256: return XTT_SLIDE(8);
+    case 512: return XTT_SLIDE(16);
+    case 1024: return XTT_SLIDE(32);
+    default: return XTT_SLIDE(0);
+  }
+#undef XTT_SLIDE
 }
 
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() of the launch. P2 is
-// window*Y rounded up to a power of two (at most 8192) and CT =
-// min(8, 8192 / P2) the cells a block takes; P2 <= 1024 runs the register
-// sort (with CT = 8), larger windows the shared-memory sort.
-extern "C" int xtt_winquantile(const float* x, float* out, const float* qv,
-                               const float* coff, int n_doy, int Y, int C,
-                               int window, int nq, int P2, int CT,
+// Launches on `stream`; returns the first CUDA error of the two launches
+// (or cudaErrorInvalidValue for an even window, window*Y above 8192 or a
+// chunk count outside 1..n_doy). ps is scratch of n_doy*C*Y floats for the
+// presorted slices (unused, and may be empty, when window > 1 and nchunk
+// == n_doy); nchunk splits the doy axis across blocks.
+extern "C" int xtt_winquantile(const float* x, float* ps, float* out,
+                               const float* qv, const float* coff, int n_doy,
+                               int Y, int C, int window, int nq, int nchunk,
                                void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  if (P2 <= 32) {
-    err = launch_reg<1>(x, out, qv, coff, n_doy, Y, C, window, nq, st);
-  } else if (P2 <= 64) {
-    err = launch_reg<2>(x, out, qv, coff, n_doy, Y, C, window, nq, st);
-  } else if (P2 <= 128) {
-    err = launch_reg<4>(x, out, qv, coff, n_doy, Y, C, window, nq, st);
-  } else if (P2 <= 256) {
-    err = launch_reg<8>(x, out, qv, coff, n_doy, Y, C, window, nq, st);
-  } else if (P2 <= 512) {
-    err = launch_reg<16>(x, out, qv, coff, n_doy, Y, C, window, nq, st);
-  } else if (P2 <= 1024) {
-    err = launch_reg<32>(x, out, qv, coff, n_doy, Y, C, window, nq, st);
-  } else {
-    const dim3 grid((C + CT - 1) / CT, n_doy);
-    const size_t smem =
-        (size_t)CT * row_stride(P2, CT) * sizeof(float) + CT * sizeof(int);
-    winquantile_smem_kernel<<<grid, kThreads, smem, st>>>(
-        x, out, qv, coff, n_doy, Y, C, window, nq, P2, CT);
-    err = cudaGetLastError();
-  }
-  return (int)err;
+  return (int)run<2>(x, ps, out, qv, coff, n_doy, Y, C, window, nq, nchunk,
+                     (cudaStream_t)stream);
 }
+
+#ifdef XTT_WINQUANTILE_STAGES
+// The same kernel stopped after `stage` (0: presort and loads, writing the
+// window's valid count; 1: + sort and slides, writing the window's
+// smallest valid value; 2: + node selection, as xtt_winquantile). For
+// stages 0 and 1, out is (n_doy, C).
+extern "C" int xtt_winquantile_stages(const float* x, float* ps, float* out,
+                                      const float* qv, const float* coff,
+                                      int n_doy, int Y, int C, int window,
+                                      int nq, int nchunk, int stage,
+                                      void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (stage) {
+    case 0: return (int)run<0>(x, ps, out, qv, coff, n_doy, Y, C, window,
+                               nq, nchunk, st);
+    case 1: return (int)run<1>(x, ps, out, qv, coff, n_doy, Y, C, window,
+                               nq, nchunk, st);
+    case 2: return (int)run<2>(x, ps, out, qv, coff, n_doy, Y, C, window,
+                               nq, nchunk, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+#endif  // XTT_WINQUANTILE_STAGES

@@ -40,10 +40,10 @@ def _result(da: ClimArray, g, names, comps) -> tuple[ClimArray, ClimArray]:
     """(mean change, uncertainty components) as the reference returns them."""
     tcoord = da.coords.get("time")
     gx = ClimArray(g.astype(np.float32), ("time",), {"time": tcoord},
-                   dict(da.attrs), "mean_change")
+                   dict(da.attrs), "mean_change", device=da.device)
     unc = ClimArray(np.stack(comps).astype(np.float32), ("uncertainty", "time"),
                     {"uncertainty": np.array(names), "time": tcoord},
-                    {"units": ""}, "uncertainty")
+                    {"units": ""}, "uncertainty", device=da.device)
     return gx, unc
 
 

@@ -31,7 +31,8 @@ def make_criteria(ds: ClimDataset | ClimArray) -> ClimArray:
     crit = crit[:, keep]
     # a float64 tensor keeps the criteria in double, as the reference's
     # numpy data does
-    return ClimArray(torch.as_tensor(crit), ("realization", "criteria"),
+    return ClimArray(torch.as_tensor(crit, device=arrays[0].device),
+                     ("realization", "criteria"),
                      {"realization": np.arange(crit.shape[0]),
                       "criteria": np.arange(crit.shape[1])}, {}, "criteria")
 

@@ -294,11 +294,12 @@ def robustness_fractions(fut: ClimArray, ref: ClimArray | None = None,
         raise ValueError(f"Unknown significance test {test!r}")
 
     nreal = fut.shape[fut.dims.index("realization")]
-    w = (torch.ones(nreal, dtype=torch.float32) if weights is None
-         else torch.as_tensor(np.asarray(weights, dtype=np.float32)))
+    w = (torch.ones(nreal, dtype=torch.float32, device=fut.device)
+         if weights is None else torch.as_tensor(
+             np.asarray(weights, dtype=np.float32), device=fut.device))
     refd = ref.data if ref is not None else fut.data
     (changed_frac, pos_frac, changed_pos, neg_frac, changed_neg, agree,
-     valid_frac, pvals) = _fractions(fut.data, refd, w.to(fut.device), test,
+     valid_frac, pvals) = _fractions(fut.data, refd, w, test,
                                      bool(strict_sign), ref is not None, tax,
                                      rax, kwargs)
 

@@ -6,6 +6,10 @@ loaded with :mod:`ctypes`; PyTorch's headers are never included, so a build
 takes seconds. The library's file name carries a hash of the source and the
 flags, so an edited source is rebuilt. A missing ``nvcc`` or a failed build
 raises with the compiler's output: there is no fallback.
+
+A build target is a source's name, or a name in :data:`VARIANTS`, which
+compiles a source with extra flags (``winquantile_stages``: the winquantile
+kernel with its profiling stages, which the shipped library leaves out).
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["build", "load", "build_info"]
+__all__ = ["build", "load", "build_info", "source", "VARIANTS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _SRC = _PKG / "csrc"
@@ -26,6 +30,9 @@ _OUT = _PKG / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: build target -> (source name under csrc/, extra nvcc flags)
+VARIANTS = {"winquantile_stages": ("winquantile",
+                                   ("-DXTT_WINQUANTILE_STAGES",))}
 
 _libs: dict[str, ctypes.CDLL] = {}
 #: per kernel: {"seconds": build time (0.0 when loaded from a previous
@@ -46,16 +53,24 @@ def _nvcc() -> str:
         "CUDA kernels of xclim_tpu_torch cannot be built")
 
 
+def source(name: str) -> Path:
+    """The ``csrc/*.cu`` file that build target ``name`` compiles."""
+    return _SRC / f"{VARIANTS.get(name, (name,))[0]}.cu"
+
+
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + VARIANTS.get(name, (name, ()))[1]
+
+
 def _so_path(name: str) -> Path:
-    src = _SRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(source(name).read_bytes()
+                            + " ".join(_flags(name)).encode()).hexdigest()[:16]
     return _OUT / f"lib{name}-{digest}.so"
 
 
 def build(names) -> None:
-    """Build the libraries of ``csrc/<name>.cu`` that are not built yet, one
-    nvcc process per source, all started together. Raises with the
+    """Build the libraries of the targets ``names`` that are not built yet,
+    one nvcc process per target, all started together. Raises with the
     compiler's output if any build fails."""
     todo = []
     for name in dict.fromkeys(names):
@@ -71,7 +86,7 @@ def build(names) -> None:
     for name in todo:
         so = _so_path(name)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_SRC / f"{name}.cu")]
+        cmd = [nvcc, *_flags(name), "-o", str(tmp), str(source(name))]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs.append((name, so, tmp, proc, time.perf_counter()))
@@ -81,8 +96,9 @@ def build(names) -> None:
         build_info[name] = {"seconds": time.perf_counter() - t0, "log": log}
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            failed.append(f"nvcc failed building {name}.cu "
-                          f"(exit {proc.returncode}):\n{log}")
+            failed.append(f"nvcc failed building {name} from "
+                          f"{source(name).name} (exit {proc.returncode}):"
+                          f"\n{log}")
         else:
             os.replace(tmp, so)
     if failed:
@@ -90,7 +106,8 @@ def build(names) -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, building it if needed."""
+    """The loaded library of build target ``name``, building it if
+    needed."""
     lib = _libs.get(name)
     if lib is not None:
         return lib

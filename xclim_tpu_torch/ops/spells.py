@@ -11,15 +11,20 @@ the reference's ``fused_spell_stats`` (xclim_tpu/ops/pallas/spells.py).
 thresh``) or a bool condition, with time on any axis:
 
 * on a CUDA tensor it launches the hand-written kernel ``csrc/spells.cu``
-  and raises if the launch fails. The tensor is read in place as (B, T, C)
-  in its own memory order: a condition whose batch axis lies outside the
-  time axis in memory, as the bootstrap's (replacement, time, cells)
-  condition does, is passed with its batch stride and not copied;
+  (one thread per batch, segment and group of 4 or 1 neighbouring cells,
+  as the input allows; few long segments cut into parts in time and
+  joined by a second kernel) and raises if the launch fails. The tensor
+  is read in place as (B, T, C) in its own memory order: a condition
+  whose batch axis lies outside the time axis in memory, as the
+  bootstrap's (replacement, time, cells) condition does, is passed with
+  its batch stride and not copied;
 * on a CPU tensor it runs :func:`spell_stats_plain`, the plain PyTorch twin:
   run lengths from a running maximum of break positions, then segment sums
   and maxima by gather.
 
-``launches`` and ``twin_calls`` count the calls each path served.
+``launches`` counts the calls that ran on the card (one call is one
+kernel launch, or two when segments are cut in time); ``twin_calls`` the
+calls the twin served.
 """
 
 from __future__ import annotations
@@ -33,9 +38,9 @@ import torch
 from xclim_tpu_torch.ops import _build
 from xclim_tpu_torch.ops.segred import _device_bounds
 
-__all__ = ["OPS", "spell_stats", "spell_stats_plain"]
+__all__ = ["OPS", "spell_stats", "spell_stats_plain", "time_parts"]
 
-#: kernel launches made by spell_stats
+#: calls of spell_stats that ran on the card
 launches = 0
 #: calls spell_stats served with the plain twin (CPU tensors)
 twin_calls = 0
@@ -45,6 +50,10 @@ OPS = {">": 0, ">=": 1, "<": 2, "<=": 3}
 _MASK = 4
 _CMP = {">": torch.greater, ">=": torch.greater_equal, "<": torch.less,
         "<=": torch.less_equal}
+#: threads below which the kernel cuts each segment into parts in time
+#: (132 SMs x 16 warps), and the fewest days a part keeps
+SPLIT_THREADS = 132 * 16 * 32
+SPLIT_DAYS = 64
 #: elements (cells x time) of one chunk of the twin's temporaries
 _TWIN_CHUNK = 1 << 25
 
@@ -118,7 +127,6 @@ def spell_stats(x: torch.Tensor, starts, counts, window: int, op=None,
         return spell_stats_plain(x, starts, counts, window, op, thresh, axis)
     if x.device.type != "cuda":
         raise ValueError(f"no spells kernel for device {x.device}")
-
     v, restore = _btc_view(x, axis)
     if v.dtype == torch.bool:
         v = v.view(torch.uint8)
@@ -131,25 +139,41 @@ def spell_stats(x: torch.Tensor, starts, counts, window: int, op=None,
     st, ct = _device_bounds(starts.astype(np.int32).tobytes(),
                             counts.astype(np.int32).tobytes(), v.device)
     code = _MASK if op is None else OPS[op]
+    nparts = time_parts(B, nseg, C, counts)
+    scratch = torch.empty((6 * B * nseg * nparts * C if nparts > 1 else 0,),
+                          dtype=torch.int32, device=v.device)
     fn = _function()
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream(v.device).cuda_stream
         err = fn(v.data_ptr(), code, float(thresh or 0.0), int(window),
                  st.data_ptr(), ct.data_ptr(), *(o.data_ptr() for o in outs),
-                 B, T, nseg, C, stream)
+                 B, T, nseg, C, nparts,
+                 scratch.data_ptr() if nparts > 1 else None, stream)
     if err != 0:
         raise RuntimeError(f"spells kernel launch failed: CUDA error {err}")
     launches += 1
     return tuple(restore(o) for o in outs)
 
 
+def time_parts(B: int, nseg: int, C: int, counts) -> int:
+    """Parts the kernel cuts each segment into in time: 1 while B * nseg *
+    C threads reach SPLIT_THREADS, else enough parts to reach it, each of
+    at least SPLIT_DAYS days of the longest segment."""
+    rows = B * nseg * C
+    if rows >= SPLIT_THREADS or rows == 0:
+        return 1
+    longest = int(np.max(counts)) if len(counts) else 0
+    return max(1, min(-(-SPLIT_THREADS // rows), longest // SPLIT_DAYS))
+
+
 def _function():
     lib = _build.load("spells")
-    fn = lib.xtt_spells
+    fn = lib.xtt_spells_parts
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int]
                    + [ctypes.c_void_p] * 6
                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_void_p])
+                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 

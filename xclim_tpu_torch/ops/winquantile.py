@@ -6,36 +6,59 @@ quantiles of ALL samples whose doy falls in a ±half window around g (window
 from the (n_doy, Y, C) doy slices:
 
 * on a CUDA tensor it launches the hand-written kernel
-  ``csrc/winquantile.cu`` (one block per doy and up to 8 cells; each
-  window bitonic-sorted in a warp's registers, or in shared memory when it
-  holds more than 1024 samples) and raises if the launch fails;
+  ``csrc/winquantile.cu`` (each doy slice presorted once; a block keeps
+  the sorted windows of up to 8 cells in shared memory and slides them
+  along one chunk of the doy axis, one slice out and one merged in per
+  doy) and raises if the launch fails;
 * on a CPU tensor it runs :func:`doy_window_quantiles_plain`, the plain
   PyTorch twin: the windowed gather plus the sort quantile of
   :func:`~xclim_tpu_torch.ops.quantile.nan_quantile_plain`, chunked over
   cells (never the dispatcher, so the twin stays plain on the card).
 
-``launches`` and ``twin_calls`` count the calls each path served.
+:func:`doy_window_stage` runs the same kernel stopped after a stage (the
+card profile of ``xclim_tpu_torch/tools/prof_winquantile.py``), from a
+second build of the source with its stages compiled in (build target
+``winquantile_stages``); :func:`stage_plain` gives each stage's result by
+plain torch.
+
+``launches`` counts the calls of :func:`doy_window_quantiles` that ran on
+the card (each launches the presort pass and the sliding kernel, or the
+sliding kernel alone when every doy is its own chunk); ``twin_calls`` the
+calls the twin served; ``stage_launches`` the calls of
+:func:`doy_window_stage` that ran on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from xclim_tpu_torch.ops import _build
 from xclim_tpu_torch.ops.quantile import _node_constants, nan_quantile_plain
 
-__all__ = ["doy_window_quantiles", "doy_window_quantiles_plain"]
+__all__ = ["doy_window_quantiles", "doy_window_quantiles_plain",
+           "doy_window_stage", "stage_plain", "doy_chunks"]
 
-#: kernel launches made by doy_window_quantiles
+#: calls of doy_window_quantiles that ran on the card
 launches = 0
 #: calls doy_window_quantiles served with the plain twin (CPU tensors)
 twin_calls = 0
+#: calls of doy_window_stage that ran on the card
+stage_launches = 0
 
-#: largest padded window (window * Y rounded up to a power of two) the
-#: kernel sorts within 48 KB of shared memory per block
+#: largest window (window * Y samples, rounded up to a power of two) the
+#: kernel sorts and slides in one block's shared memory
 MAX_P2 = 8192
+#: the kernel's stages: 0 presort + loads (the window's valid count), 1 +
+#: sort and slides (the window's smallest valid value), 2 + node selection
+STAGES = ("load_presort", "slide", "full")
+#: blocks a launch aims for: several waves of resident blocks on 132 SMs.
+#: Each chunk sorts its first window in full, which costs more in shared
+#: memory (windows above 1024 samples): those aim for fewer blocks
+TARGET_BLOCKS = 4096
+TARGET_BLOCKS_SMEM = 1024
 
 _SLAB_BYTES = 1 << 30
 
@@ -53,6 +76,24 @@ def _check(xg: torch.Tensor, window: int):
         raise ValueError("window must be a positive odd number")
 
 
+def cells_per_block(window: int, Y: int) -> int:
+    """Cells one block of the kernel takes: 8 while the padded window fits
+    a warp's registers (1024 samples), else 8192 / padded window."""
+    P2 = max(32, _pow2(window * Y))
+    return 8 if P2 <= 1024 else MAX_P2 // P2
+
+
+def doy_chunks(n_doy: int, C: int, window: int, Y: int) -> int:
+    """How many chunks the kernel splits the doy axis into: enough that
+    (cell groups x chunks) reaches TARGET_BLOCKS (TARGET_BLOCKS_SMEM for a
+    window above 1024 padded samples), at most n_doy. Each chunk sorts its
+    first window in full, then slides."""
+    groups = -(-C // cells_per_block(window, Y))
+    target = (TARGET_BLOCKS if max(32, _pow2(window * Y)) <= 1024
+              else TARGET_BLOCKS_SMEM)
+    return max(1, min(n_doy, -(-target // max(groups, 1))))
+
+
 def doy_window_quantiles(xg: torch.Tensor, q, window: int, alpha: float = 1.0,
                          beta: float = 1.0) -> torch.Tensor:
     """Quantiles of each wrapped ±(window//2)-doy group of slices.
@@ -68,40 +109,116 @@ def doy_window_quantiles(xg: torch.Tensor, q, window: int, alpha: float = 1.0,
     if xg.device.type == "cpu":
         twin_calls += 1
         return doy_window_quantiles_plain(xg, q, window, alpha, beta)
-    if xg.device.type != "cuda":
-        raise ValueError(f"no winquantile kernel for device {xg.device}")
-
-    n_doy, Y, C = xg.shape
-    P2 = max(2, _pow2(window * Y))
-    if P2 > MAX_P2:
-        raise ValueError(f"window*Y = {window * Y} exceeds the kernel's "
-                         f"{MAX_P2}-sample sort")
-    CT = min(8, MAX_P2 // P2)
-    qv, coff = _node_constants(q, alpha, beta)
-    nq = len(qv)
-    x = xg.contiguous()
-    qv_d = torch.as_tensor(qv, device=x.device)
-    co_d = torch.as_tensor(coff, device=x.device)
-    out = torch.empty((n_doy, nq, C), dtype=torch.float32, device=x.device)
-    if out.numel() == 0:
-        return out
-    fn = _function()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), out.data_ptr(), qv_d.data_ptr(),
-                 co_d.data_ptr(), n_doy, Y, C, window, nq, P2, CT, stream)
-    if err != 0:
-        raise RuntimeError(f"winquantile kernel launch failed: CUDA error {err}")
+    out = _launch(xg, q, window, alpha, beta, None)
     launches += 1
     return out
 
 
+def doy_window_stage(xg: torch.Tensor, q, window: int, stage: int,
+                     alpha: float = 1.0, beta: float = 1.0) -> torch.Tensor:
+    """The kernel stopped after ``stage`` (see STAGES): (n_doy, C) for
+    stages 0 and 1, the quantiles for 2. A CPU tensor gets
+    :func:`stage_plain`."""
+    global stage_launches
+    _check(xg, window)
+    if stage not in (0, 1, 2):
+        raise ValueError(f"stage must be 0, 1 or 2, got {stage}")
+    if xg.device.type == "cpu":
+        return stage_plain(xg, q, window, stage, alpha, beta)
+    out = _launch(xg, q, window, alpha, beta, stage)
+    stage_launches += 1
+    return out
+
+
+def _launch(xg, q, window, alpha, beta, stage):
+    if xg.device.type != "cuda":
+        raise ValueError(f"no winquantile kernel for device {xg.device}")
+    n_doy, Y, C = xg.shape
+    if _pow2(window * Y) > MAX_P2:
+        raise ValueError(f"window*Y = {window * Y} exceeds the kernel's "
+                         f"{MAX_P2}-sample window")
+    qv, coff = _node_constants(q, alpha, beta)
+    nq = len(qv)
+    x = xg.contiguous()
+    qv_d, co_d = _device_nodes(qv.tobytes(), coff.tobytes(), x.device)
+    shape = (n_doy, nq, C) if stage in (None, 2) else (n_doy, C)
+    out = torch.empty(shape, dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    nchunk = doy_chunks(n_doy, C, window, Y)
+    # scratch for the presorted slices; no slice slides when every doy
+    # is its own chunk
+    full_sort = window > 1 and nchunk == n_doy
+    presorted = torch.empty((0,) if full_sort else (n_doy, C, Y),
+                            dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        args = (x.data_ptr(), presorted.data_ptr(), out.data_ptr(),
+                qv_d.data_ptr(), co_d.data_ptr(), n_doy, Y, C, window, nq,
+                nchunk)
+        if stage is None:
+            err = _function()(*args, stream)
+        else:
+            err = _stage_function()(*args, stage, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"winquantile kernel launch failed: CUDA error {err}")
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _device_nodes(qv: bytes, coff: bytes, device: torch.device):
+    """The node constants on the device, copied once per node set: a copy
+    from host memory on every call would wait for the device each time."""
+    return (torch.frombuffer(bytearray(qv), dtype=torch.float32).to(device),
+            torch.frombuffer(bytearray(coff), dtype=torch.float32).to(device))
+
+
+_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+
+
+@functools.cache
 def _function():
-    lib = _build.load("winquantile")
-    fn = lib.xtt_winquantile
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn = _build.load("winquantile").xtt_winquantile
+    fn.argtypes = _ARGS + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _stage_function():
+    fn = _build.load("winquantile_stages").xtt_winquantile_stages
+    fn.argtypes = _ARGS + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _window_rows(n_doy: int, window: int, device) -> torch.Tensor:
+    half = window // 2
+    rows = (torch.arange(n_doy)[:, None]
+            + torch.arange(-half, half + 1)[None, :]) % n_doy
+    return rows.to(device)
+
+
+def stage_plain(xg: torch.Tensor, q, window: int, stage: int,
+                alpha: float = 1.0, beta: float = 1.0) -> torch.Tensor:
+    """Each stage's result by plain torch, on xg's device: 0 the number of
+    valid samples of each (doy, cell) window as float32; 1 the window's
+    smallest valid value (NaN without one); 2 the quantiles
+    (:func:`doy_window_quantiles_plain`)."""
+    _check(xg, window)
+    if stage == 2:
+        return doy_window_quantiles_plain(xg, q, window, alpha, beta)
+    rows = _window_rows(xg.shape[0], window, xg.device)
+    if stage == 0:
+        per = (~torch.isnan(xg)).sum(dim=1, dtype=torch.int32)   # (n_doy, C)
+        return per[rows].sum(dim=1).float()
+    if stage == 1:
+        per = torch.where(torch.isnan(xg), torch.inf, xg).amin(dim=1)
+        lo = per[rows].amin(dim=1)
+        has = (~torch.isnan(xg)).any(dim=1)[rows].any(dim=1)
+        return torch.where(has, lo, torch.nan)
+    raise ValueError(f"stage must be 0, 1 or 2, got {stage}")
 
 
 def doy_window_quantiles_plain(xg: torch.Tensor, q, window: int,
@@ -115,10 +232,7 @@ def doy_window_quantiles_plain(xg: torch.Tensor, q, window: int,
     """
     _check(xg, window)
     n_doy, Y, C = xg.shape
-    half = window // 2
-    rows = (torch.arange(n_doy)[:, None]
-            + torch.arange(-half, half + 1)[None, :]) % n_doy
-    rows = rows.reshape(-1).to(xg.device)
+    rows = _window_rows(n_doy, window, xg.device).reshape(-1)
     qv = torch.as_tensor(q, dtype=torch.float32, device=xg.device)
     out = torch.empty((n_doy, len(qv), C), dtype=torch.float32,
                       device=xg.device)

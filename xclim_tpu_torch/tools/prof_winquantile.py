@@ -1,0 +1,105 @@
+"""Stage profile of the winquantile kernel on the card.
+
+The kernel (``csrc/winquantile.cu``) is built with its stage as a template
+parameter and reached through ``xtt_winquantile_stages``, so the profile
+times the shipped code:
+
+* ``load_presort``: the presort of every doy slice and the per-doy loads of
+  the window's slices with the running valid count;
+* ``slide``: + the chunk-start sort and the slides of the sorted window;
+* ``full``: + node selection (the kernel ``doy_window_quantiles`` runs).
+
+The differences between neighbouring stages say where the time goes: sort
+and loads, slide, or selection. Each stage writes a small result that
+:func:`~xclim_tpu_torch.ops.winquantile.stage_plain` also gives.
+
+    python -m xclim_tpu_torch.tools.prof_winquantile [--cells 16384]
+
+runs the stages at QDM's shape (365 doys x 30 years, window 31, 50
+nodes of ``equally_spaced_nodes(50)``) on random slices and prints one JSON
+line of milliseconds: each stage's, and the presort pass's and the
+sliding kernel's device time in one full launch (torch.profiler).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import numpy as np
+import torch
+
+from xclim_tpu_torch.ops import winquantile
+from xclim_tpu_torch.sdba.utils import equally_spaced_nodes
+
+__all__ = ["stage_times", "kernel_split", "main"]
+
+
+def stage_times(xg: torch.Tensor, q, window: int, reps: int = 3) -> dict:
+    """Milliseconds of each stage (a mean over ``reps`` launches after a
+    warm-up, by CUDA events) on the CUDA tensor ``xg`` (n_doy, Y, C)."""
+    if xg.device.type != "cuda":
+        raise ValueError("the stage profile times the CUDA kernel: xg must "
+                         "be a CUDA tensor")
+    out = {}
+    for stage, name in enumerate(winquantile.STAGES):
+        winquantile.doy_window_stage(xg, q, window, stage)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            winquantile.doy_window_stage(xg, q, window, stage)
+        stop.record()
+        torch.cuda.synchronize()
+        out[name] = start.elapsed_time(stop) / reps
+    return out
+
+
+def kernel_split(xg: torch.Tensor, q, window: int) -> dict:
+    """Device milliseconds of the presort pass and of the sliding kernel
+    in one full launch, from torch.profiler's trace (None where the trace
+    holds no device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    winquantile.doy_window_quantiles(xg, q, window)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        winquantile.doy_window_quantiles(xg, q, window)
+        torch.cuda.synchronize()
+    out = {"presort_kernel": None, "slide_kernel": None}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        for name in out:
+            if name in e.key:
+                out[name] = (out[name] or 0.0) + us / 1e3
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--cells", type=int, default=16384)
+    ap.add_argument("--years", type=int, default=30)
+    ap.add_argument("--window", type=int, default=31)
+    ap.add_argument("--seed", type=int, default=1981)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("prof_winquantile: no CUDA device")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed)
+    xg = torch.randn((365, args.years, args.cells), generator=gen,
+                     device="cuda") * 5.0 + 285.0
+    q = equally_spaced_nodes(50).astype(np.float32)
+    print(json.dumps({"shape": list(xg.shape), "window": args.window,
+                      "device": torch.cuda.get_device_name(0),
+                      "stage_ms": stage_times(xg, q, args.window),
+                      "kernel_ms": kernel_split(xg, q, args.window)}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
