@@ -10,8 +10,10 @@ Builds the hand-written CUDA kernels from ``xclim_tpu_torch/csrc`` (into
 2. holds each kernel against its plain PyTorch twin on the card at 1024
    cells, with fully valid, partly missing and all-missing lanes
    (winquantile value-equal at windows 5, 31 and 61, 30 and 60 years, a
-   sparse doy 366 and tied values; segred: every op, MS/YS/QS-DEC, noleap
-   and 360_day, and an all-NaN month);
+   sparse doy 366, tied values, and 300 years at window 31, whose windows
+   take the kernel's global-scratch instance; qdmadjust over 1-64 year
+   slots, 2-500 nodes and series tables of two calendars; segred: every
+   op, MS/YS/QS-DEC, noleap and 360_day, and an all-NaN month);
 3. drives the sdba QDM slice at the repo's "QDM 16k" size (128 x 128 cells,
    30 noleap years, day-of-year window 31, 50 quantiles) through
    ``QuantileDeltaMapping.train(...).adjust(...)``, checks that it went
@@ -67,10 +69,11 @@ Without a CUDA device it exits with status 2 and prints no result.
 
     PYTHONPATH=<checkout> python3 -P chip_smoke.py --kernel-times
 
-prints one JSON line of the winquantile and spells times at this script's
-shapes (``kernel_times``) for the package of ``<checkout>`` (``-P`` keeps
-this script's own directory off the module path), and nothing else: run
-it for two checkouts in turns within one call to compare them on one card.
+prints one JSON line of the winquantile, spells, qdmadjust and
+axisquantile times at this script's shapes (``kernel_times``) for the
+package of ``<checkout>`` (``-P`` keeps this script's own directory off
+the module path), and nothing else: run it for two checkouts in turns
+within one call to compare them on one card.
 """
 
 from __future__ import annotations
@@ -246,28 +249,108 @@ def phase_kernels_small(gen, device, q, record):
              f"({winquantile.doy_chunks(shape[0], shape[2], window, shape[1])}"
              f" doy chunks): max_abs_err={err} (value-equal) "
              f"kernel_ms={ms:.3f} twin_ms={pms:.3f}")
-    for n_doy in (365, 366):
+    # past shared memory (w31 x 300 years = 9300 samples): the kernel's
+    # global-scratch instance, value-equal to the twin
+    x = _lanes(gen, 365, 300, 64, device)
+    before = (winquantile.launches, winquantile.global_launches)
+    got = winquantile.doy_window_quantiles(x, q, WINDOW)
+    torch.cuda.synchronize()
+    if (winquantile.launches, winquantile.global_launches) != (
+            before[0] + 1, before[1] + 1):
+        raise AssertionError("winquantile past shared memory missed the "
+                             "global-scratch instance")
+    err = _compare("winquantile (365, 300, 64) w31", got,
+                   winquantile.doy_window_quantiles_plain(x, q, WINDOW),
+                   rtol=0.0, atol=0.0)
+    record["winquantile"]["max_abs_err"] = max(
+        record["winquantile"]["max_abs_err"], err)
+    ms = _cuda_ms(lambda: winquantile.doy_window_quantiles(x, q, WINDOW), 3)
+    pms = _cuda_ms(
+        lambda: winquantile.doy_window_quantiles_plain(x, q, WINDOW), 1)
+    _log(f"[kernel vs twin] winquantile (365, 300, 64) window={WINDOW}, past "
+         f"shared memory (global scratch, "
+         f"{winquantile.doy_chunks(365, 64, WINDOW, 300)} doy chunks): "
+         f"max_abs_err={err} (value-equal) kernel_ms={ms:.3f} "
+         f"twin_ms={pms:.3f}")
+    # qdmadjust's doy entry at every register width and both factor routes,
+    # value-equal to the twin
+    routes = [0, 0]
+    times = {}
+    for label, args in _qdm_cases(gen, device):
+        before = qdmadjust.af_shared_launches
+        got = qdmadjust.qdm_adjust_doy(*args)
+        torch.cuda.synchronize()
+        routes[qdmadjust.af_shared_launches == before] += 1
+        ref = qdmadjust.qdm_adjust_doy_plain(*args)
+        err = _compare(f"qdmadjust {label}", got, ref, rtol=0.0, atol=0.0)
+        record["qdmadjust"]["max_abs_err"] = max(
+            record["qdmadjust"]["max_abs_err"], err)
+        times[label] = round(_cuda_ms(lambda: qdmadjust.qdm_adjust_doy(*args),
+                                      5), 4)
+    if routes != [10, 5]:
+        raise AssertionError(f"qdmadjust cases missed a factor route: "
+                             f"{routes} (shared, global)")
+    _log(f"[kernel vs twin] qdmadjust at (366, Y, {SMALL_CELLS}), a sparse "
+         f"doy 366, Y 1/7/30/33/64 x 2/52/500 nodes: value-equal; launches "
+         f"by factor route (shared, global) {routes}; kernel_ms "
+         f"{json.dumps(times)}")
+    # the series entry through the adjust tables of a standard calendar (doy
+    # 366 in the leap years) and a 360_day one, value-equal to its twin
+    from xclim_tpu_torch.core.calendar import date_range
+    from xclim_tpu_torch.sdba import Grouper
+
+    for cal in ("standard", "360_day"):
+        t = date_range("1981-01-01", periods=YEARS * 365, calendar=cal)
+        table = Grouper("time.dayofyear").device_adjust_table(t, device)[0]
+        xf = _lanes(gen, len(t), 1, SMALL_CELLS, device)[:, 0]
         for kind in ("+", "*"):
-            x = _lanes(gen, n_doy, YEARS, SMALL_CELLS, device,
-                       doy366_sparse=n_doy == 366)
-            af = torch.sort(torch.randn((n_doy, len(q), SMALL_CELLS),
+            af = torch.sort(torch.randn((table.shape[0], len(q), SMALL_CELLS),
                                         generator=gen, device=device),
                             dim=1).values
             if kind == "*":
                 af = 1.0 + 0.01 * af
-            got = qdmadjust.qdm_adjust_doy(x, af, q, kind)
+            got = qdmadjust.qdm_adjust_series(xf, table, af, q, kind)
             torch.cuda.synchronize()
-            ref = qdmadjust.qdm_adjust_doy_plain(x, af, q, kind)
-            err = _compare(f"qdmadjust({n_doy},{YEARS},{SMALL_CELLS}) {kind}",
-                           got, ref)
-            ms = _cuda_ms(lambda: qdmadjust.qdm_adjust_doy(x, af, q, kind), 10)
-            pms = _cuda_ms(
-                lambda: qdmadjust.qdm_adjust_doy_plain(x, af, q, kind), 3)
+            ref = qdmadjust.qdm_adjust_series_plain(xf, table, af, q, kind)
+            err = _compare(f"qdmadjust series {cal} {kind}", got, ref,
+                           rtol=0.0, atol=0.0)
             record["qdmadjust"]["max_abs_err"] = max(
                 record["qdmadjust"]["max_abs_err"], err)
-            _log(f"[kernel vs twin] qdmadjust ({n_doy}, {YEARS}, "
-                 f"{SMALL_CELLS}) kind={kind}: max_abs_err={err} "
-                 f"kernel_ms={ms:.3f} twin_ms={pms:.3f}")
+        _log(f"[kernel vs twin] qdmadjust series ({len(t)}, {SMALL_CELLS}) "
+             f"{cal} ({tuple(table.shape)} table), kinds + and *: "
+             f"value-equal")
+
+
+#: qdmadjust's doy entry at (366, Y, SMALL_CELLS): Y over the four register
+#: widths, 2 and 52 nodes (factor tile in shared memory) and 500 (factors
+#: from global memory), kind "+" or "*" by the parity of Y + nq
+QDM_CASES = tuple((Y, nq) for Y in (1, 7, 30, 33, 64) for nq in (2, 52, 500))
+
+
+def _qdm_nodes(nq):
+    import numpy as np
+
+    from xclim_tpu_torch.sdba.utils import equally_spaced_nodes
+
+    if nq == 2:
+        return np.asarray([1e-4, 1.0 - 1e-4], np.float32)
+    return equally_spaced_nodes(nq - 2).astype(np.float32)
+
+
+def _qdm_cases(gen, device):
+    """(label, (xd, af, q, kind)) of the QDM_CASES: lanes as _lanes makes
+    them with a sparse doy 366, every eighth cell tied at 0.5 K."""
+    import torch
+
+    for Y, nq in QDM_CASES:
+        kind = "*" if (Y + nq) % 2 else "+"
+        x = _lanes(gen, 366, Y, SMALL_CELLS, device, doy366_sparse=True)
+        x[:, :, 3::8] = torch.round(x[:, :, 3::8] * 2.0) / 2.0
+        af = torch.sort(torch.randn((366, nq, SMALL_CELLS), generator=gen,
+                                    device=device), dim=1).values
+        if kind == "*":
+            af = 1.0 + 0.01 * af
+        yield f"Y{Y} nq{nq} {kind}", (x, af, _qdm_nodes(nq), kind)
 
 
 def _series(device, cells_side):
@@ -294,12 +377,16 @@ def _series(device, cells_side):
     return out
 
 
-def _qdm(series):
+def _qdm_train(series):
     from xclim_tpu_torch.sdba import Grouper, QuantileDeltaMapping
 
-    adj = QuantileDeltaMapping.train(series["ref"], series["hist"],
-                                     group=Grouper("time.dayofyear", WINDOW),
-                                     nquantiles=NQ, kind="+")
+    return QuantileDeltaMapping.train(series["ref"], series["hist"],
+                                      group=Grouper("time.dayofyear", WINDOW),
+                                      nquantiles=NQ, kind="+")
+
+
+def _qdm(series):
+    adj = _qdm_train(series)
     return adj, adj.adjust(series["sim"])
 
 
@@ -316,19 +403,52 @@ def _ops():
             "segred": segred, "spells": spells, "axisquantile": axisquantile}
 
 
+#: counters besides launches and twin_calls: key -> (op, attribute)
+EXTRA_COUNTS = {"winquantile_stages": ("winquantile", "stage_launches"),
+                "winquantile_global": ("winquantile", "global_launches"),
+                "qdmadjust_af_shared": ("qdmadjust", "af_shared_launches"),
+                "qdmadjust_af_global": ("qdmadjust", "af_global_launches"),
+                "axisquantile_staged": ("axisquantile", "staged_launches"),
+                "axisquantile_direct": ("axisquantile", "direct_launches")}
+
+
 def _counts():
     out = {}
     for name, mod in _ops().items():
         out[name] = mod.launches
         out[f"{name}_twin"] = mod.twin_calls
-    out["winquantile_stages"] = _ops()["winquantile"].stage_launches
+    for key, (op, attr) in EXTRA_COUNTS.items():
+        out[key] = getattr(_ops()[op], attr)
     return out
 
 
 def _reset_counts():
     for mod in _ops().values():
         mod.launches = mod.twin_calls = 0
-    _ops()["winquantile"].stage_launches = 0
+    for op, attr in EXTRA_COUNTS.values():
+        setattr(_ops()[op], attr, 0)
+
+
+def _count_calls(targets, run):
+    """(calls of each module.name in targets made by run(), run()'s
+    result); the calls themselves go through."""
+    counts, saved = {}, []
+    for mod, name in targets:
+        key = f"{mod.__name__}.{name}"
+        fn = getattr(mod, name)
+        counts[key] = 0
+        saved.append((mod, name, fn))
+
+        def counted(*args, _fn=fn, _key=key, **kwargs):
+            counts[_key] += 1
+            return _fn(*args, **kwargs)
+        setattr(mod, name, counted)
+    try:
+        result = run()
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return counts, result
 
 
 def phase_slice(device, card, record):
@@ -340,6 +460,8 @@ def phase_slice(device, card, record):
         Grouper,
         QuantileDeltaMapping,
     )
+    from xclim_tpu_torch.sdba import adjustment
+    from xclim_tpu_torch.sdba import utils as sdba_utils
     from xclim_tpu_torch.sdba.utils import gather_doy_slices, gather_groups
     from xclim_tpu_torch.tools.prof_winquantile import stage_times
 
@@ -349,20 +471,30 @@ def phase_slice(device, card, record):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    # the main path's run: counts from zero, read right after
+    # the main path's run: counts from zero, read right after. The adjust
+    # hands the series and its group table to the qdmadjust op: no group
+    # gather and no scatter of its own
     _reset_counts()
-    adj, out = _qdm(series)
+    adj = _qdm_train(series)
+    calls, out = _count_calls(
+        [(qdmadjust, "qdm_adjust_series"), (qdmadjust, "qdm_adjust_doy"),
+         (adjustment, "gather_groups"), (sdba_utils, "gather_groups")],
+        lambda: adj.adjust(series["sim"]))
     torch.cuda.synchronize()
     counts = _counts()
     _log(f"[slice] launch counts of one QDM train+adjust at {cells} cells: "
-         f"{json.dumps(counts)}")
-    if counts != {"winquantile": 2, "winquantile_twin": 0,
-                  "qdmadjust": 1, "qdmadjust_twin": 0,
-                  "segred": 0, "segred_twin": 0,
-                  "spells": 0, "spells_twin": 0,
-                  "axisquantile": 0, "axisquantile_twin": 0,
-                  "winquantile_stages": 0}:
+         f"{json.dumps(counts)}; calls made by the adjust: "
+         f"{json.dumps(calls)}")
+    zero = {k: 0 for k in counts}
+    if counts != dict(zero, winquantile=2, qdmadjust=1,
+                      qdmadjust_af_shared=1):
         raise AssertionError(f"main path did not run on the kernels: {counts}")
+    if calls != {"xclim_tpu_torch.ops.qdmadjust.qdm_adjust_series": 1,
+                 "xclim_tpu_torch.ops.qdmadjust.qdm_adjust_doy": 0,
+                 "xclim_tpu_torch.sdba.adjustment.gather_groups": 0,
+                 "xclim_tpu_torch.sdba.utils.gather_groups": 0}:
+        raise AssertionError(f"QDM adjust did not read through its table: "
+                             f"{calls}")
     record["winquantile"]["launches"] = counts["winquantile"]
     record["qdmadjust"]["launches"] = counts["qdmadjust"]
 
@@ -477,25 +609,48 @@ def phase_slice(device, card, record):
          f"equal to its plain expression (max_abs_err={serr})")
     del got, ref
 
+    # qdmadjust's two entries against their twins at the slice's own
+    # inputs: the series through its adjust table (the main path), and the
+    # doy slices gathered from it
     adj_table = Grouper("time.dayofyear", WINDOW).device_adjust_table(
         series["sim"].time, device)[0]
-    sd = gather_groups(series["sim"].data, adj_table).reshape(
-        adj_table.shape[0], adj_table.shape[1], -1)
+    xf2 = series["sim"].data.reshape(T, -1)
+    sd = gather_groups(xf2, adj_table)
     af = adj.ds["af"].reshape(adj.ds["af"].shape[0], adj.ds["af"].shape[1], -1)
-    got = qdmadjust.qdm_adjust_doy(sd, af, q, "+")
-    ref = qdmadjust.qdm_adjust_doy_plain(sd, af, q, "+")
-    err = _compare(f"qdmadjust{tuple(sd.shape)}", got, ref)
-    ms = _cuda_ms(lambda: qdmadjust.qdm_adjust_doy(sd, af, q, "+"), 10)
-    pms = _cuda_ms(lambda: qdmadjust.qdm_adjust_doy_plain(sd, af, q, "+"), 2)
-    # bound: xd and af read once, the result written once; operations: the
-    # rank of each valid value among its group's (n_valid^2 compares)
+    entries = {
+        "qdm_adjust_series": (
+            lambda: qdmadjust.qdm_adjust_series(xf2, adj_table, af, q, "+"),
+            lambda: qdmadjust.qdm_adjust_series_plain(xf2, adj_table, af, q,
+                                                      "+")),
+        "qdm_adjust_doy": (
+            lambda: qdmadjust.qdm_adjust_doy(sd, af, q, "+"),
+            lambda: qdmadjust.qdm_adjust_doy_plain(sd, af, q, "+"))}
+    ms, pms = {}, {}
+    for name, (kernel, plain) in entries.items():
+        got = kernel()
+        torch.cuda.synchronize()
+        err = _compare(f"qdmadjust {name} at the slice", got, plain(),
+                       rtol=0.0, atol=0.0)
+        record["qdmadjust"]["max_abs_err"] = max(
+            record["qdmadjust"]["max_abs_err"], err)
+        del got
+        ms[name] = _cuda_ms(kernel, 10)
+        pms[name] = _cuda_ms(plain, 2)
+    # bound: the series and af read once, the result written once (the
+    # table's 44 KB besides); operations: the rank of each valid value
+    # among its group's (n_valid^2 compares)
     nv = (~torch.isnan(sd)).sum(dim=1).double()
     record["qdmadjust"].update(
-        max_abs_err=max(record["qdmadjust"]["max_abs_err"], err), ms=ms,
-        plain_ms=pms, **_bound((2 * sd.numel() + af.numel()) * 4,
-                               float((nv * nv).sum())))
-    _log(f"[kernel vs twin] qdmadjust {tuple(sd.shape)} (slice shape): "
-         f"max_abs_err={err} kernel_ms={ms:.3f} twin_ms={pms:.3f}")
+        ms=ms["qdm_adjust_series"], plain_ms=pms["qdm_adjust_series"],
+        entries_ms=ms, entries_plain_ms=pms,
+        **_bound((2 * xf2.numel() + af.numel() + adj_table.numel()) * 4,
+                 float((nv * nv).sum())))
+    _log(f"[kernel vs twin] qdmadjust at the slice: series {tuple(xf2.shape)}"
+         f" through a {tuple(adj_table.shape)} table, and doy slices "
+         f"{tuple(sd.shape)}: value-equal; kernel_ms "
+         f"{json.dumps({k: round(v, 4) for k, v in ms.items()})} twin_ms "
+         f"{json.dumps({k: round(v, 4) for k, v in pms.items()})} bound_ms="
+         f"{record['qdmadjust']['bound_ms']:.4f}")
     return series
 
 
@@ -683,10 +838,7 @@ def phase_tg_mean(device, card, record):
     _log(f"[tg_mean] launch counts of one atmos.tg_mean(tas, freq='MS') at "
          f"{cells} cells: {json.dumps(counts)} (segred: the monthly mean and "
          f"the missing-value count)")
-    if counts != {"winquantile": 0, "winquantile_twin": 0, "qdmadjust": 0,
-                  "qdmadjust_twin": 0, "segred": 2, "segred_twin": 0,
-                  "spells": 0, "spells_twin": 0, "axisquantile": 0,
-                  "axisquantile_twin": 0, "winquantile_stages": 0}:
+    if counts != dict({k: 0 for k in counts}, segred=2):
         raise AssertionError(f"tg_mean did not run on the kernel: {counts}")
     peak = (torch.cuda.max_memory_allocated() - base) / 2**30
 
@@ -905,18 +1057,20 @@ def _spell_cases(gen, device):
 
 
 def kernel_times(device) -> dict:
-    """Milliseconds of winquantile and spells at the shapes this script
-    times, through their public wrappers only (``doy_window_quantiles``,
-    ``spell_stats``), on inputs made from SEED: the WQ_CASES, QDM's
-    (365, 30, 16384) slices at window 31, the _spell_cases, and a
+    """Milliseconds of winquantile, spells, qdmadjust and axisquantile at
+    the shapes this script times, through their public wrappers only
+    (``doy_window_quantiles``, ``spell_stats``, ``qdm_adjust_doy``,
+    ``axis_quantile_small``), on inputs made from SEED: the WQ_CASES, QDM's
+    (365, 30, 16384) slices at window 31, the _spell_cases, a
     bootstrap-shaped condition (29 replacement-major copies of (10950,
-    4096), 10 % True, YS). Every version of the port has those wrappers,
-    so this times an older checkout of the package too (``--kernel-times``
-    in main)."""
+    4096), 10 % True, YS), the QDM_CASES and the AXQ_CASES, and QDM's adjust
+    and the ensemble's quantile at their slices' shapes. Every version of
+    the port has those wrappers, so this times an older checkout of the
+    package too (``--kernel-times`` in main)."""
     import torch
 
     from xclim_tpu_torch.core.calendar import date_range, resample_segments
-    from xclim_tpu_torch.ops import spells, winquantile
+    from xclim_tpu_torch.ops import axisquantile, qdmadjust, spells, winquantile
     from xclim_tpu_torch.sdba.utils import equally_spaced_nodes
 
     gen = torch.Generator(device=device)
@@ -942,6 +1096,25 @@ def kernel_times(device) -> dict:
             == 0).permute(1, 2, 0)
     out[f"spells bootstrap {tuple(cond.shape)} YS bool"] = _cuda_ms(
         lambda: spells.spell_stats(cond, ys.starts, ys.counts, 6), 10)
+    del cond
+    for label, args in _qdm_cases(gen, device):
+        out[f"qdmadjust {label}"] = _cuda_ms(
+            lambda: qdmadjust.qdm_adjust_doy(*args), 10)
+    x = torch.randn((365, YEARS, SIDE * SIDE), generator=gen,
+                    device=device) * 6.0 + 289.0
+    af = torch.sort(torch.randn((365, len(q), SIDE * SIDE), generator=gen,
+                                device=device), dim=1).values
+    out[f"qdmadjust {tuple(x.shape)} nq{len(q)} QDM"] = _cuda_ms(
+        lambda: qdmadjust.qdm_adjust_doy(x, af, q, "+"), 10)
+    del x, af
+    for label, x, axis in _axq_cases(gen, device):
+        out[f"axisquantile {label}"] = _cuda_ms(
+            lambda: axisquantile.axis_quantile_small(x, AXQ_NODES, axis), 10)
+    x = torch.randn((ENS_MEMBERS, ENS_DAYS, ENS_LAT, ENS_LON), generator=gen,
+                    device=device) * 5.0 + 285.0
+    ens_q = [v / 100.0 for v in ENS_VALUES]
+    out[f"axisquantile {tuple(x.shape)} ensembles"] = _cuda_ms(
+        lambda: axisquantile.axis_quantile_small(x, ens_q, 0), 10)
     return out
 
 
@@ -1240,6 +1413,55 @@ def phase_axisquantile_small(gen, device, record):
                      atol=0.0)
     _log("[kernel vs twin] axisquantile at M = 2, 13, 30, 64 x axis 0, 1, 2 "
          "(post = 1), (alpha, beta) = (1/3, 1/3), 7 nodes: value-equal")
+    # both load routes: the shared-memory ring (post a multiple of 4) and
+    # each thread's own loads (post 1, 3, 5, 4099 and an unaligned start)
+    routes = [0, 0]
+    times = {}
+    for label, x, axis in _axq_cases(gen, device):
+        before = axisquantile.staged_launches
+        got = axisquantile.axis_quantile_small(x, AXQ_NODES, axis)
+        torch.cuda.synchronize()
+        routes[axisquantile.staged_launches == before] += 1
+        ref = axisquantile.axis_quantile_small_plain(x, AXQ_NODES, axis)
+        err = _compare(f"axisquantile {label}", got, ref, rtol=0.0, atol=0.0)
+        record["axisquantile"]["max_abs_err"] = max(
+            record["axisquantile"]["max_abs_err"], err)
+        times[label] = round(_cuda_ms(
+            lambda: axisquantile.axis_quantile_small(x, AXQ_NODES, axis), 5), 4)
+    if routes != [2 * len(AXQ_MS), 6 * len(AXQ_MS)]:
+        raise AssertionError(f"axisquantile routes (staged, direct) {routes}")
+    _log(f"[kernel vs twin] axisquantile over M = {AXQ_MS} x post 1, 3, 5, "
+         f"4099, 4, unaligned (direct loads), 256, 4100 (shared-memory ring): "
+         f"value-equal; launches by route (staged, direct) {routes}; "
+         f"kernel_ms {json.dumps(times)}")
+
+
+#: axisquantile's route cases: samples on axis 1 of (pre, M, post) with
+#: ~64 K columns, the ensemble's nodes
+AXQ_MS = (13, 30, 64)
+AXQ_NODES = [0.1, 0.5, 0.9]
+
+
+def _axq_cases(gen, device):
+    """(label, x, axis) of axisquantile at M in AXQ_MS samples: post 1, 3,
+    5, 4099 and 4 (direct loads), post 256 and 4100 (the shared-memory
+    ring; 4100 ends each p with a partial tile), and a contiguous view
+    whose start is not 16-byte aligned (direct), 20 % missing, an
+    all-missing column."""
+    import torch
+
+    for M in AXQ_MS:
+        for post in (1, 3, 5, 4099, 4, 256, 4100, "unaligned"):
+            n = 4100 if post == "unaligned" else post
+            shape = (max(1, 65536 // n), M, n)
+            size = shape[0] * M * n
+            buf = torch.randn(size + 1, generator=gen, device=device)
+            x = (buf[1:] if post == "unaligned" else buf[:size]).view(shape)
+            x.mul_(5.0).add_(285.0)
+            holes = torch.rand(shape, generator=gen, device=device) < 0.2
+            x.masked_fill_(holes, torch.nan)
+            x[0, :, 0] = torch.nan
+            yield f"M{M} post{post}", x, 1
 
 
 def _profile(name, fn, card, top=10):
@@ -1414,7 +1636,8 @@ def phase_ensembles(device, card, record):
     _log(f"[ensembles] launch counts at {ENS_MEMBERS} members x {ENS_DAYS} "
          f"days x {cells} cells: ensemble_percentiles {json.dumps(c_per)}; "
          f"robustness_fractions(ttest) {json.dumps(c_rf)}")
-    if c_per != dict(zero, axisquantile=1) or c_rf != zero:
+    if c_per != dict(zero, axisquantile=1, axisquantile_staged=1) \
+            or c_rf != zero:
         raise AssertionError("the ensembles slice missed its kernel")
     record["axisquantile"]["launches"] = c_per["axisquantile"]
     summary = _check_ens(ens, per, rf)

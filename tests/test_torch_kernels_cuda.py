@@ -81,10 +81,58 @@ def test_winquantile_kernel_matches_twin(cuda, n_doy, Y, C, window, alpha,
                                                        beta))
 
 
-def test_winquantile_rejects_oversized_window(cuda):
-    x = torch.zeros(365, 300, 2, device=cuda)
-    with pytest.raises(ValueError, match="exceeds"):
-        winquantile.doy_window_quantiles(x, Q, 31)
+# past MAX_P2 padded samples the windows (or, past 8192 years, the
+# presorted slices) live in global scratch: w31 x 300 years = 9300 samples
+# with slides and with every doy its own chunk, and 9000 years at window 3
+# (slides over presorted slices, 4 doy chunks) and window 1
+@pytest.mark.parametrize("n_doy,Y,C,window", [
+    (365, 300, 4, 31), (30, 300, 3, 31), (6, 9000, 300, 3), (4, 9000, 2, 1)])
+def test_winquantile_past_shared_memory_takes_global_scratch(cuda, n_doy, Y,
+                                                             C, window):
+    assert not winquantile.window_in_shared(window, Y)
+    x = torch.as_tensor(_slices(n_doy, Y, C, seed=Y + window), device=cuda)
+    counts = (winquantile.launches, winquantile.global_launches,
+              winquantile.twin_calls)
+    got = winquantile.doy_window_quantiles(x, Q, window)
+    torch.cuda.synchronize()
+    assert (winquantile.launches, winquantile.global_launches,
+            winquantile.twin_calls) == (counts[0] + 1, counts[1] + 1,
+                                        counts[2])
+    _value_equal(got, winquantile.doy_window_quantiles_plain(x, Q, window))
+    # the stage profile takes the same instance
+    for stage in (0, 1):
+        _value_equal(winquantile.doy_window_stage(x, Q, window, stage),
+                     winquantile.stage_plain(x, Q, window, stage))
+
+
+def test_qdm_train_over_the_window_limit_on_the_card(cuda):
+    from xclim_tpu_torch.core.dataarray import ClimArray
+    from xclim_tpu_torch.sdba import Grouper, QuantileDeltaMapping
+
+    t = date_range("1701-01-01", periods=300 * 365, calendar="noleap")
+    rng = np.random.default_rng(300)
+    data = {k: rng.normal(mu, 5.0, (len(t), 3)).astype(np.float32)
+            for k, mu in (("ref", 285.0), ("hist", 287.0))}
+
+    def train(device):
+        arrays = {k: ClimArray(torch.as_tensor(v, device=device),
+                               ("time", "cell"), {"time": t}, {"units": "K"},
+                               k) for k, v in data.items()}
+        return QuantileDeltaMapping.train(
+            arrays["ref"], arrays["hist"], group=Grouper("time.dayofyear", 31),
+            nquantiles=50, kind="+")
+
+    counts = (winquantile.launches, winquantile.global_launches)
+    got = train(cuda)
+    torch.cuda.synchronize()
+    assert (winquantile.launches, winquantile.global_launches) == (
+        counts[0] + 2, counts[1] + 2)
+    ref = train("cpu")
+    # the kernel's quantiles are the twin's value for value; the factors
+    # go through the same torch ops on both devices (1e-6, SURVEY §6)
+    _close(got.ds["hist_q"], ref.ds["hist_q"])
+    np.testing.assert_allclose(got.ds["af"].cpu().numpy(),
+                               ref.ds["af"].numpy(), rtol=0, atol=1e-4)
 
 
 def _cases(n_doy, Y, C, seed, kind):
@@ -173,6 +221,112 @@ def test_qdmadjust_kernel_matches_twin(cuda, kind, n_doy, Y, C, nanfrac):
     torch.cuda.synchronize()
     assert qdmadjust.launches == before + 1
     _close(got, qdmadjust.qdm_adjust_doy_plain(xd, af, Q, kind))
+
+
+def _qdm_slices(n_doy, Y, C, seed):
+    """(n_doy, Y, C) K-scale slices: lane 0 all NaN, lane 1 one valid
+    slot, lane 2 ties (0.5 K steps), lane 3 one full tie run, lane 4 +-inf
+    slots, the rest 10 % missing."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(289.0, 6.0, (n_doy, Y, C)).astype(np.float32)
+    x[rng.random(x.shape) < 0.1] = np.nan
+    x[:, :, 0] = np.nan
+    x[:, 1:, 1] = np.nan
+    x[:, :, 2] = np.round(x[:, :, 2] * 2.0) / 2.0
+    x[:, :, 3] = x[:, :1, 3]
+    x[:, ::3, 4] = np.inf
+    x[:, 1::3, 4] = -np.inf
+    return x
+
+
+def _qdm_nodes(nq):
+    """nq non-decreasing nodes in [0, 1], with repeated nodes above 2."""
+    if nq == 2:
+        return np.asarray([0.1, 0.9], np.float32)
+    q = np.sort(np.round(np.linspace(0.0, 1.0, nq) * (nq // 2)) / (nq // 2))
+    return q.astype(np.float32)
+
+
+# Y over the five register widths (8, 16, 32 slots a thread a cell; 48
+# and 64 four threads a cell); 2 and 52 nodes stage the factor tile in
+# shared memory, 500 read it from global memory
+@pytest.mark.parametrize("kind", ["+", "*"])
+@pytest.mark.parametrize("nq", [2, 52, 500])
+@pytest.mark.parametrize("Y", [1, 7, 12, 30, 33, 48, 64])
+def test_qdmadjust_widths_and_factor_routes(cuda, Y, nq, kind):
+    q = _qdm_nodes(nq)
+    xd = torch.as_tensor(_qdm_slices(9, Y, 133, seed=Y * nq), device=cuda)
+    rng = np.random.default_rng(nq)
+    af = np.sort(rng.normal(0.0, 2.0, (9, nq, 133)), axis=1)
+    af = torch.as_tensor((1.0 + 0.01 * af if kind == "*" else af)
+                         .astype(np.float32), device=cuda)
+    counts = (qdmadjust.launches, qdmadjust.af_shared_launches,
+              qdmadjust.af_global_launches)
+    got = qdmadjust.qdm_adjust_doy(xd, af, q, kind)
+    torch.cuda.synchronize()
+    shared = nq < 500
+    assert qdmadjust.af_in_shared(nq, Y) == shared
+    assert (qdmadjust.launches, qdmadjust.af_shared_launches,
+            qdmadjust.af_global_launches) == (
+        counts[0] + 1, counts[1] + shared, counts[2] + (not shared))
+    _value_equal(got, qdmadjust.qdm_adjust_doy_plain(xd, af, q, kind))
+
+
+@pytest.mark.parametrize("calendar", ["noleap", "standard", "360_day"])
+@pytest.mark.parametrize("kind", ["+", "*"])
+def test_qdmadjust_series_matches_twin(cuda, calendar, kind):
+    from xclim_tpu_torch.sdba import Grouper
+
+    t = date_range("1981-01-01", periods=7 * 365 + 2, calendar=calendar)
+    table = Grouper("time.dayofyear").device_adjust_table(t, cuda)[0]
+    rng = np.random.default_rng(len(t))
+    x = rng.normal(289.0, 6.0, (len(t), 70)).astype(np.float32)
+    x[rng.random(x.shape) < 0.1] = np.nan
+    x[:, 0] = np.nan
+    x[:, 1] = np.round(x[:, 1])
+    xf = torch.as_tensor(x, device=cuda)
+    af = np.sort(rng.normal(0.0, 2.0, (table.shape[0], len(Q), 70)), axis=1)
+    af = torch.as_tensor((1.0 + 0.01 * af if kind == "*" else af)
+                         .astype(np.float32), device=cuda)
+    before = qdmadjust.launches
+    got = qdmadjust.qdm_adjust_series(xf, table, af, Q, kind)
+    torch.cuda.synchronize()
+    assert qdmadjust.launches == before + 1
+    _value_equal(got, qdmadjust.qdm_adjust_series_plain(xf, table, af, Q,
+                                                        kind))
+    # the series entry is the doy entry between a gather and a scatter
+    flat_pos = Grouper("time.dayofyear").device_adjust_table(t, cuda)[2]
+    xd = torch.where(table[..., None] >= 0, xf[table.clamp(min=0)],
+                     torch.nan)
+    _value_equal(got, qdmadjust.qdm_adjust_doy(xd, af, Q, kind).reshape(
+        -1, 70)[flat_pos])
+
+
+def test_qdm_adjust_on_the_card_reads_through_the_table(cuda, monkeypatch):
+    from xclim_tpu_torch.core.dataarray import ClimArray
+    from xclim_tpu_torch.sdba import Grouper, QuantileDeltaMapping
+    from xclim_tpu_torch.sdba import adjustment
+
+    t = date_range("1981-01-01", periods=6 * 365, calendar="noleap")
+    rng = np.random.default_rng(6)
+    arrays = {k: ClimArray(torch.as_tensor(rng.normal(mu, 5.0, (len(t), 9))
+                                           .astype(np.float32), device=cuda),
+                           ("time", "cell"), {"time": t}, {"units": "K"}, k)
+              for k, mu in (("ref", 285.0), ("hist", 287.0), ("sim", 289.0))}
+    adj = QuantileDeltaMapping.train(arrays["ref"], arrays["hist"],
+                                     group=Grouper("time.dayofyear", 31),
+                                     nquantiles=50)
+    gathers = []
+    monkeypatch.setattr(adjustment, "gather_groups",
+                        lambda *a: gathers.append(a))
+    counts = (qdmadjust.launches, qdmadjust.twin_calls)
+    out = adj.adjust(arrays["sim"])
+    torch.cuda.synchronize()
+    assert (qdmadjust.launches, qdmadjust.twin_calls) == (counts[0] + 1,
+                                                          counts[1])
+    assert gathers == []
+    assert out.data.device.type == "cuda"
+    assert bool(torch.isfinite(out.data).all())
 
 
 def test_qdmadjust_rejects_too_many_years(cuda):
@@ -438,6 +592,48 @@ def test_axisquantile_non_contiguous_and_many_nodes(cuda):
     q = np.linspace(0.0, 1.0, 200, dtype=np.float32)
     _value_equal(axisquantile.axis_quantile_small(xt, q, 2),
                  axisquantile.axis_quantile_small_plain(xt, q, 2))
+
+
+# post 1, 3, 5, 4099 and 4 (shorter than a tile) load by each thread's own
+# loads, 256, 1000 and 4100 through the shared-memory ring (1000 and 4100:
+# a partial last tile of each p)
+@pytest.mark.parametrize("nq", [1, 200])
+@pytest.mark.parametrize("post", [1, 3, 5, 4099, 4, 256, 1000, 4100])
+@pytest.mark.parametrize("M", [1, 2, 13, 30, 33, 64])
+def test_axisquantile_load_routes(cuda, M, post, nq):
+    rng = np.random.default_rng(M * post + nq)
+    pre = 3 if post < 4096 else 2
+    x = rng.normal(285.0, 5.0, (pre, M, post)).astype(np.float32)
+    x[rng.random(x.shape) < 0.2] = np.nan
+    x[:, :, 0] = np.nan
+    if post > 2:
+        x[:, 1:, 1] = np.nan
+        x[:, ::2, 2] = np.round(x[:, ::2, 2])
+    x = torch.as_tensor(x, device=cuda)
+    q = np.linspace(0.0, 1.0, nq, dtype=np.float32) if nq > 1 else \
+        np.asarray([0.37], np.float32)
+    staged = axisquantile.staged_route(post, x.data_ptr())
+    assert staged == (post % 4 == 0 and post >= 256)
+    counts = (axisquantile.staged_launches, axisquantile.direct_launches)
+    got = axisquantile.axis_quantile_small(x, q, 1)
+    torch.cuda.synchronize()
+    assert (axisquantile.staged_launches, axisquantile.direct_launches) == (
+        counts[0] + staged, counts[1] + (not staged))
+    _value_equal(got, axisquantile.axis_quantile_small_plain(x, q, 1))
+
+
+def test_axisquantile_unaligned_start_loads_directly(cuda):
+    x = torch.as_tensor(_axis_samples(30, 0, 7, 0.1), device=cuda)
+    buf = torch.empty(x.numel() + 1, device=cuda)
+    xu = buf[1:].view(x.shape)
+    xu.copy_(x)
+    assert xu.is_contiguous() and xu.data_ptr() % 16 != 0
+    before = axisquantile.direct_launches
+    got = axisquantile.axis_quantile_small(xu, AXQ, 0)
+    torch.cuda.synchronize()
+    assert axisquantile.direct_launches == before + 1
+    _value_equal(got, axisquantile.axis_quantile_small(x, AXQ, 0))
+    _value_equal(got, axisquantile.axis_quantile_small_plain(x, AXQ, 0))
 
 
 def test_axisquantile_rejects_what_it_does_not_take(cuda):

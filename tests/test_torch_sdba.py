@@ -161,6 +161,46 @@ def test_slice_serves_twins_on_cpu():
     assert adj.ds["af"].device.type == res.data.device.type == "cpu"
 
 
+def test_qdm_adjust_reads_through_the_table(monkeypatch):
+    """QDM's adjust hands the series and its group table to the qdmadjust
+    op (one twin call on the CPU): no group gather of its own."""
+    from xclim_tpu_torch.sdba import adjustment
+
+    (adj, res), arrays = _port("qdm_doy")
+    gathers = []
+    monkeypatch.setattr(adjustment, "gather_groups",
+                        lambda *a: gathers.append(a))
+    counts = (qdmadjust.launches, qdmadjust.twin_calls)
+    again = adj.adjust(arrays["sim"])
+    assert (qdmadjust.launches, qdmadjust.twin_calls) == (counts[0],
+                                                          counts[1] + 1)
+    assert gathers == []
+    torch.testing.assert_close(again.data, res.data, rtol=0, atol=0,
+                               equal_nan=True)
+
+
+def test_qdm_train_past_the_kernel_window():
+    """w31 over 300 years (9300 samples a window, past what the kernel
+    keeps in shared memory): the port trains as the reference does, on a
+    few cells."""
+    years, cells = 300, 3
+    rng = np.random.default_rng(300)
+    data = {k: (rng.normal(mu, 5.0, (years * 365, cells)).astype(np.float32),
+                "K") for k, mu in (("ref", 285.0), ("hist", 287.0))}
+    assert not winquantile.window_in_shared(31, years)
+    out = []
+    for sdba, make, cls, dr in ((jsdba, jnp.asarray, JClimArray, jdate_range),
+                                (tsdba, torch.as_tensor, ClimArray,
+                                 date_range)):
+        t = dr("1701-01-01", periods=years * 365, calendar="noleap")
+        arrays = _arrays(make, cls, data, t)
+        adj = sdba.QuantileDeltaMapping.train(
+            arrays["ref"], arrays["hist"], group=sdba.Grouper(
+                "time.dayofyear", 31), nquantiles=50, kind="+")
+        out.append(adj.ds)
+    _check_state(out[1], {k: np.asarray(v) for k, v in out[0].items()}, "+")
+
+
 def test_time_axis_and_space_shape():
     """Time need not lead and space may be n-d: the same numbers as the
     (time, cell) run, transposed."""

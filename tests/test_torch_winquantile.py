@@ -69,6 +69,19 @@ def test_cpu_tensor_takes_twin_and_counts():
         out, winquantile.doy_window_quantiles_plain(x, Q, 5), equal_nan=True)
 
 
+@pytest.mark.parametrize("window,Y,shared", [
+    (1, 8192, True), (1, 8193, False), (31, 264, True), (31, 265, False),
+    (91, 90, True), (91, 91, False), (31, 300, False), (61, 30, True)])
+def test_window_in_shared_up_to_its_limit(window, Y, shared):
+    # the padded window (a power of two) must fit MAX_P2 samples; past it
+    # the global-scratch instance takes one cell a block
+    assert winquantile.window_in_shared(window, Y) is shared
+    assert shared == (1 << (window * Y - 1).bit_length()
+                      <= winquantile.MAX_P2 == 8192)
+    assert (winquantile.cells_per_block(window, Y) == 1) is (
+        not shared or window * Y > 4096)
+
+
 @pytest.mark.parametrize("bad,err", [
     (lambda: torch.zeros(5, 3, 2, dtype=torch.float64), TypeError),
     (lambda: torch.zeros(5, 6, dtype=torch.float32), ValueError),

@@ -15,6 +15,15 @@ from the (n_doy, Y, C) doy slices:
   :func:`~xclim_tpu_torch.ops.quantile.nan_quantile_plain`, chunked over
   cells (never the dispatcher, so the twin stays plain on the card).
 
+A window of up to :data:`MAX_P2` samples (``window * Y`` rounded up to a
+power of two; :func:`window_in_shared`) stays in a block's shared memory.
+A larger one (w31 over more than 264 years, w91 over more than 90) takes
+the kernel's global-scratch instance: the same slides, one cell a block,
+on the block's own region of a scratch array the wrapper allocates
+(``xtt_winquantile_scratch`` floats, ~140 MB at w31 x 300 years). The
+only limit left is :data:`MAX_WINDOW` samples a window, which the kernel's
+float32 valid count holds exactly; past it the call raises.
+
 :func:`doy_window_stage` runs the same kernel stopped after a stage (the
 card profile of ``xclim_tpu_torch/tools/prof_winquantile.py``), from a
 second build of the source with its stages compiled in (build target
@@ -23,9 +32,11 @@ plain torch.
 
 ``launches`` counts the calls of :func:`doy_window_quantiles` that ran on
 the card (each launches the presort pass and the sliding kernel, or the
-sliding kernel alone when every doy is its own chunk); ``twin_calls`` the
-calls the twin served; ``stage_launches`` the calls of
-:func:`doy_window_stage` that ran on the card.
+sliding kernel alone when every doy is its own chunk), and
+``global_launches`` those of them whose windows took the global-scratch
+instance; ``twin_calls`` the calls the twin served on CPU tensors;
+``stage_launches`` the calls of :func:`doy_window_stage` that ran on the
+card.
 """
 
 from __future__ import annotations
@@ -39,18 +50,24 @@ from xclim_tpu_torch.ops import _build
 from xclim_tpu_torch.ops.quantile import _node_constants, nan_quantile_plain
 
 __all__ = ["doy_window_quantiles", "doy_window_quantiles_plain",
-           "doy_window_stage", "stage_plain", "doy_chunks"]
+           "doy_window_stage", "stage_plain", "doy_chunks",
+           "window_in_shared"]
 
 #: calls of doy_window_quantiles that ran on the card
 launches = 0
 #: calls doy_window_quantiles served with the plain twin (CPU tensors)
 twin_calls = 0
+#: of those, the calls whose windows took the global-scratch instance
+global_launches = 0
 #: calls of doy_window_stage that ran on the card
 stage_launches = 0
 
 #: largest window (window * Y samples, rounded up to a power of two) the
 #: kernel sorts and slides in one block's shared memory
 MAX_P2 = 8192
+#: most samples a window may hold (window * Y): the kernel counts a
+#: window's valid samples in float32, exact up to 2^24
+MAX_WINDOW = 1 << 24
 #: the kernel's stages: 0 presort + loads (the window's valid count), 1 +
 #: sort and slides (the window's smallest valid value), 2 + node selection
 STAGES = ("load_presort", "slide", "full")
@@ -76,11 +93,19 @@ def _check(xg: torch.Tensor, window: int):
         raise ValueError("window must be a positive odd number")
 
 
+def window_in_shared(window: int, Y: int) -> bool:
+    """Whether the kernel keeps a window of ``window`` doys x ``Y`` years
+    in shared memory: its padded size (a power of two) fits MAX_P2
+    samples. Otherwise the global-scratch instance takes it."""
+    return _pow2(window * Y) <= MAX_P2
+
+
 def cells_per_block(window: int, Y: int) -> int:
     """Cells one block of the kernel takes: 8 while the padded window fits
-    a warp's registers (1024 samples), else 8192 / padded window."""
+    a warp's registers (1024 samples), else 8192 / padded window, and one
+    past MAX_P2 (the global-scratch instance)."""
     P2 = max(32, _pow2(window * Y))
-    return 8 if P2 <= 1024 else MAX_P2 // P2
+    return 8 if P2 <= 1024 else max(1, MAX_P2 // P2)
 
 
 def doy_chunks(n_doy: int, C: int, window: int, Y: int) -> int:
@@ -104,13 +129,15 @@ def doy_window_quantiles(xg: torch.Tensor, q, window: int, alpha: float = 1.0,
     semantics of :func:`~xclim_tpu_torch.ops.quantile.nan_quantile` (no
     valid samples -> NaN).
     """
-    global launches, twin_calls
+    global launches, twin_calls, global_launches
     _check(xg, window)
     if xg.device.type == "cpu":
         twin_calls += 1
         return doy_window_quantiles_plain(xg, q, window, alpha, beta)
     out = _launch(xg, q, window, alpha, beta, None)
     launches += 1
+    if not window_in_shared(window, xg.shape[1]):
+        global_launches += 1
     return out
 
 
@@ -134,9 +161,9 @@ def _launch(xg, q, window, alpha, beta, stage):
     if xg.device.type != "cuda":
         raise ValueError(f"no winquantile kernel for device {xg.device}")
     n_doy, Y, C = xg.shape
-    if _pow2(window * Y) > MAX_P2:
+    if window * Y > MAX_WINDOW:
         raise ValueError(f"window*Y = {window * Y} exceeds the kernel's "
-                         f"{MAX_P2}-sample window")
+                         f"{MAX_WINDOW}-sample window")
     qv, coff = _node_constants(q, alpha, beta)
     nq = len(qv)
     x = xg.contiguous()
@@ -151,11 +178,14 @@ def _launch(xg, q, window, alpha, beta, stage):
     full_sort = window > 1 and nchunk == n_doy
     presorted = torch.empty((0,) if full_sort else (n_doy, C, Y),
                             dtype=torch.float32, device=x.device)
+    # windows past MAX_P2 keep their sorted rows in global scratch
+    scratch_n = _scratch_function()(n_doy, Y, C, window, nchunk)
+    scratch = torch.empty((scratch_n,), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        args = (x.data_ptr(), presorted.data_ptr(), out.data_ptr(),
-                qv_d.data_ptr(), co_d.data_ptr(), n_doy, Y, C, window, nq,
-                nchunk)
+        args = (x.data_ptr(), presorted.data_ptr(), scratch.data_ptr(),
+                out.data_ptr(), qv_d.data_ptr(), co_d.data_ptr(), n_doy, Y,
+                C, window, nq, nchunk, scratch_n)
         if stage is None:
             err = _function()(*args, stream)
         else:
@@ -174,7 +204,15 @@ def _device_nodes(qv: bytes, coff: bytes, device: torch.device):
             torch.frombuffer(bytearray(coff), dtype=torch.float32).to(device))
 
 
-_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_longlong]
+
+
+@functools.cache
+def _scratch_function():
+    fn = _build.load("winquantile").xtt_winquantile_scratch
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_longlong
+    return fn
 
 
 @functools.cache

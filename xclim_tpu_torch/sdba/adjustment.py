@@ -108,16 +108,14 @@ def _qdm_adjust_core(xf, table, flat_pos, af, q, *, kind, interp,
     return flat[flat_pos]
 
 
-def _qdm_adjust_core_doy(xf, table, flat_pos, af, *, q, kind):
+def _qdm_adjust_core_doy(xf, table, af, *, q, kind):
     """QDM adjust on the qdmadjust op (the kernel on the card, its twin on
-    the CPU): one pass over the (G, ms, C) group slices."""
+    the CPU): one pass over the time-first series, each group's steps read
+    and written through ``table``."""
     sshape = tuple(xf.shape[1:])
-    xd = gather_groups(xf, table)                  # (G, ms, ...space)
-    xd2 = xd.reshape(tuple(xd.shape[:2]) + (-1,))
+    xf2 = xf.reshape(xf.shape[0], -1)
     af2 = af.reshape(tuple(af.shape[:2]) + (-1,))
-    out_d = qdmadjust.qdm_adjust_doy(xd2, af2, q, kind=kind)
-    flat = out_d.reshape((-1,) + tuple(out_d.shape[2:]))
-    out = flat[flat_pos]
+    out = qdmadjust.qdm_adjust_series(xf2, table, af2, q, kind=kind)
     return out.reshape((out.shape[0],) + sshape)
 
 
@@ -211,8 +209,8 @@ class QuantileDeltaMapping(TrainAdjust):
                 and self.kind in ("+", "*")
                 and table.shape[1] <= qdmadjust.MAX_Y
                 and xf.dtype == torch.float32):
-            out = _qdm_adjust_core_doy(xf, table, flat_pos, self.ds["af"],
-                                       q=qn, kind=self.kind)
+            out = _qdm_adjust_core_doy(xf, table, self.ds["af"], q=qn,
+                                       kind=self.kind)
         else:
             out = _qdm_adjust_core(xf, table, flat_pos, self.ds["af"],
                                    torch.as_tensor(qn, device=xf.device),
