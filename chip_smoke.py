@@ -55,6 +55,18 @@ Builds the hand-written CUDA kernels from ``xclim_tpu_torch/csrc`` (into
     axisquantile kernel against its twin at the call's own input and at a
     few small shapes, and times ``torch.nanquantile`` on the same input;
 11. runs the same two calls on the first 1024 cells with CPU tensors and on
+    the card and compares the outputs;
+12. drives config 2 at bench's "spells" sizes (448 x 448 and 100 x 100
+    cells x 3650 noleap days, tasmax N(290, 8) and tasmin N(280, 8) K):
+    ``atmos.tx_days_above(tasmax, thresh="25 degC", freq="YS")``,
+    ``atmos.heat_wave_frequency(tasmin, tasmax, ...)`` and the bare
+    indices, checks their launch counts and their values against per-year
+    expressions, times them (seconds, cell-days/s, peak memory), times
+    threshold_count's two routes (spells; compare + segred) side by side,
+    holds spells against its twin at the heat-wave condition and profiles
+    the pair;
+13. runs config 2 and its neighbours (hot spells, frost days, seasons,
+    degree days, find_events) on a 32 x 32 crop with CPU tensors and on
     the card and compares the outputs.
 
 Each kernel's record carries its bound (``bound_ms``: the larger of its
@@ -1775,6 +1787,318 @@ def phase_ensembles_cpu_vs_card(ens):
          f"exempt: a p-value within {P_NEAR_ONE} of 1, bound 10 %)")
 
 
+SP_DAYS = 3650       # 10 noleap years from 2000-01-01 (bench.py:437)
+SP_SIDES = (448, 100)  # bench.py's "spells" grids: saturated, and small
+SP_CROP = 32         # side of the crop held against the CPU twins
+SP_EVENT_RTOL = 1e-5  # find_events' event_sum: index_add_ on the card adds
+                      # in another order (runs of a few to ~30 days)
+#: launches of each config-2 call (one per kernel wrapper call): the
+#: threshold count and the heat-wave runs in spells; each indicator's
+#: missing-value mask counts each input's valid days in segred
+SP_LAUNCHES = {
+    "atmos.tx_days_above": {"spells": 1, "segred": 1},
+    "atmos.heat_wave_frequency": {"spells": 1, "segred": 2},
+    "indices.tx_days_above": {"spells": 1, "segred": 0},
+    "indices.heat_wave_frequency": {"spells": 1, "segred": 0},
+}
+
+#: the units each call gives (the indicator's declared units, or the
+#: index's to_agg_units)
+SP_UNITS = {"atmos.tx_days_above": "days", "atmos.heat_wave_frequency": "1",
+            "indices.tx_days_above": "d", "indices.heat_wave_frequency": ""}
+
+
+def _spell_temps(device, side):
+    """tasmax and tasmin as bench.py:437-439 builds them: N(290, 8) and
+    N(280, 8) K from seeds 1 and 2, SP_DAYS noleap days from 2000-01-01,
+    (time, side, side) float32 made on the card."""
+    import numpy as np
+    import torch
+
+    from xclim_tpu_torch.core.calendar import date_range
+    from xclim_tpu_torch.core.dataarray import ClimArray
+
+    t = date_range("2000-01-01", periods=SP_DAYS, freq="D", calendar="noleap")
+    coords = {"time": t, "lat": np.arange(side), "lon": np.arange(side)}
+    out = []
+    for seed, mu, name, cm in ((1, 290.0, "tasmax", "time: maximum"),
+                               (2, 280.0, "tasmin", "time: minimum")):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        data = torch.randn((SP_DAYS, side, side), generator=gen,
+                           device=device)
+        data.mul_(8.0).add_(mu)
+        out.append(ClimArray(data, ("time", "lat", "lon"), coords,
+                             {"units": "K", "standard_name": "air_temperature",
+                              "cell_methods": cm}, name))
+    return out
+
+
+def _spell_calls(tx, tn):
+    """The config's four public calls (bench.py:440-446: the bare indices;
+    the indicators add the missing-value masks and attributes)."""
+    from xclim_tpu_torch import indices
+    from xclim_tpu_torch.indicators import atmos
+
+    hw = {"thresh_tasmin": "22 degC", "thresh_tasmax": "30 degC",
+          "freq": "YS"}
+    return {
+        "atmos.tx_days_above": lambda: atmos.tx_days_above(
+            tx, thresh="25 degC", freq="YS"),
+        "atmos.heat_wave_frequency": lambda: atmos.heat_wave_frequency(
+            tn, tx, **hw),
+        "indices.tx_days_above": lambda: indices.tx_days_above(
+            tx, thresh="25 degC", freq="YS"),
+        "indices.heat_wave_frequency": lambda: indices.heat_wave_frequency(
+            tn, tx, **hw),
+    }
+
+
+def _spell_plain(tx, tn):
+    """The two results by per-year expressions independent of the package
+    (noleap YS periods are 365 days): the days with tasmax > 25 degC, and
+    the runs of at least 3 days within a year with tasmin > 22 degC and
+    tasmax > 30 degC, counted on their first day."""
+    import torch
+
+    from xclim_tpu_torch.core.units import convert_units_to, str2pint
+
+    def k(s):
+        return convert_units_to(str2pint(s), tx)
+
+    years = SP_DAYS // 365
+    days = (tx.data > k("25 degC")).reshape(years, 365, -1).sum(
+        1, dtype=torch.int32)
+    c = ((tn.data > k("22 degC")) & (tx.data > k("30 degC"))).reshape(
+        years, 365, -1)
+    first = c.clone()
+    first[:, 1:] &= ~c[:, :-1]
+    waves = (first[:, :-2] & c[:, 1:-1] & c[:, 2:]).sum(1, dtype=torch.int32)
+    return days, waves
+
+
+def phase_spells_indices(device, card, record):
+    """Config 2 at bench's size: atmos.tx_days_above + heat_wave_frequency
+    (and the bare indices) on 448 x 448 and 100 x 100 cells x 10 noleap
+    years; launch counts, values against per-year expressions, times,
+    peak memory; the two threshold_count routes side by side; spells at
+    the heat-wave condition against its twin; a profile of the pair."""
+    import torch
+
+    from xclim_tpu_torch.core.units import convert_units_to, str2pint
+    from xclim_tpu_torch.ops import segred, spells
+
+    crop = None
+    for side in SP_SIDES:
+        tx, tn = _spell_temps(device, side)
+        cells = side * side
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        calls = _spell_calls(tx, tn)
+        plain_days, plain_waves = _spell_plain(tx, tn)
+        res = {}
+        for name, fn in calls.items():
+            # the main path's run: counts from zero, read right after
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            out = fn()
+            torch.cuda.synchronize()
+            counts = _counts()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+            want = dict({k: 0 for k in counts}, **SP_LAUNCHES[name])
+            if counts != want:
+                raise AssertionError(f"{name} at {side}^2: launch counts "
+                                     f"{counts}, expected {want}")
+            expect = plain_days if "tx_days" in name else plain_waves
+            if (tuple(out.shape) != (SP_DAYS // 365, side, side)
+                    or out.data.dtype != torch.float32
+                    or out.data.device != device):
+                raise AssertionError(f"{name}: {tuple(out.shape)} "
+                                     f"{out.data.dtype} on {out.data.device}")
+            if not torch.equal(out.data.reshape(expect.shape),
+                               expect.to(torch.float32)):
+                raise AssertionError(f"{name} at {side}^2 differs from its "
+                                     f"per-year expression")
+            units = out.attrs.get("units")
+            if units != SP_UNITS[name]:
+                raise AssertionError(f"{name}: units {units!r}")
+            mean = float(out.data.double().mean())
+            del out
+            sec, runs = _timed(fn)
+            res[name] = sec
+            launched = sorted(k for k, v in SP_LAUNCHES[name].items() if v)
+            _log(f"[spells_indices] {name} ({SP_DAYS}, {side}, {side}) on "
+                 f"{card}: {sec:.6f} s (median of 3 after a warm-up; runs "
+                 f"{[round(v, 6) for v in runs]}), "
+                 f"{SP_DAYS * cells / sec:.1f} cell-days/s, peak device "
+                 f"memory above the inputs {peak:.3f} GiB (inputs "
+                 f"{2 * tx.data.numel() * 4 / 2**30:.3f} GiB); launches "
+                 f"{json.dumps({k: counts[k] for k in launched})}, twin "
+                 f"calls 0; mean {mean:.5f}, equal to the per-year "
+                 f"expression")
+        for kind in ("atmos", "indices"):
+            t1 = res[f"{kind}.tx_days_above"]
+            t2 = res[f"{kind}.heat_wave_frequency"]
+            _log(f"[spells_indices] {kind} pair at {side}^2 on {card}: mean "
+                 f"of the two {SP_DAYS * cells * (1 / t1 + 1 / t2) / 2:.1f} "
+                 f"cell-days/s (bench.py:447-448)")
+        if side != SP_SIDES[0]:
+            continue
+
+        # threshold_count's two routes at tx_days_above's input, in turns
+        spec = tx.resample("YS").spec
+        x2 = tx.data.reshape(SP_DAYS, -1)
+        thr = convert_units_to(str2pint("25 degC"), tx)
+
+        def spells_route():
+            return spells.spell_stats(x2, spec.starts, spec.counts, 1,
+                                      op=">", thresh=thr)[0]
+
+        def segred_route():
+            return segred.segment_reduce_onepass(
+                (x2 > thr).to(torch.float32), spec.starts, spec.counts,
+                "sum")
+
+        if not torch.equal(spells_route(), segred_route()):
+            raise AssertionError("threshold_count routes disagree")
+        times = {"spells": [], "segred": []}
+        for route in ("spells", "segred", "segred", "spells"):
+            fn = spells_route if route == "spells" else segred_route
+            times[route].append(_cuda_ms(fn, 10))
+        nbytes = x2.numel() * 4
+        out_bytes = spec.nseg * x2.shape[1] * 4
+        traffic = {"spells": nbytes + 4 * out_bytes,
+                   "segred": nbytes + 2 * x2.numel() + 2 * nbytes + out_bytes}
+        fbound = _bound(nbytes + out_bytes, x2.numel())
+        for route, ms in times.items():
+            _log(f"[spells_indices] threshold_count route {route} at "
+                 f"({SP_DAYS}, {cells}) YS '>' on {card}: runs "
+                 f"{[round(v, 4) for v in ms]} ms; moves "
+                 f"{traffic[route] / 1e9:.3f} GB "
+                 f"({traffic[route] / HBM_BYTES_S * 1e3:.4f} ms at 3.35 "
+                 f"TB/s); the count's own bound {fbound['bound_ms']:.4f} ms "
+                 f"({fbound['bound_by']})")
+        other = {"spells": "segred", "segred": "spells"}
+        faster = [r for r in times if max(times[r]) < min(times[other[r]])]
+        _log(f"[spells_indices] threshold_count: faster in both runs: "
+             f"{faster[0] if faster else 'neither'}")
+
+        # spells at heat_wave_frequency's bool condition against its twin
+        t1 = convert_units_to(str2pint("22 degC"), tn)
+        t2 = convert_units_to(str2pint("30 degC"), tx)
+        cond = ((tn.data > t1) & (tx.data > t2)).reshape(SP_DAYS, -1)
+        got = spells.spell_stats(cond, spec.starts, spec.counts, 3)
+        ref = spells.spell_stats_plain(cond, spec.starts, spec.counts, 3)
+        err = max(_compare(f"spells heat-wave condition {k}", g, r,
+                           rtol=0.0, atol=0.0)
+                  for k, g, r in zip(("cnt", "wrc", "wre", "lng"), got, ref))
+        del got, ref
+        ms = _cuda_ms(lambda: spells.spell_stats(cond, spec.starts,
+                                                 spec.counts, 3), 10)
+        pms = _cuda_ms(lambda: spells.spell_stats_plain(
+            cond, spec.starts, spec.counts, 3), 2)
+        hb = _bound(cond.numel() + 4 * out_bytes, cond.numel())
+        record["spells"]["max_abs_err"] = max(record["spells"]["max_abs_err"],
+                                              err)
+        _log(f"[kernel vs twin] spells at heat_wave_frequency's bool "
+             f"condition {tuple(cond.shape)} YS window 3 on {card}: "
+             f"max_abs_err={err} kernel_ms={ms:.4f} twin_ms={pms:.4f} "
+             f"bound_ms={hb['bound_ms']:.4f} ({hb['bound_by']})")
+        del cond
+        _profile(f"config 2 pair atmos.tx_days_above + "
+                 f"atmos.heat_wave_frequency ({SP_DAYS}, {side}, {side})",
+                 lambda: [fn() for k, fn in calls.items()
+                          if k.startswith("atmos")], card)
+        crop = (tx.isel(lat=slice(0, SP_CROP), lon=slice(0, SP_CROP)),
+                tn.isel(lat=slice(0, SP_CROP), lon=slice(0, SP_CROP)))
+        crop = tuple(c.copy(data=c.data.contiguous()) for c in crop)
+        del tx, tn, calls, x2
+        torch.cuda.empty_cache()
+    return crop
+
+
+def phase_spells_indices_cpu_vs_card(crop):
+    """The config's calls and their neighbours on a 32 x 32 crop: CPU
+    tensors (the twins) against the card (the kernels). Counts, lengths and
+    days of year value-equal; growing degree days within RTOL; find_events'
+    event_sum within SP_EVENT_RTOL."""
+    import warnings
+
+    import torch
+
+    from xclim_tpu_torch.indicators import atmos
+    from xclim_tpu_torch.indices import run_length
+
+    tx, tn = crop
+    tg = tn.copy()
+    tg.attrs["cell_methods"] = "time: mean"
+    low = {"thresh_tasmin": "15 degC", "thresh_tasmax": "25 degC"}
+    calls = {
+        "atmos.tx_days_above": lambda x, n, g: atmos.tx_days_above(
+            x, thresh="25 degC", freq="YS"),
+        "atmos.heat_wave_frequency": lambda x, n, g: atmos.heat_wave_frequency(
+            n, x, thresh_tasmin="22 degC", thresh_tasmax="30 degC",
+            freq="YS"),
+        "atmos.heat_wave_frequency (15/25 degC)":
+            lambda x, n, g: atmos.heat_wave_frequency(n, x, **low),
+        "atmos.hot_spell_frequency": lambda x, n, g: atmos.hot_spell_frequency(
+            x, thresh="25 degC"),
+        "atmos.heat_wave_max_length": lambda x, n, g: atmos.heat_wave_max_length(
+            n, x, window=1, **low),
+        "atmos.maximum_consecutive_frost_days":
+            lambda x, n, g: atmos.maximum_consecutive_frost_days(n),
+        "atmos.growing_season_length": lambda x, n, g: atmos.growing_season_length(
+            g, thresh="10 degC"),
+        "atmos.frost_free_season_start":
+            lambda x, n, g: atmos.frost_free_season_start(n),
+        "atmos.growing_degree_days": lambda x, n, g: atmos.growing_degree_days(
+            g, thresh="7 degC"),
+    }
+    errs = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for name, fn in calls.items():
+            cpu_in = [a.to("cpu") for a in (tx, tn, tg)]
+            before = _counts()
+            out_c = fn(*cpu_in)
+            mid = _counts()
+            out_g = fn(tx, tn, tg)
+            torch.cuda.synchronize()
+            after = _counts()
+            on_cpu = {k: mid[k] - before[k] for k in after}
+            on_card = {k: after[k] - mid[k] for k in after}
+            if (on_cpu["spells"] or on_cpu["segred"] or on_card["spells_twin"]
+                    or on_card["segred_twin"]
+                    or not (on_card["spells"] or on_card["segred"])):
+                raise AssertionError(f"{name}: the CPU run must use the "
+                                     f"twins, the card the kernels: "
+                                     f"{on_cpu} then {on_card}")
+            rtol = RTOL if "degree_days" in name else 0.0
+            errs[name] = _compare(f"{name} cpu vs card", out_g.data,
+                                  out_c.data, rtol=rtol, atol=0.0)
+            ga = {k: v for k, v in out_g.attrs.items() if k != "history"}
+            ca = {k: v for k, v in out_c.attrs.items() if k != "history"}
+            if ga != ca or out_g.dims != out_c.dims:
+                raise AssertionError(f"{name}: attrs differ: {ga} vs {ca}")
+        cond = tx > 298.15
+        before = _counts()
+        ev_c = run_length.find_events(cond.to("cpu"), 3, data=tx.to("cpu"),
+                                      freq="YS")
+        ev_g = run_length.find_events(cond, 3, data=tx, freq="YS")
+        torch.cuda.synchronize()
+        if _counts() != before:
+            raise AssertionError("find_events called a kernel wrapper")
+    for k in ev_c:
+        errs[f"find_events {k}"] = _compare(
+            f"find_events {k} cpu vs card", ev_g[k].data, ev_c[k].data,
+            rtol=SP_EVENT_RTOL if k == "event_sum" else 0.0, atol=0.0)
+    _log(f"[cpu twins vs card kernels] config 2 and its neighbours on "
+         f"{SP_CROP}x{SP_CROP} cells: max_abs_err {json.dumps(errs)} (counts, "
+         f"lengths and days of year value-equal; growing_degree_days within "
+         f"rtol {RTOL}; event_sum within rtol {SP_EVENT_RTOL}); attrs equal")
+
+
 def main() -> int:
     import torch
 
@@ -1841,6 +2165,10 @@ def main() -> int:
     phase_axisquantile_small(gen, device, record)
     ens = phase_ensembles(device, card, record)
     phase_ensembles_cpu_vs_card(ens)
+    del ens
+    torch.cuda.empty_cache()
+    crop = phase_spells_indices(device, card, record)
+    phase_spells_indices_cpu_vs_card(crop)
 
     _log(json.dumps({"kernels": list(record.values())}))
     print(json.dumps({"ok": True, "device": {

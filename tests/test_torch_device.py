@@ -100,3 +100,27 @@ def test_ensemble_percentiles_on_cpu_tensors(no_default):
                               ens.isel(time=slice(0, 730)), test="ttest",
                               weights=np.ones(5))
     assert rf["changed"].device.type == "cpu"
+
+
+def test_threshold_and_spell_indicators_on_cpu_tensors(no_default):
+    from xclim_tpu_torch import climjit, climjit_chain, indices
+    from xclim_tpu_torch.indicators import atmos
+
+    tasmax = _series("tasmax", 295.0, 20)
+    tasmax.attrs["cell_methods"] = "time: maximum"
+    tasmin = _series("tasmin", 288.0, 21)
+    tasmin.attrs["cell_methods"] = "time: minimum"
+    outs = [
+        atmos.tx_days_above(tasmax, thresh="25 degC", freq="YS"),
+        atmos.heat_wave_frequency(tasmin, tasmax, thresh_tasmin="15 degC",
+                                  thresh_tasmax="22 degC", freq="YS"),
+        atmos.growing_season_length(tasmin, freq="YS"),
+        atmos.degree_days_exceedance_date(tasmin, freq="YS"),
+        atmos.heat_spell_frequency(tasmin=tasmin, tasmax=tasmax),
+        *climjit_chain([indices.tx_days_above, indices.tx_days_below])(
+            tasmax, freq="MS"),
+        climjit(indices.hot_spell_max_magnitude)(tasmax),
+    ]
+    events = indices.run_length.find_events(tasmax > 296.0, 2, freq="YS")
+    assert all(o.device.type == "cpu" for o in outs)
+    assert all(v.device.type == "cpu" for v in events.values())

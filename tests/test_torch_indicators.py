@@ -269,3 +269,89 @@ def test_percentile_indicator_matches_reference(name, var, mu, per, kw, cal,
     assert "2000-01-01 to 2002-12-31" in got.attrs["description"] \
         or "window" in kw
     _same(got, exp)
+
+
+# ---------------------------------------------------------------------------
+# the threshold, spell, season and degree-day temperature indicators
+# ---------------------------------------------------------------------------
+
+import xclim_tpu.indicators.atmos._temperature as jtemperature  # noqa: E402
+from xclim_tpu_torch.indicators.atmos import _temperature as temperature  # noqa: E402
+
+#: the reference's temperature indicators whose compute functions live in
+#: modules the port does not have yet (indices/_agro.py, fire/_cffwis.py)
+NOT_PORTED = {"huglin_index", "biologically_effective_degree_days",
+              "latitude_temperature_index", "cool_night_index",
+              "corn_heat_units", "effective_growing_degree_days", "cp", "cu",
+              "usda_hardiness_zones", "australian_hardiness_zones",
+              "fire_season"}
+MU = {"tas": 283, "tasmax": 289, "tasmin": 277, "pr": 3}
+#: indicators whose output is a float sum or mean: held at rtol 5e-7, a
+#: few float32 ulps (the port sums in float64 and rounds once, the
+#: reference adds float32 partials; test_torch_threshold.py); the others
+#: (counts, run lengths, days of year, extremes) are exact
+SUM_INDICATORS = {"cooling_degree_days", "heating_degree_days",
+                  "growing_degree_days", "freezing_degree_days",
+                  "thawing_degree_days", "cooling_degree_days_approximation",
+                  "heating_degree_days_approximation", "hot_spell_max_magnitude",
+                  "daily_temperature_range", "daily_temperature_range_variability",
+                  "freezethaw_spell_mean_length"}
+THRESHOLD_INDICATORS = sorted(
+    n for n in temperature.__all__
+    if not any(v.endswith("_per") for v in getattr(atmos, n)._variables)
+    and n not in {i[0] for i in INDICATORS})
+
+
+def test_temperature_module_names_and_declarations():
+    assert temperature.__all__ == [n for n in jtemperature.__all__
+                                   if n not in NOT_PORTED]
+    for name in temperature.__all__:
+        got, exp = getattr(atmos, name), getattr(jatmos, name)
+        assert got.identifier == exp.identifier
+        assert got._registry_id == exp._registry_id
+        assert got.cf_attrs == exp.cf_attrs
+        assert got._variables == exp._variables
+        assert {k: (p.default, p.injected) for k, p in got.parameters.items()} \
+            == {k: (p.default, p.injected) for k, p in exp.parameters.items()}
+    keys = {k for k, v in indicator_mod.registry.items() if v.module is None}
+    assert {"TX_DAYS_ABOVE", "HEAT_WAVE_FREQUENCY", "CONSECUTIVE_FROST_DAYS",
+            "DTR", "HEAT_SPELL_FREQUENCY"} <= keys
+    assert atmos.consecutive_frost_days is atmos.maximum_consecutive_frost_days
+    assert atmos.daily_freezethaw_cycles is atmos.dlyfrzthw
+
+
+@pytest.mark.parametrize("name", THRESHOLD_INDICATORS)
+def test_threshold_indicator_matches_reference(name):
+    ind = getattr(atmos, name)
+    args, jargs = {}, {}
+    for i, var in enumerate(ind._variables):
+        a, b = _pair(var, seed=len(name) + i, years=3, mu=MU[var],
+                     units="mm/d" if var == "pr" else "K")
+        args[var], jargs[var] = a, b
+    got = _quiet(ind, **args)
+    exp = _quiet(getattr(jatmos, name), **jargs)
+    outs = got if isinstance(got, tuple) else (got,)
+    exps = exp if isinstance(exp, tuple) else (exp,)
+    for g, e in zip(outs, exps):
+        if name in SUM_INDICATORS:
+            _same(g, e, rtol=5e-7)
+        else:
+            _same(g, e, rtol=0)
+
+
+@pytest.mark.parametrize("cal", ["standard", "360_day"])
+@pytest.mark.parametrize("name,kw", [
+    ("tx_days_above", {"thresh": "77 degF", "freq": "MS"}),
+    ("heat_wave_frequency", {"thresh_tasmin": "283 K",
+                             "thresh_tasmax": "295 K", "window": 2}),
+    ("growing_season_length", {}),
+    ("frost_free_season_start", {"thresh": "2 degC"}),
+], ids=["tx_days_above", "heat_wave_frequency", "growing_season_length",
+        "frost_free_season_start"])
+def test_threshold_indicators_other_calendars(name, kw, cal):
+    ind = getattr(atmos, name)
+    args, jargs = {}, {}
+    for i, var in enumerate(ind._variables):
+        args[var], jargs[var] = _pair(var, cal=cal, seed=40 + i, mu=MU[var])
+    _same(_quiet(ind, **args, **kw), _quiet(getattr(jatmos, name), **jargs, **kw),
+          rtol=0)

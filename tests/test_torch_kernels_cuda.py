@@ -642,3 +642,86 @@ def test_axisquantile_rejects_what_it_does_not_take(cuda):
                                          AXQ, 0)
     with pytest.raises(ValueError, match="no axisquantile kernel"):
         axisquantile.axis_quantile_small(torch.zeros(30, 4), AXQ, 0)
+
+
+def _temps(device, cal, seed, mu):
+    """(time, 16, 33) tasmax-like K over four years of `cal` with NaN holes,
+    as a ClimArray on `device`."""
+    from xclim_tpu_torch.core.dataarray import ClimArray
+
+    t = date_range("2001-01-01", periods={"360_day": 1440}.get(cal, 1460),
+                   calendar=cal)
+    rng = np.random.default_rng(seed)
+    x = rng.normal(mu, 6.0, (len(t), 16, 33)).astype(np.float32)
+    x[rng.random(x.shape) < 0.02] = np.nan
+    x[:, 3, 4] = np.nan
+    return ClimArray(torch.as_tensor(x, device=device), ("time", "lat", "lon"),
+                     {"time": t}, {"units": "K"}, "tas")
+
+
+def _card_vs_cpu(fn, *arrays, **kw):
+    """fn on the card and on CPU copies: outputs value-equal, the card run
+    launching spells or segred and calling no twin."""
+    before = {m: (m.launches, m.twin_calls) for m in (spells, segred)}
+    got = fn(*arrays, **kw)
+    torch.cuda.synchronize()
+    launched = sum(m.launches - before[m][0] for m in (spells, segred))
+    assert launched >= 1
+    assert all(m.twin_calls == before[m][1] for m in (spells, segred))
+    exp = fn(*(a.to("cpu") for a in arrays), **kw)
+    _value_equal(got.data, exp.data)
+    # the history line carries the call's timestamp
+    assert got.dims == exp.dims and got.attrs.keys() == exp.attrs.keys()
+    assert all(got.attrs[k] == exp.attrs[k] for k in exp.attrs
+               if k != "history")
+    return got
+
+
+@pytest.mark.parametrize("cal", ["noleap", "360_day"])
+@pytest.mark.parametrize("freq", ["YS", "MS"])
+def test_heat_wave_and_hot_spell_frequency_on_the_card(cuda, freq, cal):
+    from xclim_tpu_torch import indices
+
+    tn, tx = _temps(cuda, cal, 1, 288.0), _temps(cuda, cal, 2, 298.0)
+    before = spells.launches
+    _card_vs_cpu(indices.heat_wave_frequency, tn, tx, thresh_tasmin="15 degC",
+                 thresh_tasmax="25 degC", window=2, freq=freq)
+    assert spells.launches == before + 1
+    _card_vs_cpu(indices.hot_spell_frequency, tx, thresh="26 degC", window=3,
+                 freq=freq)
+    _card_vs_cpu(indices.heat_wave_max_length, tn, tx, thresh_tasmin="15 degC",
+                 thresh_tasmax="25 degC", freq=freq)
+
+
+@pytest.mark.parametrize("cal", ["noleap", "360_day"])
+@pytest.mark.parametrize("freq", ["YS", "MS"])
+@pytest.mark.parametrize("op", [">", ">=", "<", "<="])
+def test_threshold_count_on_the_card(cuda, op, freq, cal):
+    from xclim_tpu_torch.indices import generic
+
+    tx = _temps(cuda, cal, 3, 298.0)
+    before = spells.launches, segred.launches
+    got = _card_vs_cpu(generic.threshold_count, tx, op=op,
+                       threshold="25 degC", freq=freq)
+    # the chosen route: one spells launch, no segred
+    assert (spells.launches, segred.launches) == (before[0] + 1, before[1])
+    plain = generic.compare(tx, op, 298.15).astype(torch.float32) \
+        .resample(freq).sum()
+    _value_equal(got.data, plain.data)
+
+
+def test_threshold_indicators_on_the_card(cuda):
+    from xclim_tpu_torch.indicators import atmos
+
+    tx = _temps(cuda, "noleap", 4, 298.0)
+    tx.attrs.update(standard_name="air_temperature",
+                    cell_methods="time: maximum")
+    tn = _temps(cuda, "noleap", 5, 288.0)
+    tn.attrs.update(standard_name="air_temperature",
+                    cell_methods="time: minimum")
+    _card_vs_cpu(atmos.tx_days_above, tx, thresh="25 degC", freq="YS")
+    _card_vs_cpu(atmos.heat_wave_frequency, tn, tx, thresh_tasmin="15 degC",
+                 thresh_tasmax="25 degC", freq="YS")
+    _card_vs_cpu(atmos.maximum_consecutive_frost_days, tn, thresh="12 degC")
+    _card_vs_cpu(atmos.growing_season_length, tn)
+    _card_vs_cpu(atmos.frost_free_season_start, tn, thresh="12 degC")

@@ -10,7 +10,7 @@ import torch
 
 __version__ = "0.1.0"
 
-__all__ = ["default_device"]
+__all__ = ["climjit", "climjit_chain", "default_device"]
 
 
 def default_device() -> torch.device:
@@ -23,3 +23,6 @@ def default_device() -> torch.device:
             "no CUDA device: pass device='cpu' or a CPU tensor to run the "
             "port's plain twins on the CPU")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+from xclim_tpu_torch.core.jit_wrapper import climjit, climjit_chain  # noqa: E402

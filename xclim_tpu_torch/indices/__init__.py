@@ -1,12 +1,13 @@
 """Index functions (reference: xclim:src/xclim/indices/__init__.py).
 
 Ported so far: the simple per-period reductions (``_simple.py``), the
-percentile-based day counts and spell duration indices
-(``_multivariate.py``), and the generic and run-length building blocks they
-use.
+threshold indices (``_threshold.py``), the multivariate indices
+(``_multivariate.py``, with the doy-percentile ones and their bootstrap),
+and the generic and run-length building blocks they use.
 """
 
 from xclim_tpu_torch.indices.generic import *  # noqa: F401,F403
 from xclim_tpu_torch.indices._simple import *  # noqa: F401,F403
+from xclim_tpu_torch.indices._threshold import *  # noqa: F401,F403
 from xclim_tpu_torch.indices._multivariate import *  # noqa: F401,F403
 from xclim_tpu_torch.indices import generic, run_length  # noqa: F401

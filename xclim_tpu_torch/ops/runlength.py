@@ -13,7 +13,8 @@ run_length.py). No loop runs over time:
   give exact results.
 
 Dispatch: every spell statistic (``longest_run``, ``windowed_run_count``,
-``windowed_run_events``) with a segment spec that tiles the time axis and
+``windowed_run_events``, and ``rle_statistics`` with ``max`` or ``sum``)
+with a segment spec that tiles the time axis and
 ``resample_before_rl=True`` goes to
 :func:`~xclim_tpu_torch.ops.spells.spell_stats`: the ``spells`` CUDA kernel
 on a CUDA tensor, its plain twin on a CPU tensor. The rest takes the plain
@@ -197,7 +198,18 @@ def rle_statistics(x, reducer: str, window: int, axis: int = 0,
                    spec: SegmentSpec | None = None, index: str = "first",
                    resample_before_rl: bool = True) -> torch.Tensor:
     """Statistic (max/min/mean/sum/std/median/qNN) of run lengths >= window
-    (xclim :275). Returns 0 where no qualifying run exists."""
+    (xclim :275). Returns 0 where no qualifying run exists.
+
+    ``max`` and ``sum`` over periods are the spells engine's longest run
+    (0 when shorter than the window) and days in runs of at least the
+    window, where the call has its semantics (see :func:`_spell`).
+    """
+    if reducer in ("max", "sum"):
+        out = _spell(x, window, axis, spec, resample_before_rl,
+                     "lng" if reducer == "max" else "wrc")
+        if out is not None:
+            return out if reducer == "sum" else torch.where(
+                out >= window, out, 0.0)
     d = rle(x, axis=axis, index=index,
             reset_spec=spec if resample_before_rl else None)
     dw = torch.where(d >= window, d, torch.nan)
