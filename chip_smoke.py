@@ -67,7 +67,26 @@ Builds the hand-written CUDA kernels from ``xclim_tpu_torch/csrc`` (into
     the pair;
 13. runs config 2 and its neighbours (hot spells, frost days, seasons,
     degree days, find_events) on a 32 x 32 crop with CPU tensors and on
-    the card and compares the outputs.
+    the card and compares the outputs;
+14. drives DQM at config 4's width (``DetrendedQuantileMapping.train(ref,
+    hist, group=Grouper("time.dayofyear", 31), nquantiles=50,
+    kind="+").adjust(sim)``, 128 x 128 cells, 30 noleap years, QDM's series
+    with +0.03 K a year added to sim), checks that the train launched
+    winquantile twice and no twin, that scen is finite where sim is and
+    keeps each cell's trend, holds winquantile against its twin at the
+    scaled hist, times train and adjust and profiles the adjust;
+15. runs DQM on a 32 x 32 crop with CPU tensors and on the card and
+    compares af, hist_q, scaling and scen;
+16. runs the rest of sdba once each at the sizes users run and holds each
+    against its CPU run on a crop: Scaling and LOCI (time.month) on a
+    precipitation series with dry days and ExtremeValues on a jittered QDM
+    doy first pass, at 16384 cells; properties (mean, quantile, acf,
+    spell_length_distribution, return_value) and measures (bias, rmse) on
+    DQM's scen; ``stats.fit(annual maxima, "genextreme")`` by the batched
+    BFGS over 16384 cells; ``npdf_transform`` (3 x 10950 days, 20
+    rotations); OTC and dOTC (+ and *) at 2048 points x 3 variables.
+
+Each phase prints its wall seconds (``[wall]``).
 
 Each kernel's record carries its bound (``bound_ms``: the larger of its
 bytes over 3.35 TB/s and its operations over 67 TFLOP/s, the H100 SXM's
@@ -509,6 +528,8 @@ def phase_slice(device, card, record):
                              f"{calls}")
     record["winquantile"]["launches"] = counts["winquantile"]
     record["qdmadjust"]["launches"] = counts["qdmadjust"]
+    record["winquantile"]["paths"]["qdm train"] = counts["winquantile"]
+    record["qdmadjust"]["paths"]["qdm adjust"] = counts["qdmadjust"]
 
     # right answer by the repo's own means: shape, finiteness, and the QDM
     # mean shift sim + (ref - hist) = 289 + (285 - 287) = 287 K. The ranks
@@ -2099,6 +2120,531 @@ def phase_spells_indices_cpu_vs_card(crop):
          f"rtol {RTOL}; event_sum within rtol {SP_EVENT_RTOL}); attrs equal")
 
 
+DQM_TREND = 0.03     # K a year planted in DQM's sim
+DQM_TREND_TOL = 0.005  # K a year: |trend(scen) - trend(sim)| per cell
+DQM_CROP = 32        # side of the crop held against the CPU twins
+#: DQM CPU twins vs card kernels: scaling is a difference of two ~290 K
+#: window means (1e-6 of each, absolute), which hist_q (quantiles of the
+#: scaled hist) and af carry; scen as in
+#: tests/test_torch_sdba_methods.py (a value 1 ulp off can cross the two
+#: end nodes, whose af slope reaches ~10)
+DQM_ATOL_K = 6e-4
+DQM_SCEN_RTOL = 2e-5
+#: rest of sdba, CPU twins vs card: the same float32 ops with sums in
+#: another order (means of ~1000-10950 values, Sinkhorn's logsumexp)
+REST_RTOL = 1e-5
+REST_ATOL = 2e-5
+#: (call, output) -> (rtol, atol) where that does not hold: measures.bias
+#: of two ~290 K means, each within 1e-6 relative: 2 x 1e-6 x 300 K
+REST_TOL = {("properties + measures on DQM's scen", 5): (0.0, 6e-4)}
+NPDF_DAYS = 10950
+NPDF_ITER = 20
+OTC_POINTS = 2048
+REST_CROP = 16       # side of the crops held against the CPU runs
+GEV_CROP = 64        # the ML fit's crop: its disagreements are counted
+
+
+def _dqm_series(device):
+    """QDM's series (``_series``) with +DQM_TREND K a year added to a copy
+    of sim, so that DQM's detrend has work."""
+    import torch
+
+    series = _series(device, (SIDE, SIDE))
+    sim = series["sim"]
+    years = torch.as_tensor(sim.time.decimal_year - sim.time.decimal_year[0],
+                            dtype=torch.float32, device=device)
+    series["sim"] = sim.copy(data=sim.data + DQM_TREND * years[:, None, None])
+    return series
+
+
+def _dqm_train(series):
+    from xclim_tpu_torch.sdba import DetrendedQuantileMapping, Grouper
+
+    return DetrendedQuantileMapping.train(
+        series["ref"], series["hist"], group=Grouper("time.dayofyear", WINDOW),
+        nquantiles=NQ, kind="+")
+
+
+def _dqm(series):
+    adj = _dqm_train(series)
+    return adj, adj.adjust(series["sim"])
+
+
+def _slopes(da):
+    """(cells,) least-squares slope over decimal years (per year), NaNs
+    skipped, float64."""
+    import torch
+
+    x = da.data.reshape(da.shape[0], -1).double()
+    t = torch.as_tensor(da.time.decimal_year, dtype=torch.float64,
+                        device=x.device)[:, None]
+    ok = ~torch.isnan(x)
+    n = ok.sum(0)
+    tm = torch.where(ok, t, 0.0).sum(0) / n
+    xm = torch.where(ok, x, 0.0).sum(0) / n
+    cov = torch.where(ok, (t - tm) * (x - xm), 0.0).sum(0)
+    return cov / torch.where(ok, (t - tm) ** 2, 0.0).sum(0)
+
+
+def phase_dqm(device, card, record):
+    """DQM at config 4's width: train on ref and hist, adjust a sim with a
+    planted trend; launch counts, finiteness, the trend kept, times, peak
+    memory; winquantile held against its twin at the scaled hist."""
+    import torch
+
+    from xclim_tpu_torch.ops import winquantile
+    from xclim_tpu_torch.sdba import Grouper
+    from xclim_tpu_torch.sdba.adjustment import _apply_kind
+    from xclim_tpu_torch.sdba.utils import gather_doy_slices
+
+    series = _dqm_series(device)
+    T = series["sim"].shape[0]
+    cells = SIDE * SIDE
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path's run: counts from zero, read right after the train
+    _reset_counts()
+    adj, out = _dqm(series)
+    torch.cuda.synchronize()
+    counts = _counts()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    _log(f"[dqm] launch counts of one DQM train+adjust at {cells} cells: "
+         f"{json.dumps(counts)}")
+    if counts != dict({k: 0 for k in counts}, winquantile=2):
+        raise AssertionError(f"DQM did not train on the kernel: {counts}")
+    record["winquantile"]["paths"]["dqm train"] = counts["winquantile"]
+
+    sim = series["sim"].data
+    if tuple(out.shape) != tuple(sim.shape) or out.data.device != device:
+        raise AssertionError(f"DQM output {tuple(out.shape)} on "
+                             f"{out.data.device}")
+    if not torch.equal(torch.isfinite(out.data), torch.isfinite(sim)):
+        raise AssertionError("DQM output is not finite exactly where sim is")
+    s_sim, s_scen = _slopes(series["sim"]), _slopes(out)
+    dev = (s_scen - s_sim).abs()
+    mean = float(out.data.double().mean())
+    _log(f"[dqm] per-cell trend: sim {float(s_sim.mean()):.5f} K/yr "
+         f"(planted {DQM_TREND}), scen {float(s_scen.mean()):.5f} K/yr, "
+         f"|scen - sim| max {float(dev.max()):.6f} K/yr (tolerance "
+         f"{DQM_TREND_TOL}); scen mean {mean:.4f} K (expect ~287.04: sim's "
+         f"289.45 K scaled by -2 K, then mapped from N(285, 6) onto ref's "
+         f"N(285, 5): 285 + 5/6 x 2.45)")
+    if float(dev.max()) > DQM_TREND_TOL or abs(mean - 287.04) > 0.3:
+        raise AssertionError("DQM did not keep sim's trend")
+
+    # winquantile against its twin at DQM's scaled hist (the second launch)
+    hist = series["hist"]
+    grp = Grouper("time.dayofyear", WINDOW)
+    gid = torch.as_tensor(grp.group_of_step(hist.time).astype("int64"),
+                          device=device)
+    xh = _apply_kind(hist.data, adj.ds["scaling"][gid], "+")
+    xd = gather_doy_slices(xh, grp.device_doy_table(hist.time, device))
+    xd = xd.reshape(xd.shape[0], xd.shape[1], -1)
+    q = adj.ds["quantiles"].astype("float32")
+    err = _compare(f"winquantile at DQM's scaled hist {tuple(xd.shape)}",
+                   winquantile.doy_window_quantiles(xd, q, WINDOW),
+                   winquantile.doy_window_quantiles_plain(xd, q, WINDOW),
+                   rtol=0.0, atol=0.0)
+    record["winquantile"]["max_abs_err"] = max(
+        record["winquantile"]["max_abs_err"], err)
+    del xh, xd
+
+    train_s, adjust_s = [], []
+    for _ in range(4):   # a warm-up, then 3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a = _dqm_train(series)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        a.adjust(series["sim"])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        train_s.append(t1 - t0)
+        adjust_s.append(t2 - t1)
+    tr, ad = statistics.median(train_s[1:]), statistics.median(adjust_s[1:])
+    _log(f"[dqm] DQM doy w{WINDOW} nq{NQ} {cells} cells {YEARS}y on {card}: "
+         f"train {tr:.4f} s, adjust {ad:.4f} s (median of 3 after a warm-up;"
+         f" train runs {[round(v, 4) for v in train_s[1:]]}, adjust runs "
+         f"{[round(v, 4) for v in adjust_s[1:]]}), "
+         f"{T * cells / (tr + ad):.1f} cell-days/s, peak device memory above "
+         f"the inputs {peak:.3f} GiB (inputs "
+         f"{3 * sim.numel() * 4 / 2**30:.3f} GiB); winquantile at the scaled "
+         f"hist value-equal to its twin")
+    _profile(f"DQM adjust ({T}, {SIDE}, {SIDE})",
+             lambda: adj.adjust(series["sim"]), card)
+    return series, out
+
+
+def phase_dqm_cpu_vs_card(full):
+    """DQM on a 32 x 32 crop: CPU tensors (the twins) against the card (the
+    kernels); af, hist_q, scaling and scen compared."""
+    import torch
+
+    crop = {k: v.isel(lat=slice(0, DQM_CROP), lon=slice(0, DQM_CROP))
+            for k, v in full.items()}
+    crop = {k: v.copy(data=v.data.contiguous()) for k, v in crop.items()}
+    before = _counts()
+    adj_c, out_c = _dqm({k: v.to("cpu") for k, v in crop.items()})
+    adj_g, out_g = _dqm(crop)
+    torch.cuda.synchronize()
+    after = _counts()
+    d = {k: after[k] - before[k] for k in after}
+    if d != dict({k: 0 for k in d}, winquantile=2, winquantile_twin=2):
+        raise AssertionError(f"CPU run must use the twins, the card the "
+                             f"kernels: {d}")
+    errs = {
+        "hist_q": _compare("DQM hist_q cpu vs card", adj_g.ds["hist_q"],
+                           adj_c.ds["hist_q"], rtol=0.0, atol=DQM_ATOL_K),
+        "scaling": _compare("DQM scaling cpu vs card", adj_g.ds["scaling"],
+                            adj_c.ds["scaling"], rtol=0.0, atol=DQM_ATOL_K),
+        "af": _compare("DQM af cpu vs card", adj_g.ds["af"], adj_c.ds["af"],
+                       rtol=0.0, atol=DQM_ATOL_K),
+        "scen": _compare("DQM scen cpu vs card", out_g.data, out_c.data,
+                         rtol=DQM_SCEN_RTOL, atol=0.0)}
+    _log(f"[cpu twins vs card kernels] DQM {DQM_CROP}x{DQM_CROP} cells: "
+         f"max_abs_err {json.dumps(errs)} (hist_q, scaling and af within "
+         f"{DQM_ATOL_K} K; scen within rtol "
+         f"{DQM_SCEN_RTOL})")
+
+
+def _pr(device, side, years=YEARS):
+    """ref, hist, sim: daily precipitation in mm/d on (time, lat, lon), 30
+    noleap years, exponential (gamma with shape 1) wet days of mean 4, 3
+    and 3.5 mm/d with 55, 45 and 45 % dry days, from one seeded generator."""
+    import torch
+
+    from xclim_tpu_torch.core.calendar import date_range
+    from xclim_tpu_torch.core.dataarray import ClimArray
+
+    t = date_range("1981-01-01", periods=years * 365, freq="D",
+                   calendar="noleap")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 1)
+    shape = (len(t), side, side)
+    coords = {"time": t, "lat": list(range(side)), "lon": list(range(side))}
+    out = {}
+    for name, dry, mean in (("ref", 0.55, 4.0), ("hist", 0.45, 3.0),
+                            ("sim", 0.45, 3.5)):
+        u = torch.rand(shape, generator=gen, device=device)
+        w = torch.rand(shape, generator=gen, device=device)
+        data = torch.where(u < dry, 0.0, -mean * torch.log1p(-w))
+        out[name] = ClimArray(data, ("time", "lat", "lon"), coords,
+                              {"units": "mm/d",
+                               "standard_name": "precipitation_flux"}, name)
+    return out
+
+
+def _crop(arrays):
+    return {k: v.copy(data=v.data[:, :REST_CROP, :REST_CROP].contiguous())
+            for k, v in arrays.items()}
+
+
+def _jittered(pr):
+    """pr with its dry days jittered under 0.01 mm/d (one seeded generator
+    per variable, on pr's device)."""
+    import torch
+
+    from xclim_tpu_torch.sdba import processing
+
+    return {k: processing.jitter_under_thresh(
+        v, "0.01 mm/d", generator=torch.Generator(
+            device=v.data.device).manual_seed(SEED + i))
+        for i, (k, v) in enumerate(pr.items())}
+
+
+def _rest_calls(pr, jit, tas_scen, tas_ref):
+    """The rest-of-sdba calls at their sizes: name -> fn() returning a
+    tensor (or a tuple of tensors); pr, its jittered copy and the
+    temperatures may be the full arrays or crops, on either device."""
+    import xclim_tpu_torch.sdba as sdba
+    from xclim_tpu_torch.indices import stats
+    from xclim_tpu_torch.sdba import measures, properties
+
+    month = sdba.Grouper("time.month")
+
+    def scaling():
+        adj = sdba.Scaling.train(pr["ref"], pr["hist"], group=month, kind="*")
+        return adj.ds["af"], adj.adjust(pr["sim"]).data
+
+    def loci():
+        adj = sdba.LOCI.train(pr["ref"], pr["hist"], group=month,
+                              thresh="1 mm/d")
+        return adj.ds["af"], adj.ds["hist_thresh"], adj.adjust(pr["sim"]).data
+
+    def extremes():
+        # the user recipe: a QDM doy first pass (multiplicative) on the
+        # jittered series, then the GPD transfer of the extremes
+        qdm = sdba.QuantileDeltaMapping.train(
+            jit["ref"], jit["hist"], group=sdba.Grouper("time.dayofyear",
+                                                        WINDOW),
+            nquantiles=NQ, kind="*")
+        scen = qdm.adjust(jit["sim"])
+        ev = sdba.ExtremeValues.train(pr["ref"], pr["hist"],
+                                      cluster_thresh="1 mm/d", q_thresh=0.95)
+        out = ev.adjust(scen, pr["sim"], frac=0.25, power=1.0)
+        return (ev.ds["k_hist"], ev.ds["s_hist"], ev.ds["thresh_hist"],
+                out.data, *_ev_conditioning(ev, scen, pr["sim"]))
+
+    def props():
+        return (properties.mean(tas_scen).data,
+                properties.quantile(tas_scen, q=0.98).data,
+                properties.acf(tas_scen, lag=1, group="time.season").data,
+                properties.spell_length_distribution(
+                    tas_scen, op=">=", thresh="295 K", stat="mean").data,
+                properties.return_value(tas_scen, period=20, op="max").data,
+                measures.bias(properties.mean(tas_scen),
+                              properties.mean(tas_ref)).data,
+                measures.rmse(tas_scen, tas_ref).data)
+
+    def gev_fit():
+        amax = tas_scen.resample("YS").max()
+        return amax.data, stats.fit(amax, "genextreme", method="ML").data
+
+    return {"Scaling time.month": scaling, "LOCI time.month": loci,
+            "ExtremeValues on the QDM scen": extremes,
+            "properties + measures on DQM's scen": props,
+            "stats.fit genextreme ML (batched BFGS)": gev_fit}
+
+
+def _npdf_otc_calls(gen_dev):
+    """npdf_transform (3 x 10950, 20 rotations, drawn once and handed to
+    both devices) and OTC/dOTC at 2048 points x 3 variables, on tensors of
+    one seeded draw: name -> fn(device, n) returning tensors (n: the
+    first n steps; the sizes above by default)."""
+    import numpy as np
+    import torch
+
+    import xclim_tpu_torch.sdba as sdba
+    from xclim_tpu_torch.core.calendar import date_range
+    from xclim_tpu_torch.core.dataarray import ClimArray
+    from xclim_tpu_torch.sdba.adjustment import random_rotation_matrices
+
+    rng = np.random.default_rng(SEED)
+    L = np.linalg.cholesky(np.array([[1.0, 0.6, 0.3], [0.6, 1.0, 0.5],
+                                     [0.3, 0.5, 1.0]]))
+    mats = {"ref": L @ rng.normal(0, 1, (3, NPDF_DAYS)),
+            "hist": rng.normal(0.2, 1.1, (3, NPDF_DAYS)),
+            "sim": rng.normal(0.5, 1.2, (3, NPDF_DAYS))}
+    mats = {k: np.abs(v).astype(np.float32) + 0.5 for k, v in mats.items()}
+    rots = random_rotation_matrices(
+        torch.Generator(device=gen_dev).manual_seed(SEED), NPDF_ITER, 3)
+
+    def mv(device, n):
+        t = date_range("1981-01-01", periods=n, calendar="noleap")
+        return {k: ClimArray(torch.as_tensor(v[:, :n], device=device),
+                             ("multivar", "time"),
+                             {"time": t, "multivar": np.array(["a", "b", "c"])},
+                             {"units": ""}, k) for k, v in mats.items()}
+
+    def npdf(device, n=NPDF_DAYS):
+        a = mv(device, n)
+        ha, sa = sdba.npdf_transform(a["ref"], a["hist"], a["sim"],
+                                     n_iter=NPDF_ITER, nquantiles=NQ,
+                                     rotations=rots.cpu().numpy())
+        return ha.data, sa.data
+
+    def otc(device, n=OTC_POINTS):
+        a = mv(device, n)
+        return (sdba.OTC.adjust(a["ref"], a["hist"]).data,
+                sdba.dOTC.adjust(a["ref"], a["hist"], a["sim"]).data,
+                sdba.dOTC.adjust(a["ref"], a["hist"], a["sim"],
+                                 kind="*").data)
+
+    return {"npdf_transform 3 x 10950, 20 rotations": npdf,
+            "OTC + dOTC (+, *) 2048 points x 3": otc}
+
+
+def _as_tuple(v):
+    return v if isinstance(v, tuple) else (v,)
+
+
+def phase_sdba_rest(device, card, dqm_series, dqm_scen, record):
+    """The rest of sdba at the sizes users run (16384 cells x 30 years; 3
+    variables x 10950 days; 2048 points): one card call each, timed, then
+    held against the same call on a crop as CPU tensors."""
+    import torch
+
+    pr = _pr(device, SIDE)
+    jit = _jittered(pr)
+    scen = dqm_series["sim"].copy(data=dqm_scen.data)
+    ref = dqm_series["ref"]
+    calls = _rest_calls(pr, jit, scen, ref)
+    cpu = {k: v.to("cpu") for k, v in _crop(pr).items()}
+    crop_c = _rest_calls(cpu, {k: v.to("cpu") for k, v in _crop(jit).items()},
+                         _crop({"s": scen})["s"].to("cpu"),
+                         _crop({"r": ref})["r"].to("cpu"))
+    for name, fn in calls.items():
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = _as_tuple(fn())
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = {k: v for k, v in _counts().items() if v}
+        if any(k.endswith("_twin") for k in counts):
+            raise AssertionError(f"{name} on the card called a twin: {counts}")
+        for k, v in counts.items():
+            if k in record:
+                record[k]["paths"][name] = v
+        side = GEV_CROP if name.startswith("stats.fit") else REST_CROP
+        got = [g[..., :side, :side].cpu() for g in out]
+        del out
+        if name.startswith("stats.fit"):
+            errs = [_gev_fits_agree(name, got, scen.copy(
+                data=scen.data[:, :side, :side].contiguous()).to("cpu"))]
+        elif name.startswith("ExtremeValues"):
+            errs = _ev_outputs_agree(name, got, _as_tuple(crop_c[name]()))
+        else:
+            errs = [_compare(f"{name} [{i}] cpu vs card", g, c,
+                             *REST_TOL.get((name, i), (REST_RTOL, REST_ATOL)))
+                    for i, (g, c) in enumerate(zip(got, _as_tuple(
+                        crop_c[name]())))]
+        if not all(bool(torch.isfinite(g).any()) for g in got):
+            raise AssertionError(f"{name}: an output with no finite value")
+        _log(f"[sdba_rest] {name} at {tuple(pr['sim'].shape)} on {card}: "
+             f"{sec:.4f} s (one call); launches {json.dumps(counts)}; "
+             f"{side}x{side} crop: CPU run max_abs_err "
+             f"{[round(e, 8) for e in errs]}")
+    del pr, jit, calls, crop_c
+    torch.cuda.empty_cache()
+
+    for name, fn in _npdf_otc_calls(device).items():
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        fn(device)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = {k: v for k, v in _counts().items() if v}
+        # OTC's plans at 2048 points take minutes on the CPU: the crop is
+        # the first 256 points, run on both devices
+        n = NPDF_DAYS if name.startswith("npdf") else 256
+        got = _as_tuple(fn(device, n))
+        want = _as_tuple(fn("cpu", n))
+        errs = []
+        for i, (g, c) in enumerate(zip(got, want)):
+            if name.startswith("npdf"):
+                # 20 rounds of rotate -> QDM over 10950 ranks: two rotated
+                # values within an ulp may swap ranks on one device
+                # (tests/test_torch_sdba_methods.py): under 1 % of values
+                # off by more than 1e-4, none by more than 1e-2
+                e = (g.cpu() - c).abs()
+                if float((e > 1e-4).double().mean()) >= 0.01 or \
+                        float(e.max()) > 1e-2:
+                    raise AssertionError(f"{name} [{i}] cpu vs card: "
+                                         f"max {float(e.max())}")
+                errs.append(float(e.max()))
+            else:
+                errs.append(_compare(f"{name} [{i}] cpu vs card", g, c,
+                                     rtol=REST_RTOL, atol=REST_ATOL))
+        _log(f"[sdba_rest] {name} on {card}: {sec:.4f} s (one call); "
+             f"launches {json.dumps(counts)}; CPU run at {n} steps max_abs_err "
+             f"{[round(e, 8) for e in errs]}")
+
+
+def _ev_conditioning(ev, scen, sim):
+    """(ph, bound) for ExtremeValues' blend out = (1 - w) scen + w T,
+    w = clip((ph - 0.75) / 0.25, 0, 1), T = thresh_ref + s_ref / k_ref
+    (1 - (1 - ph)^k_ref), ph = 1 - (1 - k_hist y / s_hist)^(1 / k_hist):
+    hist's GPD cdf of sim, and how far float32 rounding moves out when
+    each pow rounds a few ulp apart (two devices' pow and exp do). The
+    error of 1 - ph is 4 ulp of 1 plus 4 ulp of itself over |k_hist|
+    (the 1 / k power); the weight turns it into |T - scen| / 0.25 of
+    output and T into s_ref (1 - ph)^(k_ref - 1) of T; T's own difference
+    1 - (1 - ph)^k_ref cancels to 4 ulp of 1 over |k_ref| / s_ref."""
+    import torch
+
+    from xclim_tpu_torch.sdba.adjustment import _gpd_cdf, _gpd_ppf
+
+    d = {k: v.double() for k, v in ev.ds.items()}
+    ph = _gpd_cdf(torch.clamp(sim.data - ev.ds["thresh_hist"], min=0.0),
+                  ev.ds["k_hist"], ev.ds["s_hist"]).double()
+    T = d["thresh_ref"] + _gpd_ppf(ph, d["k_ref"], d["s_ref"])
+    ulp4 = 4 * 2.0 ** -23
+    tail = 1 - torch.clamp(ph, 1e-9, 1 - 1e-9)
+    d1p = ulp4 + ulp4 * tail / torch.clamp(d["k_hist"].abs(), max=1.0)
+    dT = (d["s_ref"] * tail ** (d["k_ref"] - 1) * d1p
+          + ulp4 * (d["s_ref"] / d["k_ref"]).abs())
+    return ph, (T - scen.data.double()).abs() / 0.25 * d1p + dT
+
+
+def _ev_outputs_agree(name, got, want) -> list:
+    """ExtremeValues' fit (k, sigma, POT level) within REST_RTOL; its
+    blended output within REST_RTOL plus the float32 conditioning of the
+    reference's formula (:func:`_ev_conditioning`). Where ph rounds to
+    within 1e-6 of 1 (the far tail), float32 holds too few bits of 1 - ph
+    for T to be determined (it reaches inf, on the reference too): those
+    values are counted, and their NaN/inf pattern only is compared."""
+    import torch
+
+    errs = [_compare(f"{name} [{i}] cpu vs card", g, c, rtol=REST_RTOL,
+                     atol=REST_ATOL)
+            for i, (g, c) in enumerate(zip(got[:3], want[:3]))]
+    g, c, ph, cond = got[3], want[3], want[4], want[5]
+    tail = ph > 1 - 1e-6
+    if not torch.equal(torch.isinf(g) | torch.isnan(g),
+                       torch.isinf(c) | torch.isnan(c)):
+        raise AssertionError(f"{name}: inf/NaN patterns differ")
+    ok = ~tail & torch.isfinite(c)
+    err = (g - c).abs()[ok].double()
+    bound = (REST_ATOL + REST_RTOL * c.abs().double() + cond)[ok]
+    if bool((err > bound).any()):
+        raise AssertionError(f"{name}: {int((err > bound).sum())} values "
+                             f"beyond the bound, max abs err "
+                             f"{float(err.max())}")
+    _log(f"[sdba_rest] {name}: {int(tail.sum())} of {tail.numel()} crop "
+         f"values in the far tail (ph > 1 - 1e-6; "
+         f"{int(torch.isinf(c).sum())} inf on both devices); largest "
+         f"conditioning term of the bound {float(cond[ok].max())}, max "
+         f"err / bound {float((err / bound).max())}")
+    return errs + [float(err.max())]
+
+
+def _gev_fits_agree(name, got, scen_cpu) -> float:
+    """The card's ML fits against the CPU's on the crop. The block maxima
+    are value-equal (segred against its twin). A float32 BFGS on 30
+    maxima is ill-conditioned where the likelihood is flat or unbounded
+    (a shape near 0, or outside (-1, 1) with a maximum at the support's
+    edge): there a one-ulp change of the data moves the optimum by more
+    than the reference's ML tolerance. So the fits disagreeing beyond
+    1e-3 (c by 1e-3 (1 + |c|), loc and scale relative) on the two devices
+    must be no more than twice those that disagree on the CPU between the
+    maxima and the maxima scaled by 1 + 2^-23, plus 0.1 % of the cells.
+    Returns the largest parameter difference."""
+    import torch
+
+    from xclim_tpu_torch.indices import stats
+
+    amax = scen_cpu.resample("YS").max()
+    _compare(f"{name} block maxima cpu vs card", got[0], amax.data,
+             rtol=0.0, atol=0.0)
+    p_cpu = stats.fit(amax, "genextreme", method="ML").data
+    p_ulp = stats.fit(amax.copy(data=amax.data * (1 + 2.0 ** -23)),
+                      "genextreme", method="ML").data
+    p_card = got[1]
+
+    def disagree(a, b):
+        d = (a - b).abs()
+        return ((d[0] > 1e-3 * (1 + a[0].abs())) | (d[1] > 1e-3 * a[1].abs())
+                | (d[2] > 1e-3 * a[2].abs()))
+
+    if not torch.equal(torch.isfinite(p_card), torch.isfinite(p_cpu)):
+        raise AssertionError(f"{name}: finite patterns differ")
+    n_dev = int(disagree(p_cpu, p_card).sum())
+    n_ulp = int(disagree(p_cpu, p_ulp).sum())
+    cells = p_cpu[0].numel()
+    _log(f"[sdba_rest] {name}: {n_dev} of {cells} cells disagree beyond "
+         f"1e-3 between the devices; {n_ulp} between the CPU fit of the "
+         f"maxima and of the maxima one ulp up; shape c in "
+         f"[{float(p_cpu[0].min()):.3f}, {float(p_cpu[0].max()):.3f}]")
+    if n_dev > 2 * n_ulp + cells // 1000:
+        raise AssertionError(f"{name}: {n_dev} fits disagree between the "
+                             f"devices, {n_ulp} under a one-ulp change")
+    return float((p_card - p_cpu).abs().max())
+
+
 def main() -> int:
     import torch
 
@@ -2110,6 +2656,7 @@ def main() -> int:
     from xclim_tpu_torch.ops import _build
     from xclim_tpu_torch.sdba.utils import equally_spaced_nodes
 
+    start = time.perf_counter()
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2142,33 +2689,47 @@ def main() -> int:
             "source": "xclim_tpu_torch/csrc/" + _build.source(target).name,
             "replaces": replaces,
             "launches": 0, "max_abs_err": 0.0, "ms": None, "plain_ms": None,
-            "bound_ms": None, "bound_by": None, "library_ms": None}
+            "bound_ms": None, "bound_by": None, "library_ms": None,
+            "paths": {}}
 
     q = equally_spaced_nodes(NQ).astype("float32")
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
-    phase_kernels_small(gen, device, q, record)
-    phase_segred_small(gen, device, record)
-    series = phase_slice(device, card, record)
-    phase_cpu_vs_card(series)
+    def run(phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        _log(f"[wall] {phase.__name__}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    run(phase_kernels_small, gen, device, q, record)
+    run(phase_segred_small, gen, device, record)
+    series = run(phase_slice, device, card, record)
+    run(phase_cpu_vs_card, series)
     del series
     torch.cuda.empty_cache()
-    tas = phase_tg_mean(device, card, record)
-    phase_tg_mean_cpu_vs_card(tas)
+    tas = run(phase_tg_mean, device, card, record)
+    run(phase_tg_mean_cpu_vs_card, tas)
     del tas
     torch.cuda.empty_cache()
-    phase_spells_small(gen, device, record)
-    tasmax = phase_percentiles(device, card, record)
-    phase_percentiles_cpu_vs_card(tasmax)
+    run(phase_spells_small, gen, device, record)
+    tasmax = run(phase_percentiles, device, card, record)
+    run(phase_percentiles_cpu_vs_card, tasmax)
     del tasmax
     torch.cuda.empty_cache()
-    phase_axisquantile_small(gen, device, record)
-    ens = phase_ensembles(device, card, record)
-    phase_ensembles_cpu_vs_card(ens)
+    run(phase_axisquantile_small, gen, device, record)
+    ens = run(phase_ensembles, device, card, record)
+    run(phase_ensembles_cpu_vs_card, ens)
     del ens
     torch.cuda.empty_cache()
-    crop = phase_spells_indices(device, card, record)
-    phase_spells_indices_cpu_vs_card(crop)
+    crop = run(phase_spells_indices, device, card, record)
+    run(phase_spells_indices_cpu_vs_card, crop)
+    del crop
+    torch.cuda.empty_cache()
+    dqm_series, dqm_scen = run(phase_dqm, device, card, record)
+    run(phase_dqm_cpu_vs_card, dqm_series)
+    run(phase_sdba_rest, device, card, dqm_series, dqm_scen, record)
+    del dqm_series, dqm_scen
+    _log(f"[wall] chip_smoke total: {time.perf_counter() - start:.1f} s")
 
     _log(json.dumps({"kernels": list(record.values())}))
     print(json.dumps({"ok": True, "device": {

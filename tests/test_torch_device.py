@@ -124,3 +124,47 @@ def test_threshold_and_spell_indicators_on_cpu_tensors(no_default):
     events = indices.run_length.find_events(tasmax > 296.0, 2, freq="YS")
     assert all(o.device.type == "cpu" for o in outs)
     assert all(v.device.type == "cpu" for v in events.values())
+
+
+def test_rest_of_sdba_and_stats_on_cpu_tensors(no_default, tmp_path):
+    import xclim_tpu_torch.sdba as sdba
+    from xclim_tpu_torch.indices import stats
+    from xclim_tpu_torch.sdba import measures, processing, properties
+
+    ref, hist, sim = (_series(n, mu, s) for n, mu, s in
+                      (("ref", 285.0, 30), ("hist", 287.0, 31),
+                       ("sim", 289.0, 32)))
+    month = sdba.Grouper("time.month")
+    dqm = sdba.DetrendedQuantileMapping.train(
+        ref, hist, group=sdba.Grouper("time.dayofyear", 31), nquantiles=10)
+    outs = [dqm.adjust(sim),
+            sdba.Scaling.train(ref, hist, group=month).adjust(sim),
+            sdba.LOCI.train(ref, hist, group=month, thresh="280 K").adjust(sim)]
+    ev = sdba.ExtremeValues.train(ref, hist, cluster_thresh="290 K",
+                                  q_thresh=0.5)
+    outs.append(ev.adjust(outs[0], sim))
+    dqm.save(tmp_path / "dqm.npz")
+    back = sdba.DetrendedQuantileMapping.load(tmp_path / "dqm.npz",
+                                              device="cpu")
+    outs.append(back.adjust(sim))
+    mv = processing.stack_variables({"a": ref, "b": hist}).isel(x=0)
+    mv = mv.copy(data=torch.nan_to_num(mv.data, nan=285.0))
+    ha, _ = sdba.npdf_transform(mv, mv, None, n_iter=2, nquantiles=10)
+    outs += [ha, sdba.OTC.adjust(mv.isel(time=slice(0, 300)),
+                                 mv.isel(time=slice(300, 600)), n_iter=5),
+             sdba.dOTC.adjust(mv.isel(time=slice(0, 300)),
+                              mv.isel(time=slice(300, 600)),
+                              mv.isel(time=slice(600, 900)), n_iter=5),
+             processing.jitter_under_thresh(ref, "280 K"),
+             processing.adapt_freq(ref, sim, thresh="280 K")[0],
+             processing.normalize(ref)[0],
+             properties.quantile(sim), properties.acf(sim),
+             properties.spell_length_distribution(sim, thresh="290 K"),
+             properties.return_value(sim, period=5),
+             measures.rmse(sim, ref),
+             stats.fit(sim.resample("YS").max(), "genextreme"),
+             stats.standardized_index(sim, freq="MS", dist="norm",
+                                      zero_inflated=False)]
+    assert all(o.device.type == "cpu" for o in outs)
+    with pytest.raises(AssertionError, match="default_device"):
+        sdba.DetrendedQuantileMapping.load(tmp_path / "dqm.npz")

@@ -135,6 +135,51 @@ def test_qdm_train_over_the_window_limit_on_the_card(cuda):
                                ref.ds["af"].numpy(), rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("years, cells", [(30, 64), (300, 3)])
+def test_dqm_trains_on_the_kernel_and_matches_the_twin(cuda, years, cells):
+    """DQM's train runs winquantile twice on the card (ref and the scaled
+    hist; w31 x 300 years takes the global-scratch instance) and agrees
+    with the CPU twins; its adjust agrees too."""
+    from xclim_tpu_torch.core.dataarray import ClimArray
+    from xclim_tpu_torch.sdba import DetrendedQuantileMapping, Grouper
+
+    t = date_range("1701-01-01", periods=years * 365, calendar="noleap")
+    rng = np.random.default_rng(years)
+    data = {k: rng.normal(mu, 5.0, (len(t), cells)).astype(np.float32)
+            for k, mu in (("ref", 285.0), ("hist", 287.0), ("sim", 289.0))}
+    data["sim"] += (0.03 * np.arange(len(t)) / 365).astype(np.float32)[:, None]
+    data["hist"][rng.random(data["hist"].shape) < 0.05] = np.nan
+
+    def run(device):
+        arrays = {k: ClimArray(torch.as_tensor(v, device=device),
+                               ("time", "cell"), {"time": t}, {"units": "K"},
+                               k) for k, v in data.items()}
+        adj = DetrendedQuantileMapping.train(
+            arrays["ref"], arrays["hist"], group=Grouper("time.dayofyear", 31),
+            nquantiles=50, kind="+")
+        return adj, adj.adjust(arrays["sim"])
+
+    shared = winquantile.window_in_shared(31, years)
+    counts = (winquantile.launches, winquantile.global_launches,
+              winquantile.twin_calls)
+    got, out = run(cuda)
+    torch.cuda.synchronize()
+    assert (winquantile.launches, winquantile.global_launches,
+            winquantile.twin_calls) == (
+        counts[0] + 2, counts[1] + (0 if shared else 2), counts[2])
+    ref, ref_out = run("cpu")
+    # scaling is a difference of ~290 K window means summed in another
+    # order on the two devices (1e-6 of each, absolute); hist_q (the
+    # kernel's quantiles of hist + scaling, value for value the twin's on
+    # one input) and af carry that difference; scen as
+    # tests/test_torch_sdba_methods.py bounds DQM
+    for k in ("scaling", "hist_q", "af"):
+        np.testing.assert_allclose(got.ds[k].cpu().numpy(),
+                                   ref.ds[k].numpy(), rtol=0, atol=6e-4)
+    np.testing.assert_allclose(out.data.cpu().numpy(), ref_out.data.numpy(),
+                               rtol=2e-5, atol=0)
+
+
 def _cases(n_doy, Y, C, seed, kind):
     """(n_doy, Y, C) slices for the sliding kernel: lane 0 all NaN, lane 1
     one valid sample in the whole series, lane 2 one valid sample per

@@ -151,6 +151,11 @@ class Grouper:
         return self._cached(b"train", time, device,
                             lambda: _dev(self.train_table(time), device))
 
+    def device_group_of_step(self, time: TimeIndex, device) -> torch.Tensor:
+        """group_of_step as an int64 tensor on ``device``."""
+        return self._cached(b"gid", time, device,
+                            lambda: _dev(self.group_of_step(time), device))
+
     def device_adjust_table(self, time: TimeIndex, device):
         """(table, gid, flat_pos) as int64 tensors on ``device``."""
         return self._cached(

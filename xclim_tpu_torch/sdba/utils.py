@@ -14,8 +14,10 @@ import numpy as np
 import torch
 
 from xclim_tpu_torch.ops import winquantile
+from xclim_tpu_torch.ops.quantile import nan_quantile
 
-__all__ = ["equally_spaced_nodes", "interp_on_quantiles", "grouped_rank",
+__all__ = ["equally_spaced_nodes", "grouped_quantile", "interp_on_quantiles",
+           "grouped_rank",
            "interp_hat_nodes", "gather_groups", "gather_doy_slices",
            "windowed_doy_quantile", "windowed_doy_mean"]
 
@@ -27,6 +29,31 @@ def equally_spaced_nodes(n: int, eps: float | None = 1e-4) -> np.ndarray:
     if eps is None:
         return q
     return np.insert(np.append(q, 1 - eps), 0, eps)
+
+
+def generator_or_default(generator, device) -> torch.Generator:
+    """The caller's generator, else one seeded with 0 on ``device`` (the
+    reference's default key is PRNGKey(0))."""
+    if generator is not None:
+        return generator
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    return gen
+
+
+def grouped_quantile(da, grouper, q, alpha: float = 1.0,
+                     beta: float = 1.0) -> torch.Tensor:
+    """Per-group quantiles of a ClimArray: (n_groups, nq, ...space) on its
+    device (the winquantile op for ``time.dayofyear``)."""
+    xf = da.data.movedim(da.time_axis, 0)
+    if grouper.group == "time.dayofyear":
+        return windowed_doy_quantile(
+            xf, grouper.device_doy_table(da.time, xf.device), grouper.window,
+            q, alpha=alpha, beta=beta)
+    g = gather_groups(xf, grouper.device_train_table(da.time, xf.device))
+    out = nan_quantile(g, np.asarray(q, dtype=np.float32), axis=1,
+                       alpha=alpha, beta=beta)            # (nq, G, ...)
+    return out.movedim(0, 1)
 
 
 def gather_groups(xf: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -90,10 +117,13 @@ def interp_on_quantiles(x: torch.Tensor, xq: torch.Tensor, yq: torch.Tensor,
     count over the nodes (NaN nodes compare False, i.e. count as greater).
     """
     nq = xq.shape[-2]
-    cnt = torch.zeros(x.shape, dtype=torch.int64, device=x.device)
+    # the narrowest count that holds nq: the loop reads and writes it once
+    # a node
+    cnt = torch.zeros(x.shape, device=x.device,
+                      dtype=torch.int16 if nq < 2**15 else torch.int64)
     for k in range(nq):
         cnt += xq[..., k:k + 1, :] <= x
-    hi = torch.clamp(cnt, 1, nq - 1)
+    hi = torch.clamp(cnt, 1, nq - 1).to(torch.int64)
     lo = hi - 1
     x0 = _take_nodes(xq, lo)
     x1 = _take_nodes(xq, hi)
