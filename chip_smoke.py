@@ -84,7 +84,26 @@ Builds the hand-written CUDA kernels from ``xclim_tpu_torch/csrc`` (into
     spell_length_distribution, return_value) and measures (bias, rmse) on
     DQM's scen; ``stats.fit(annual maxima, "genextreme")`` by the batched
     BFGS over 16384 cells; ``npdf_transform`` (3 x 10950 days, 20
-    rotations); OTC and dOTC (+ and *) at 2048 points x 3 variables.
+    rotations); OTC and dOTC (+ and *) at 2048 points x 3 variables;
+17. drives bench.py's fused 10-indicator chain (bench.py:542-600: TG_MEAN,
+    TX_DAYS_ABOVE, FROST_DAYS, ICE_DAYS, the three degree days,
+    HEAT_WAVE_INDEX, CDD and PRCPTOT through the registry and
+    ``climjit_chain``) at its two rows, 320 x 320 and 100 x 100 cells x
+    3650 noleap days: each step's launch counts and values against plain
+    per-year expressions, indicator-cell-days/s, TG_MEAN alone and the
+    marginal ms per indicator, peak memory, a profile, and segred and
+    spells against their twins at the chain's inputs;
+18. runs the chain on a 32 x 32 crop with CPU tensors and on the card and
+    compares the outputs;
+19. runs each new index module once at a size users run, against its CPU
+    run on a crop: SPI-3/SPEI-3, rain_season, dryness_index, the ANUCLIM
+    quarters, aridity, the antecedent precipitation index, every PET
+    method, UTCI with MRT, the agroclimatic temperature indicators and the
+    converter branches of _multivariate at 128 x 128 cells x 30 years; the
+    chill models and max_pr_intensity on a year of hours at 16384 cells
+    (the chill portions held to a float64 replay on a 256-cell crop); the
+    jet stream on 30 years x 64 latitudes. Each call's time is the median
+    of 3 after a warm-up.
 
 Each phase prints its wall seconds (``[wall]``).
 
@@ -1500,7 +1519,8 @@ def _axq_cases(gen, device):
 def _profile(name, fn, card, top=10):
     """torch.profiler over one fn() after a warm-up: wall time, summed
     device time of its kernels, the device's idle share of the wall, and
-    the kernels with the most device time."""
+    the kernels with the most device time. Returns (kernel launches,
+    kernel ms)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1524,16 +1544,18 @@ def _profile(name, fn, card, top=10):
                    if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
                   key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in rows) / 1e3
+    launches = sum(e.count for e in rows)
     if not rows:
         _log(f"[profile] {name}: no device time in the trace; wall "
              f"{wall_ms:.3f} ms")
-        return
+        return 0, 0.0
     _log(f"[profile] {name} on {card}: wall {wall_ms:.3f} ms (profiled), "
-         f"kernel time {busy_ms:.3f} ms in {sum(e.count for e in rows)} "
+         f"kernel time {busy_ms:.3f} ms in {launches} "
          f"launches, idle {max(0.0, 1.0 - busy_ms / wall_ms) * 100:.1f} %")
     for e in rows[:top]:
         _log(f"[profile]   {dev_us(e) / 1e3:9.3f} ms  {e.count:5d}x  "
              f"{e.key[:90]}")
+    return launches, busy_ms
 
 
 def _ensemble(device):
@@ -2645,6 +2667,754 @@ def _gev_fits_agree(name, got, scen_cpu) -> float:
     return float((p_card - p_cpu).abs().max())
 
 
+CH_DAYS = 3650        # 10 noleap years from 2000-01-01 (bench.py:556)
+CH_SIDES = (320, 100)  # bench.py's fused-chain rows: saturated, and small
+CH_CROP = 32          # side of the crop held against the CPU twins
+#: bench.py:565-578: the chain's registry steps (key, input, keywords)
+CH_STEPS = (("TG_MEAN", "tas", {"freq": "MS"}),
+            ("TX_DAYS_ABOVE", "tasmax", {"thresh": "25 degC", "freq": "YS"}),
+            ("FROST_DAYS", "tasmin", {"freq": "YS"}),
+            ("ICE_DAYS", "tasmax", {"freq": "YS"}),
+            ("GROWING_DEGREE_DAYS", "tas", {"thresh": "4 degC",
+                                            "freq": "YS"}),
+            ("HEATING_DEGREE_DAYS", "tas", {"thresh": "17 degC",
+                                            "freq": "YS"}),
+            ("COOLING_DEGREE_DAYS", "tas", {"thresh": "18 degC",
+                                            "freq": "YS"}),
+            ("HEAT_WAVE_INDEX", "tasmax", {"freq": "YS"}),
+            ("CDD", "pr", {"freq": "YS"}),
+            ("PRCPTOT", "pr", {"freq": "YS"}))
+CH_VARS = ("tas", "tasmax", "tasmin", "pr")
+#: launches of each step on the card (one per kernel wrapper call): the
+#: sums and means through segred, the day counts and runs of a scalar
+#: threshold through spells; each indicator's missing-value mask counts
+#: its input's valid days in segred once
+CH_LAUNCHES = {"TG_MEAN": {"segred": 2},
+               "TX_DAYS_ABOVE": {"spells": 1, "segred": 1},
+               "FROST_DAYS": {"spells": 1, "segred": 1},
+               "ICE_DAYS": {"spells": 1, "segred": 1},
+               "GROWING_DEGREE_DAYS": {"segred": 2},
+               "HEATING_DEGREE_DAYS": {"segred": 2},
+               "COOLING_DEGREE_DAYS": {"segred": 2},
+               "HEAT_WAVE_INDEX": {"spells": 1, "segred": 1},
+               "CDD": {"spells": 1, "segred": 1},
+               "PRCPTOT": {"segred": 2}}
+
+
+def _chain_inputs(device, side):
+    """The chain's four inputs as bench.py's cfg_fused_chain builds them
+    (bench.py:556-563): tas N(285, 6), tasmax N(291, 6), tasmin N(279, 6)
+    K and pr |N(3e-5, 2e-5)| kg m-2 s-1, from seeds 20-23, CH_DAYS noleap
+    days from 2000-01-01, (time, side, side) float32 made on the card."""
+    import numpy as np
+    import torch
+
+    from xclim_tpu_torch.core.calendar import date_range
+    from xclim_tpu_torch.core.dataarray import ClimArray
+
+    t = date_range("2000-01-01", periods=CH_DAYS, freq="D", calendar="noleap")
+    coords = {"time": t, "lat": np.arange(side), "lon": np.arange(side)}
+    out = {}
+    for seed, (name, mu, sd, units) in zip(range(20, 24), (
+            ("tas", 285.0, 6.0, "K"), ("tasmax", 291.0, 6.0, "K"),
+            ("tasmin", 279.0, 6.0, "K"), ("pr", 3e-5, 2e-5, "kg m-2 s-1"))):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        data = torch.randn((CH_DAYS, side, side), generator=gen,
+                           device=device)
+        data.mul_(sd).add_(mu)
+        if name == "pr":
+            data.abs_()
+        out[name] = ClimArray(data, ("time", "lat", "lon"), coords,
+                              {"units": units}, name)
+    return out
+
+
+def _chain_steps(arrays):
+    """bench.py's make_step for each registry step (bench.py:580-587):
+    each takes the four inputs' tensors."""
+    import xclim_tpu_torch.indicators  # noqa: F401  (fills the registry)
+    from xclim_tpu_torch.core.indicator import registry
+
+    def make_step(key, var, kw):
+        def step(*data):
+            d = {}
+            for name, x in zip(CH_VARS, data):
+                a = arrays[name].copy(data=x)
+                a.attrs = dict(arrays[name].attrs)
+                a.name = name
+                d[name] = a
+            return registry[key](d[var], **kw)
+        return step
+
+    return [make_step(*s) for s in CH_STEPS]
+
+
+def _runs_per_year(cond, years):
+    """Per year and cell: the days in runs of at least 5 days and the
+    longest run of a (time, cells) bool condition, by a plain loop over
+    the 365 days of every year at once (runs end at the year's end)."""
+    import torch
+
+    c = cond.reshape(years, 365, -1)
+    run = torch.zeros(c.shape[0], c.shape[2], dtype=torch.int32,
+                      device=c.device)
+    longest = torch.zeros_like(run)
+    in_waves = torch.zeros_like(run)
+    for d in range(365):
+        run = torch.where(c[:, d], run + 1, 0)
+        longest = torch.maximum(longest, run)
+        ends = (~c[:, d + 1]) if d + 1 < 365 else torch.ones_like(c[:, d])
+        in_waves += torch.where(ends & (run >= 5), run, 0)
+    return in_waves, longest
+
+
+def _chain_plain(arrays):
+    """Each step's values by plain expressions on the card, independent of
+    the package (noleap years of 365 days, months of fixed lengths), sums
+    in float64: monthly means, the day counts, the degree-day sums, the
+    days in runs of at least 5 days above 25 degC, the longest run below 1
+    mm/day, the annual totals in mm."""
+    import numpy as np
+    import torch
+
+    years = CH_DAYS // 365
+    tas = arrays["tas"].data.reshape(CH_DAYS, -1)
+    tx = arrays["tasmax"].data.reshape(CH_DAYS, -1)
+    tn = arrays["tasmin"].data.reshape(CH_DAYS, -1)
+    pr = arrays["pr"].data.reshape(CH_DAYS, -1)
+    lengths = np.tile([31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31],
+                      years)
+    starts = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+    tg = torch.stack([tas[s:s + n].double().mean(0)
+                      for s, n in zip(starts, lengths)])
+
+    def per_year(x):
+        return x.reshape(years, 365, -1).sum(1)
+
+    waves, _ = _runs_per_year(tx > 298.15, years)
+    _, dry = _runs_per_year(pr < 1.0 / 86400.0, years)
+    # each day's term in float32 (as an index computes it), summed in
+    # float64
+    return {"TG_MEAN": tg,
+            "TX_DAYS_ABOVE": per_year((tx > 298.15).int()),
+            "FROST_DAYS": per_year((tn < 273.15).int()),
+            "ICE_DAYS": per_year((tx < 273.15).int()),
+            "GROWING_DEGREE_DAYS": per_year(
+                (tas - 277.15).clamp(min=0).double()),
+            "HEATING_DEGREE_DAYS": per_year(
+                (290.15 - tas).clamp(min=0).double()),
+            "COOLING_DEGREE_DAYS": per_year(
+                (tas - 291.15).clamp(min=0).double()),
+            "HEAT_WAVE_INDEX": waves,
+            "CDD": dry,
+            "PRCPTOT": per_year((pr * 86400.0).double())}
+
+
+#: the float steps' bound against their float64 expressions: the port
+#: rounds each day's term to float32 and the float64 sum once
+CH_FLOAT = {"TG_MEAN", "GROWING_DEGREE_DAYS", "HEATING_DEGREE_DAYS",
+            "COOLING_DEGREE_DAYS", "PRCPTOT"}
+
+
+def phase_chain(device, card, record):
+    """bench.py's fused 10-indicator chain (the CLI --fused path) at its
+    two rows, 320 x 320 and 100 x 100 cells x 10 noleap years: each step's
+    launches and twin calls, the whole chain's, values against plain
+    per-year expressions, indicator-cell-days/s (median of 3), TG_MEAN
+    alone and the marginal ms per indicator as bench.py:596-600 computes
+    them, peak memory, a profile, and segred and spells against their
+    twins at the chain's own inputs."""
+    import torch
+
+    from xclim_tpu_torch import climjit_chain
+    from xclim_tpu_torch.core.indicator import registry
+    from xclim_tpu_torch.ops import segred, spells
+
+    crop = None
+    for side in CH_SIDES:
+        arrays = _chain_inputs(device, side)
+        datas = [arrays[k].data for k in CH_VARS]
+        cells = side * side
+        nbytes = sum(d.numel() * 4 for d in datas)
+        steps = _chain_steps(arrays)
+        fused = climjit_chain(steps)
+        if fused.partition != [(0, len(CH_STEPS))]:
+            raise AssertionError(f"chain partition {fused.partition}")
+        plain = _chain_plain(arrays)
+        errs = {}
+        # each step once: counts from zero, read right after
+        for (key, var, kw), step in zip(CH_STEPS, steps):
+            _reset_counts()
+            out = step(*datas)
+            torch.cuda.synchronize()
+            counts = _counts()
+            want = dict({k: 0 for k in counts}, **CH_LAUNCHES[key])
+            if counts != want:
+                raise AssertionError(f"{key} at {side}^2: launch counts "
+                                     f"{counts}, expected {want}")
+            exp = plain[key]
+            if (tuple(out.shape) != (exp.shape[0], side, side)
+                    or out.data.dtype != torch.float32
+                    or out.data.device != device):
+                raise AssertionError(f"{key}: {tuple(out.shape)} "
+                                     f"{out.data.dtype} on {out.data.device}")
+            got = out.data.reshape(exp.shape)
+            if key in CH_FLOAT:
+                errs[key] = _compare(f"{key} at {side}^2 vs its per-year "
+                                     f"expression", got, exp, atol=0.0)
+            elif not torch.equal(got, exp.to(torch.float32)):
+                raise AssertionError(f"{key} at {side}^2 differs from its "
+                                     f"per-year expression")
+            else:
+                errs[key] = 0.0
+            _log(f"[chain] {key} at {side}^2: launches "
+                 f"{json.dumps({k: v for k, v in counts.items() if v})}, "
+                 f"twin calls 0; mean {float(out.data.double().mean()):.6g} "
+                 f"{out.attrs.get('units')!r}, agrees with its per-year "
+                 f"expression (max_abs_err {errs[key]:.3g})")
+            del out
+        del plain
+        # the whole chain: counts from zero, read right after
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _reset_counts()
+        outs = fused(*datas)
+        torch.cuda.synchronize()
+        counts = _counts()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        want = {k: 0 for k in counts}
+        for key, _, _ in CH_STEPS:
+            for k, v in CH_LAUNCHES[key].items():
+                want[k] += v
+        if counts != want or len(outs) != len(CH_STEPS):
+            raise AssertionError(f"chain at {side}^2: launch counts {counts}"
+                                 f", expected {want}")
+        name = f"fused chain {side}x{side}"
+        for k in ("segred", "spells"):
+            record[k]["paths"][name] = counts[k]
+        del outs
+        sec, runs = _timed(lambda: fused(*datas))
+        tas = arrays["tas"]
+        one, one_runs = _timed(lambda: registry["TG_MEAN"](tas, freq="MS"))
+        icd = 10 * CH_DAYS * cells / sec
+        _log(f"[chain] fused 10-indicator chain ({CH_DAYS}, {side}, {side}) "
+             f"on {card}: {sec:.6f} s (median of 3 after a warm-up; runs "
+             f"{[round(v, 6) for v in runs]}), {icd:.1f} "
+             f"indicator-cell-days/s; TG_MEAN alone {one * 1e3:.3f} ms "
+             f"(runs {[round(v * 1e3, 3) for v in one_runs]}), marginal "
+             f"{(sec - one) / 9 * 1e3:.3f} ms per indicator "
+             f"(bench.py:596-600); peak device memory above the inputs "
+             f"{peak:.3f} GiB (inputs {nbytes / 2**30:.3f} GiB); launches "
+             f"{json.dumps({k: v for k, v in counts.items() if v})}, twin "
+             f"calls 0; partition {fused.partition}")
+        if side != CH_SIDES[0]:
+            continue
+
+        _profile(f"fused 10-indicator chain ({CH_DAYS}, {side}, {side})",
+                 lambda: fused(*datas), card, top=12)
+        # segred and spells against their twins at the chain's own inputs
+        ys = arrays["tas"].resample("YS").spec
+        ms_spec = arrays["tas"].resample("MS").spec
+        x2 = arrays["tas"].data.reshape(CH_DAYS, -1)
+        p2 = arrays["pr"].data.reshape(CH_DAYS, -1)
+        cases = {
+            "segred mean MS (TG_MEAN's tas)": (
+                segred.segment_reduce_onepass, segred.segment_reduce_onepass_plain,
+                (x2, ms_spec.starts, ms_spec.counts, "mean")),
+            "segred sum YS (PRCPTOT's pr)": (
+                segred.segment_reduce_onepass, segred.segment_reduce_onepass_plain,
+                (p2, ys.starts, ys.counts, "sum")),
+        }
+        for label, (kern, twin, args) in cases.items():
+            err = _compare(f"{label} kernel vs twin", kern(*args),
+                           twin(*args), atol=0.0)
+            record["segred"]["max_abs_err"] = max(
+                record["segred"]["max_abs_err"], err)
+            ms = _cuda_ms(lambda: kern(*args), 10)
+            pms = _cuda_ms(lambda: twin(*args), 2)
+            b = _bound(args[0].numel() * 4
+                       + len(args[1]) * args[0].shape[1] * 8,
+                       args[0].numel())
+            _log(f"[kernel vs twin] {label} {tuple(args[0].shape)} on "
+                 f"{card}: max_abs_err={err} kernel_ms={ms:.4f} "
+                 f"twin_ms={pms:.4f} bound_ms={b['bound_ms']:.4f} "
+                 f"({b['bound_by']})")
+        dry = (p2 < 1.0 / 86400.0)
+        hot = (arrays["tasmax"].data.reshape(CH_DAYS, -1) > 298.15)
+        for label, cond, window in (("CDD's pr < 1 mm/day", dry, 1),
+                                    ("HEAT_WAVE_INDEX's tasmax > 25 degC",
+                                     hot, 5)):
+            got = spells.spell_stats(cond, ys.starts, ys.counts, window)
+            ref = spells.spell_stats_plain(cond, ys.starts, ys.counts, window)
+            err = max(_compare(f"spells {label} {k}", g, r, rtol=0.0,
+                               atol=0.0)
+                      for k, g, r in zip(("cnt", "wrc", "wre", "lng"), got,
+                                         ref))
+            del got, ref
+            record["spells"]["max_abs_err"] = max(
+                record["spells"]["max_abs_err"], err)
+            ms = _cuda_ms(lambda: spells.spell_stats(
+                cond, ys.starts, ys.counts, window), 10)
+            pms = _cuda_ms(lambda: spells.spell_stats_plain(
+                cond, ys.starts, ys.counts, window), 2)
+            b = _bound(cond.numel() + 4 * ys.nseg * cond.shape[1] * 4,
+                       cond.numel())
+            _log(f"[kernel vs twin] spells at {label} {tuple(cond.shape)} YS "
+                 f"window {window} on {card}: max_abs_err={err} "
+                 f"kernel_ms={ms:.4f} twin_ms={pms:.4f} "
+                 f"bound_ms={b['bound_ms']:.4f} ({b['bound_by']})")
+        del dry, hot, x2, p2
+        crop = {k: a.copy(data=a.data[:, :CH_CROP, :CH_CROP].contiguous())
+                for k, a in arrays.items()}
+        for k, a in crop.items():
+            a.coords = dict(a.coords, lat=a.coords["lat"][:CH_CROP],
+                            lon=a.coords["lon"][:CH_CROP])
+        del arrays, datas, fused, steps
+        torch.cuda.empty_cache()
+    return crop
+
+
+def phase_chain_cpu_vs_card(crop):
+    """The chain on a 32 x 32 crop: CPU tensors (the twins) against the
+    card (the kernels); counts and run lengths value-equal, sums within
+    RTOL, attrs equal but for the history line's timestamp."""
+    import torch
+
+    from xclim_tpu_torch import climjit_chain
+
+    cpu = {k: a.to("cpu") for k, a in crop.items()}
+    before = _counts()
+    out_c = climjit_chain(_chain_steps(cpu))(*[cpu[k].data for k in CH_VARS])
+    mid = _counts()
+    out_g = climjit_chain(_chain_steps(crop))(
+        *[crop[k].data for k in CH_VARS])
+    torch.cuda.synchronize()
+    after = _counts()
+    on_cpu = {k: mid[k] - before[k] for k in after}
+    on_card = {k: after[k] - mid[k] for k in after}
+    if (on_cpu["spells"] or on_cpu["segred"] or on_card["spells_twin"]
+            or on_card["segred_twin"] or not on_cpu["segred_twin"]
+            or not on_card["spells"]):
+        raise AssertionError(f"the CPU run must use the twins, the card the "
+                             f"kernels: {on_cpu} then {on_card}")
+    errs = {}
+    for (key, _, _), g, c in zip(CH_STEPS, out_g, out_c):
+        errs[key] = _compare(f"{key} cpu vs card", g.data, c.data,
+                             rtol=RTOL if key in CH_FLOAT else 0.0, atol=0.0)
+        ga = {k: v for k, v in g.attrs.items() if k != "history"}
+        ca = {k: v for k, v in c.attrs.items() if k != "history"}
+        if ga != ca or g.dims != c.dims:
+            raise AssertionError(f"{key}: attrs differ: {ga} vs {ca}")
+    _log(f"[cpu twins vs card kernels] fused chain on {CH_CROP}x{CH_CROP} "
+         f"cells x {CH_DAYS} days: max_abs_err {json.dumps(errs)} (counts "
+         f"and runs value-equal, sums within rtol {RTOL}); twins on the CPU "
+         f"{json.dumps({k: v for k, v in on_cpu.items() if v})}, kernels on "
+         f"the card {json.dumps({k: v for k, v in on_card.items() if v})}")
+
+
+BR_SIDE = 128         # 128 x 128 cells: the breadth phase's grid
+BR_YEARS = 30
+BR_CROP = 8           # side of the crop held against the CPU runs
+BR_HOURLY_CELLS = 16384
+BR_HOURLY_CROP = 256  # cells of the hourly crop held against the CPU run
+BR_HOURS = 8760       # one noleap year of hours
+BR_JET_LATS = 64
+#: call -> (rtol, atol) for the card against the CPU run on the crop:
+#: float32 exp, log, pow and tanh round an ulp another way on the card, so
+#: the physics holds to 1e-5 relative (an exponent of ~20 that cancels:
+#: tests/test_torch_converters.py); day counts, zones, doys and the
+#: threshold phase split are exact, sums 1e-6; the standardized indices
+#: to stats.standardized_index's bounds (tests/test_torch_stats.py: the
+#: closed-form fits cancel to ~4e-4 of a parameter, igamma and ndtri differ
+#: by ulps: 1e-3)
+BR_TOL = {"exact": (0.0, 0.0), "sum": (RTOL, 0.0), "phys": (1e-5, 1e-6),
+          "pet": (1e-5, 3e-10), "ratio": (0.0, 1e-6), "si": (0.0, 1e-3)}
+#: the classes whose values may pass their bound in a small share: a
+#: standardized index (a fit whose closed form cancels): (share, largest
+#: difference). The chill portions are held to a float64 replay instead
+#: (_chill_check).
+FLIP = {"si": (0.01, 0.05)}
+
+
+def _breadth_inputs(device):
+    """Daily inputs at 128 x 128 cells x 30 noleap years with a lat
+    coordinate (-60..60): pr with 45-55 % dry days (exponential wet days of
+    mean 4 mm/d), tas/tasmin/tasmax with a seasonal cycle, hurs, sfcWind
+    and the four radiation terms, each (10950, 128, 128) float32 made on
+    the card from one seeded generator."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from xclim_tpu_torch.core.calendar import date_range
+    from xclim_tpu_torch.core.dataarray import ClimArray
+
+    t = date_range("1981-01-01", periods=BR_YEARS * 365, freq="D",
+                   calendar="noleap")
+    lat = np.linspace(-60.0, 60.0, BR_SIDE)
+    coords = {"time": t, "lat": lat, "lon": np.arange(float(BR_SIDE))}
+    shape = (len(t), BR_SIDE, BR_SIDE)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 9)
+    doy = torch.arange(len(t), device=device) % 365
+    season = torch.cos(2 * math.pi * (doy - 200) / 365.0).reshape(-1, 1, 1)
+    north = torch.as_tensor(np.sign(lat), dtype=torch.float32,
+                            device=device).reshape(1, -1, 1)
+
+    def normal(mu, sd, seas=0.0):
+        x = torch.randn(shape, generator=gen, device=device).mul_(sd)
+        return x.add_(mu + seas * season * north)
+
+    dry = 0.45 + 0.1 * torch.rand((1, BR_SIDE, BR_SIDE), generator=gen,
+                                  device=device)
+    u = torch.rand(shape, generator=gen, device=device)
+    w = torch.rand(shape, generator=gen, device=device)
+    pr = torch.where(u < dry, 0.0, -4.0 / 86400.0 * torch.log1p(-w))
+    del u, w
+    tas = normal(283.0, 3.0, 10.0)
+    spec = {
+        "pr": (pr, "kg m-2 s-1", "precipitation_flux", None),
+        "tas": (tas, "K", "air_temperature", "time: mean"),
+        "tasmin": (tas - 6.0 + normal(0.0, 1.0), "K", "air_temperature",
+                   "time: minimum"),
+        "tasmax": (tas + 6.0 + normal(0.0, 1.0), "K", "air_temperature",
+                   "time: maximum"),
+        "hurs": (normal(70.0, 12.0).clamp_(5.0, 100.0), "%",
+                 "relative_humidity", None),
+        "sfcWind": (normal(4.0, 2.0).abs_(), "m s-1", "wind_speed", None),
+        "rsds": (normal(180.0, 60.0, 80.0).clamp_(min=0.0), "W m-2",
+                 "surface_downwelling_shortwave_flux_in_air", None),
+        "rsus": (normal(35.0, 8.0).clamp_(min=0.0), "W m-2",
+                 "surface_upwelling_shortwave_flux_in_air", None),
+        "rlds": (normal(300.0, 25.0), "W m-2",
+                 "surface_downwelling_longwave_flux_in_air", None),
+        "rlus": (normal(380.0, 25.0), "W m-2",
+                 "surface_upwelling_longwave_flux_in_air", None),
+    }
+    out = {}
+    for name, (data, units, sn, cm) in spec.items():
+        attrs = {"units": units, "standard_name": sn}
+        if cm:
+            attrs["cell_methods"] = cm
+        out[name] = ClimArray(data, ("time", "lat", "lon"), coords, attrs,
+                              name)
+    return out
+
+
+def _breadth_calls(a):
+    """name -> (tolerance class, call) of each new index module's public
+    functions on the inputs `a`."""
+    from xclim_tpu_torch import indices
+    from xclim_tpu_torch.indicators import atmos
+
+    pet = indices.potential_evapotranspiration(
+        tasmin=a["tasmin"], tasmax=a["tasmax"], method="HG85")
+    wb = indices.water_budget(a["pr"], evspsblpot=pet)
+    # gamma's and fisk's fits are one closed form for ML and APP alike
+    # (indices/stats.py _fit_gamma, _fit_fisk): each pair does the same work
+    calls = {
+        "spi-3 gamma ML (APP's closed form)": ("si", lambda: indices.standardized_precipitation_index(
+            a["pr"], freq="MS", window=3, dist="gamma", method="ML")),
+        "spi-3 gamma APP": ("si", lambda: indices.standardized_precipitation_index(
+            a["pr"], freq="MS", window=3, dist="gamma", method="APP")),
+        "spei-3 fisk ML (PWM, as APP)": ("si", lambda:
+                           indices.standardized_precipitation_evapotranspiration_index(
+                               wb, freq="MS", window=3, dist="fisk", method="ML")),
+        "spei-3 fisk APP (PWM)": ("si", lambda:
+                            indices.standardized_precipitation_evapotranspiration_index(
+                                wb, freq="MS", window=3, dist="fisk", method="APP")),
+        # the default 20-day dry end is almost never met at ~50 % dry days
+        "rain_season": ("exact", lambda: indices.rain_season(
+            a["pr"], thresh_dry_end="1 mm", window_dry_end=5)),
+        "dryness_index": ("sum", lambda: indices.dryness_index(a["pr"], pet)),
+        "tg_mean_warmcold_quarter": ("sum", lambda:
+                                     indices.tg_mean_warmcold_quarter(a["tas"])),
+        "tg_mean_wetdry_quarter": ("sum", lambda:
+                                   indices.tg_mean_wetdry_quarter(a["tas"], a["pr"])),
+        "prcptot_wetdry_quarter": ("sum", lambda:
+                                   indices.prcptot_wetdry_quarter(a["pr"])),
+        "prcptot_warmcold_quarter": ("sum", lambda: indices.prcptot_warmcold_quarter(
+            a["pr"], a["tas"], op="coldest")),
+        "aridity_index": ("sum", lambda: indices.aridity_index(a["pr"], pet)),
+        "antecedent_precipitation_index": ("sum", lambda:
+                                           indices.antecedent_precipitation_index(a["pr"])),
+        "utci (mrt from the radiation terms)": ("phys", lambda:
+            indices.universal_thermal_climate_index(
+                a["tas"], a["hurs"], a["sfcWind"], rsds=a["rsds"],
+                rsus=a["rsus"], rlds=a["rlds"], rlus=a["rlus"])),
+        "liquid_precip_ratio without prsn": ("ratio", lambda:
+                                             indices.liquid_precip_ratio(
+                                                 a["pr"], tas=a["tas"])),
+        "precip_accumulation liquid": ("sum", lambda: indices.precip_accumulation(
+            a["pr"], tas=a["tas"], phase="liquid")),
+        "precip_average solid": ("sum", lambda: indices.precip_average(
+            a["pr"], tas=a["tas"], phase="solid")),
+        "atmos.huglin_index": ("sum", lambda: atmos.huglin_index(a["tas"],
+                                                                 a["tasmax"])),
+        "atmos.biologically_effective_degree_days": ("sum", lambda:
+            atmos.biologically_effective_degree_days(a["tasmin"], a["tasmax"])),
+        "atmos.latitude_temperature_index": ("sum", lambda:
+            atmos.latitude_temperature_index(a["tas"])),
+        "atmos.usda_hardiness_zones": ("exact", lambda:
+                                       atmos.usda_hardiness_zones(a["tasmin"])),
+        "atmos.australian_hardiness_zones": ("exact", lambda:
+            atmos.australian_hardiness_zones(a["tasmin"])),
+        "atmos.cool_night_index": ("sum", lambda:
+                                   atmos.cool_night_index(a["tasmin"])),
+        "atmos.corn_heat_units": ("sum", lambda: atmos.corn_heat_units(
+            a["tasmin"], a["tasmax"])),
+        "atmos.effective_growing_degree_days": ("sum", lambda:
+            atmos.effective_growing_degree_days(a["tasmax"], a["tasmin"])),
+    }
+    for method in ("BR65", "HG85", "DA02", "MB05", "TW48", "FAO_PM98"):
+        calls[f"pet {method}"] = ("pet", lambda m=method:
+                                  indices.potential_evapotranspiration(
+                                      tasmin=a["tasmin"], tasmax=a["tasmax"],
+                                      tas=a["tas"], hurs=a["hurs"],
+                                      rsds=a["rsds"], rsus=a["rsus"],
+                                      rlds=a["rlds"], rlus=a["rlus"],
+                                      sfcWind=a["sfcWind"], pr=a["pr"],
+                                      method=m))
+    return calls
+
+
+def _hourly_inputs(device, cells, hours):
+    """One noleap year of hourly tas (a diurnal and a seasonal cycle around
+    5 degC) and pr (70 % dry hours) at `cells` cells."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from xclim_tpu_torch.core.calendar import date_range
+    from xclim_tpu_torch.core.dataarray import ClimArray
+
+    t = date_range("2000-07-01", periods=hours, freq="h", calendar="noleap")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 10)
+    h = torch.arange(hours, device=device, dtype=torch.float32)
+    cyc = (278.15 + 8.0 * torch.cos(2 * math.pi * h / 8760.0)
+           + 4.0 * torch.sin(2 * math.pi * h / 24.0)).reshape(-1, 1)
+    tas = cyc + 2.0 * torch.randn((hours, cells), generator=gen,
+                                  device=device)
+    u = torch.rand((hours, cells), generator=gen, device=device)
+    pr = torch.where(u < 0.7, 0.0,
+                     2e-4 * torch.rand((hours, cells), generator=gen,
+                                       device=device))
+    coords = {"time": t, "cell": np.arange(cells)}
+    return (ClimArray(tas, ("time", "cell"), coords,
+                      {"units": "K", "standard_name": "air_temperature"},
+                      "tas"),
+            ClimArray(pr, ("time", "cell"), coords,
+                      {"units": "kg m-2 s-1",
+                       "standard_name": "precipitation_flux"}, "pr"))
+
+
+def _chill_check(tas_h, tas_c, got, want, card):
+    """atmos.cp's chill portions on the hourly crop, on the card and on the
+    CPU, each held to a float64 replay that follows its own banking
+    decisions (xclim_tpu_torch.testing.check_chill_portions: a decision
+    that differs from float64's only within 1e-5 of E = 1, period sums
+    within 1e-5 relative); the main path's crop equal to the crop's own
+    run on the card; and, for each cell where the two devices' sums
+    differ, E on both devices and in a float64 run of its own at their
+    first differing decision."""
+    import torch
+
+    from xclim_tpu_torch.testing import check_chill_portions, chill_replay
+
+    crop = tas_h.isel(cell=slice(0, BR_HOURLY_CROP))
+    g, rg = check_chill_portions(crop)
+    c, rc = check_chill_portions(tas_c)
+    _compare("atmos.cp main path vs the crop's run on the card", got,
+             g.data.cpu(), rtol=RTOL, atol=0.0)
+    g, c = g.data.cpu(), c.data.cpu()
+    for dev, r in (("card", rg), ("cpu", rc)):
+        _log(f"[breadth] atmos.cp on the {dev}: {r['flips']} hourly "
+             f"decisions differ from float64's own, all within "
+             f"{r['flip_gap']:.3g} of E = 1; period sums within "
+             f"{r['max_rel_err']:.3g} relative ({r['max_abs_err']:.3g} abs) "
+             f"of the float64 replay under the {dev}'s decisions")
+    far = ((g - c).abs() > 1e-6 + 1e-5 * c.abs()).nonzero().tolist()
+    if far:
+        E_free, xi, d_free = chill_replay(tas_c.data)
+        spec = tas_c.segments("YS")
+        for p, cell in far[:5]:
+            lo = int(spec.starts[p])
+            hi = lo + int(spec.counts[p])
+            differ = (rg["bank"][lo:hi, cell]
+                      != rc["bank"][lo:hi, cell]).nonzero()
+            h = lo + int(differ[0]) if len(differ) else None
+            at = ("no decision differs" if h is None else
+                  f"first differing decision at hour {h}: E card "
+                  f"{float(rg['E'][h, cell]):.9f}, cpu "
+                  f"{float(rc['E'][h, cell]):.9f}, float64 "
+                  f"{float(E_free[h, cell]):.9f}, xi {float(xi[h, cell]):.6g}")
+            _log(f"[breadth] atmos.cp period {p} cell {cell}: card "
+                 f"{float(g[p, cell]):.7f}, cpu {float(c[p, cell]):.7f}, "
+                 f"float64 {float(d_free[lo:hi, cell].sum()):.7f} "
+                 f"(float64 under the card's decisions "
+                 f"{float(rg['replay'][p, cell]):.7f}, under the cpu's "
+                 f"{float(rc['replay'][p, cell]):.7f}); {at}")
+    _log(f"[breadth] atmos.cp card vs cpu on {card}: {len(far)} of "
+         f"{c.numel()} period sums differ beyond rtol 1e-5, max "
+         f"{float((g - c).abs().max()):.3g}")
+    return [float((g - c).abs().max())]
+
+
+def _breadth_check(name, tol, got, want):
+    """Card outputs (cropped) against the CPU run's; every output has a
+    finite value. A FLIP class: the same NaN pattern, under its share of
+    the values beyond its bound and none beyond its largest difference."""
+    import torch
+
+    rtol, atol = BR_TOL[tol]
+    errs = []
+    for i, (g, c) in enumerate(zip(got, want)):
+        g, c = g.float().cpu(), c.float().cpu()
+        if not bool(torch.isfinite(g).any()):
+            raise AssertionError(f"{name} [{i}]: no finite value")
+        if tol not in FLIP:
+            errs.append(_compare(f"{name} [{i}] cpu vs card", g, c,
+                                 rtol=rtol, atol=atol))
+            continue
+        if not torch.equal(torch.isnan(g), torch.isnan(c)):
+            raise AssertionError(f"{name} [{i}]: NaN patterns differ")
+        ok = ~torch.isnan(c)
+        e = (g - c).abs()[ok]
+        share = float((e > atol + rtol * c[ok].abs()).double().mean())
+        most, largest = FLIP[tol]
+        if share >= most or float(e.max()) > largest:
+            raise AssertionError(f"{name} [{i}] cpu vs card: {share:.4f} of "
+                                 f"values beyond rtol {rtol} atol {atol}, "
+                                 f"max {float(e.max())}")
+        errs.append(float(e.max()))
+    return errs
+
+
+def phase_index_breadth(device, card, record):
+    """Each new index module once at a size users run, against its CPU run
+    on a crop: daily inputs at 128 x 128 cells x 30 noleap years (SPI-3 and
+    SPEI-3, rain_season, dryness_index, the ANUCLIM quarters,
+    aridity_index, antecedent_precipitation_index, every PET method, UTCI
+    with MRT, the ten temperature indicators' daily members and the three
+    converter branches of _multivariate); cp/cu and max_pr_intensity on
+    one year of hourly data at 16384 cells (the chill scan's seconds and
+    kernel launches); jetstream_metric_woollings on 30 years x 64
+    latitudes."""
+    import numpy as np
+    import torch
+
+    from xclim_tpu_torch import indices
+    from xclim_tpu_torch.core.calendar import date_range
+    from xclim_tpu_torch.core.dataarray import ClimArray
+    from xclim_tpu_torch.indicators import atmos
+
+    a = _breadth_inputs(device)
+    each = a["pr"].data.numel() * 4
+    _log(f"[breadth] inputs ({BR_YEARS * 365}, {BR_SIDE}, {BR_SIDE}) float32"
+         f", {each / 1e9:.3f} GB each, {len(a)} variables")
+    crop = {k: v.copy(data=v.data[:, :BR_CROP, :BR_CROP].contiguous())
+            for k, v in a.items()}
+    for v in crop.values():
+        v.coords = dict(v.coords, lat=v.coords["lat"][:BR_CROP],
+                        lon=v.coords["lon"][:BR_CROP])
+    cpu = {k: v.to("cpu") for k, v in crop.items()}
+    calls = _breadth_calls(a)
+    calls_c = _breadth_calls(cpu)
+    total = 0.0
+    for name, (tol, fn) in calls.items():
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        counts = {k: v for k, v in _counts().items() if v}
+        if any(k.endswith("_twin") for k in counts):
+            raise AssertionError(f"{name} on the card called a twin: {counts}")
+        for k, v in counts.items():
+            if k in record:
+                record[k]["paths"][f"breadth {name}"] = v
+        out = out if isinstance(out, tuple) else (out,)
+        got = [o.data[..., :BR_CROP, :BR_CROP].cpu() for o in out]
+        shapes = [tuple(o.shape) for o in out]
+        del out
+        sec, runs = _timed(fn)
+        total += sec
+        want = calls_c[name][1]()
+        want = [w.data for w in (want if isinstance(want, tuple) else (want,))]
+        errs = _breadth_check(name, tol, got, want)
+        _log(f"[breadth] {name} {shapes} on {card}: {sec:.4f} s (median of 3 "
+             f"after a warm-up; runs {[round(v, 4) for v in runs]}; first "
+             f"call {first:.4f} s); "
+             f"launches {json.dumps(counts)}; {BR_CROP}x{BR_CROP} crop: CPU "
+             f"run max_abs_err {[float(f'{e:.3g}') for e in errs]} "
+             f"({tol}: rtol {BR_TOL[tol][0]}, atol {BR_TOL[tol][1]})")
+    _log(f"[breadth] the daily calls: {total:.3f} s in all (medians)")
+    del a, calls, crop, cpu, calls_c
+    torch.cuda.empty_cache()
+
+    # hourly: the chill models and max_pr_intensity
+    tas_h, pr_h = _hourly_inputs(device, BR_HOURLY_CELLS, BR_HOURS)
+    tas_c, pr_c = (x.isel(cell=slice(0, BR_HOURLY_CROP)).to("cpu")
+                   for x in (tas_h, pr_h))
+    for name, tol, fn in (
+            ("atmos.cp", "scan", lambda t, p: atmos.cp(t)),
+            ("atmos.cu", "exact", lambda t, p: atmos.cu(t)),
+            ("atmos.max_pr_intensity", "sum",
+             lambda t, p: atmos.max_pr_intensity(p, window=3, freq="MS"))):
+        out = fn(tas_h, pr_h)
+        got = out.data[:, :BR_HOURLY_CROP].cpu()
+        del out
+        sec, runs = _timed(lambda: fn(tas_h, pr_h))
+        launches, kms = _profile(f"[breadth] {name}",
+                                 lambda: fn(tas_h, pr_h), card, top=3)
+        want = fn(tas_c, pr_c)
+        if tol == "scan":
+            errs = _chill_check(tas_h, tas_c, got, want.data, card)
+        else:
+            errs = _breadth_check(name, tol, [got], [want.data])
+        _log(f"[breadth] {name} ({BR_HOURS} h, {BR_HOURLY_CELLS} cells, "
+             f"{tas_h.data.numel() * 4 / 1e9:.3f} GB) on {card}: {sec:.4f} s "
+             f"(median of 3 after a warm-up; runs "
+             f"{[round(v, 4) for v in runs]}), {launches} kernel launches, "
+             f"{kms:.3f} ms of kernel time (torch.profiler); "
+             f"{BR_HOURLY_CROP}-cell CPU run max_abs_err "
+             f"{[float(f'{e:.3g}') for e in errs]}")
+    del tas_h, pr_h
+    torch.cuda.empty_cache()
+
+    # the jet stream: 30 years x 64 latitudes
+    n = BR_YEARS * 365
+    lats = np.linspace(20.0, 80.0, BR_JET_LATS)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 11)
+    jet = torch.as_tensor(20 * np.exp(-((lats - 45) / 10) ** 2),
+                          dtype=torch.float32, device=device)
+    u = jet + torch.randn((n, BR_JET_LATS), generator=gen, device=device)
+    u[500:503] = torch.nan
+    t = date_range("1981-01-01", periods=n, freq="D", calendar="noleap")
+    ua = ClimArray(u, ("time", "lat"), {"time": t, "lat": lats},
+                   {"units": "m s-1"}, "ua")
+    lat_out, strength = indices.jetstream_metric_woollings(ua)
+    sec, runs = _timed(lambda: indices.jetstream_metric_woollings(ua))
+    want = indices.jetstream_metric_woollings(ua.to("cpu"))
+    errs = _breadth_check("jetstream_metric_woollings", "phys",
+                          [lat_out.data.cpu(), strength.data.cpu()],
+                          [w.data for w in want])
+    mean_lat = float(torch.nanmean(lat_out.data))
+    if abs(mean_lat - 45.0) > 3.0:
+        raise AssertionError(f"jet latitude {mean_lat}, expected ~45")
+    _log(f"[breadth] jetstream_metric_woollings ({n}, {BR_JET_LATS}) on "
+         f"{card}: {sec:.4f} s (median of 3 after a warm-up; runs "
+         f"{[round(v, 4) for v in runs]}); CPU run max_abs_err {errs}; mean "
+         f"jet latitude {mean_lat:.2f} (planted at 45)")
+
+
 def main() -> int:
     import torch
 
@@ -2729,6 +3499,12 @@ def main() -> int:
     run(phase_dqm_cpu_vs_card, dqm_series)
     run(phase_sdba_rest, device, card, dqm_series, dqm_scen, record)
     del dqm_series, dqm_scen
+    torch.cuda.empty_cache()
+    crop = run(phase_chain, device, card, record)
+    run(phase_chain_cpu_vs_card, crop)
+    del crop
+    torch.cuda.empty_cache()
+    run(phase_index_breadth, device, card, record)
     _log(f"[wall] chip_smoke total: {time.perf_counter() - start:.1f} s")
 
     _log(json.dumps({"kernels": list(record.values())}))

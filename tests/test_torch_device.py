@@ -168,3 +168,109 @@ def test_rest_of_sdba_and_stats_on_cpu_tensors(no_default, tmp_path):
     assert all(o.device.type == "cpu" for o in outs)
     with pytest.raises(AssertionError, match="default_device"):
         sdba.DetrendedQuantileMapping.load(tmp_path / "dqm.npz")
+
+
+def _with_lat(da, units, name, standard_name=None):
+    """da's data as another variable on a (time, lat) grid."""
+    attrs = {"units": units}
+    if standard_name:
+        attrs["standard_name"] = standard_name
+    return ClimArray(da.data, ("time", "lat"),
+                     {"time": da.time, "lat": np.array([10.0, 45.0, -40.0])},
+                     attrs, name)
+
+
+def test_index_breadth_on_cpu_tensors(no_default):
+    """converters, helpers, _agro, _anuclim, _hydrology and _synoptic on
+    CPU tensors: the solar helpers take the data's device, the chill scan
+    keeps its carry there."""
+    from xclim_tpu_torch import indices
+    from xclim_tpu_torch.indices import helpers
+
+    tas = _with_lat(_series("tas", 285.0, 40), "K", "tas", "air_temperature")
+    tasmin = _with_lat(_series("tasmin", 279.0, 41), "K", "tasmin")
+    tasmax = _with_lat(_series("tasmax", 291.0, 42), "K", "tasmax")
+    rad = {n: _with_lat(_series(n, mu, s).copy(
+        data=torch.nan_to_num(_series(n, mu, s).data.abs(), nan=mu)),
+        "W m-2", n) for n, mu, s in (("rsds", 200.0, 43), ("rsus", 40.0, 44),
+                                     ("rlds", 300.0, 45), ("rlus", 380.0, 46))}
+    hurs = _with_lat(_series("hurs", 70.0, 47), "%", "hurs")
+    wind = _with_lat(_series("sfcWind", 5.0, 48).copy(
+        data=_series("sfcWind", 5.0, 48).data.abs()), "m s-1", "sfcWind")
+    pr = _with_lat((_series("pr", 0.0, 49) * 1e-5).copy(
+        data=(_series("pr", 0.0, 49).data * 1e-5).clamp(min=0)),
+        "kg m-2 s-1", "pr", "precipitation_flux")
+    outs = [indices.potential_evapotranspiration(
+        tasmin=tasmin, tasmax=tasmax, tas=tas, hurs=hurs, sfcWind=wind, pr=pr,
+        method=m, **rad) for m in ("BR65", "HG85", "DA02", "MB05", "TW48",
+                                   "FAO_PM98")]
+    outs += [indices.universal_thermal_climate_index(tas, hurs, wind, **rad),
+             indices.clearness_index(rad["rsds"]),
+             indices.rain_approximation(pr, tas, method="dai_seasonal"),
+             indices.precip_accumulation(pr, tas=tas, phase="solid"),
+             indices.liquid_precip_ratio(pr, tas=tas),
+             indices.huglin_index(tas, tasmax),
+             indices.biologically_effective_degree_days(tasmin, tasmax),
+             indices.cool_night_index(tasmin),
+             indices.dryness_index(pr, pr.copy(data=pr.data * 0.5)),
+             indices.effective_growing_degree_days(tasmax, tasmin),
+             indices.hardiness_zones(tasmin, window=2),
+             indices.prcptot_wetdry_quarter(pr),
+             indices.tg_mean_wetdry_quarter(tas, pr),
+             indices.antecedent_precipitation_index(pr),
+             indices.sen_slope(ClimArray(tas.data, tas.dims,
+                                         dict(tas.coords),
+                                         {"units": "m3 s-1"}, "q"))[0],
+             helpers.make_hourly_temperature(tasmin, tasmax),
+             helpers.jones_day_length_latitude_coefficient(
+                 tas.time, np.array([45.0]), device="cpu")]
+    outs += list(indices.rain_season(pr))
+    hourly = helpers.make_hourly_temperature(tasmin.isel(time=slice(0, 60)),
+                                             tasmax.isel(time=slice(0, 60)))
+    outs += [indices.chill_portions(hourly), indices.chill_units(hourly)]
+    ua = ClimArray(tas.data, tas.dims, dict(tas.coords), {"units": "m s-1"},
+                   "ua")
+    outs += list(indices.jetstream_metric_woollings(ua))
+    assert all(o.device.type == "cpu" for o in outs)
+    with pytest.raises(AssertionError, match="default_device"):
+        helpers.day_lengths(tas.time, np.array([45.0]))
+
+
+def test_precip_convert_indicators_and_chain_on_cpu_tensors(no_default):
+    from xclim_tpu_torch import climjit_chain
+    from xclim_tpu_torch.core.indicator import registry
+    from xclim_tpu_torch.indicators import atmos, convert
+
+    tas = _series("tas", 285.0, 50)
+    pr = _series("pr", 0.0, 51)
+    pr = ClimArray((pr.data * 1e-5).clamp(min=0), pr.dims, dict(pr.coords),
+                   {"units": "kg m-2 s-1",
+                    "standard_name": "precipitation_flux"}, "pr")
+    ws = ClimArray(tas.data * 0 + 5.0, tas.dims, dict(tas.coords),
+                   {"units": "m s-1", "standard_name": "wind_speed"},
+                   "sfcWind")
+    outs = [atmos.cdd(pr), atmos.precip_accumulation(pr),
+            atmos.liquid_precip_accumulation(pr, tas=tas),
+            atmos.wet_spell_max_length(pr), atmos.windy_days(ws),
+            atmos.rain_season(pr)[0], convert.rain_approximation(pr, tas),
+            convert.wind_chill_index(tas, ws)]
+    steps = [lambda t, p, k=k, v=v: registry[k](t if v == "tas" else p)
+             for k, v in (("TG_MEAN", "tas"), ("CDD", "pr"),
+                          ("PRCPTOT", "pr"))]
+    outs += list(climjit_chain(steps)(tas, pr))
+    assert all(o.device.type == "cpu" for o in outs)
+
+
+def test_fao_allen98_host_arrays_take_the_default_device(no_default):
+    """With no tensor among its inputs fao_allen98 asks default_device();
+    given a CPU tensor it stays on the CPU."""
+    from xclim_tpu_torch.indices import converters
+
+    rng = np.random.default_rng(52)
+    rn, t, w, es, ea = (rng.uniform(lo, hi, 4).astype(np.float32)
+                        for lo, hi in ((5, 20), (5, 30), (0.5, 6),
+                                       (1.5, 4.0), (0.5, 1.5)))
+    with pytest.raises(AssertionError, match="default_device"):
+        converters.fao_allen98(rn, t, w, es, ea, 0.1, 0.066)
+    assert converters.fao_allen98(torch.as_tensor(rn), t, w, es, ea, 0.1,
+                                  0.066).device.type == "cpu"

@@ -367,14 +367,24 @@ def test_precip_over_percentile(fn):
          ulp=0 if fn.startswith("days") else 2 * SUM_ULP)
 
 
-@pytest.mark.parametrize("fn,kw", [
-    ("liquid_precip_ratio", {"tas": True}),
-    ("precip_accumulation", {"tas": True, "phase": "liquid"}),
-    ("precip_average", {"tas": True, "phase": "solid"}),
+#: (tot - snow) / tot cancels where little rain falls: the error of either
+#: sum is relative to tot, so the ratio is held absolutely, at twice the
+#: sums' ulps of 1
+RATIO_ATOL = 2 * SUM_ULP * float(np.finfo(np.float32).eps)
+
+
+@pytest.mark.parametrize("fn,kw,ulp,atol", [
+    ("liquid_precip_ratio", {"freq": "QS-DEC"}, 0, RATIO_ATOL),
+    ("liquid_precip_ratio", {"thresh": "5 degC", "freq": "YS"}, 0,
+     RATIO_ATOL),
+    ("precip_accumulation", {"phase": "liquid"}, SUM_ULP, None),
+    ("precip_accumulation", {"phase": "solid", "thresh": "2 degC"}, SUM_ULP,
+     None),
+    ("precip_average", {"phase": "liquid", "freq": "MS"}, SUM_ULP, None),
+    ("precip_average", {"phase": "solid"}, SUM_ULP, None),
 ])
-def test_converter_branches_raise(fn, kw):
-    p, _ = pair("pr", seed=33)
-    t, _ = pair("tas", seed=34)
-    kw = dict(kw, tas=t)
-    with pytest.raises(NotImplementedError, match="converters.py"):
-        getattr(multivariate, fn)(p, **kw)
+def test_converter_branches(fn, kw, ulp, atol):
+    """liquid_precip_ratio without prsn, and the phase of
+    precip_accumulation / precip_average: the binary phase split of
+    indices/converters.py, then the period sums."""
+    both(fn, {"pr": "pr", "tas": "tas"}, kw, ulp, atol=atol, seed=33)

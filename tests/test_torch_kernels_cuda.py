@@ -19,6 +19,7 @@ from xclim_tpu_torch.ops import (
 )
 from xclim_tpu_torch.ops.quantile import nan_quantile
 from xclim_tpu_torch.sdba.utils import equally_spaced_nodes
+from xclim_tpu_torch.testing import check_chill_portions
 
 # the string condition is evaluated when each test is set up, not when the
 # module is imported, so every worker collects the same tests
@@ -770,3 +771,127 @@ def test_threshold_indicators_on_the_card(cuda):
     _card_vs_cpu(atmos.maximum_consecutive_frost_days, tn, thresh="12 degC")
     _card_vs_cpu(atmos.growing_season_length, tn)
     _card_vs_cpu(atmos.frost_free_season_start, tn, thresh="12 degC")
+
+
+def _card_vs_cpu_close(fn, *arrays, rtol=1e-6, atol=0.0, **kw):
+    """fn on the card and on CPU copies: the same NaN pattern, values
+    within rtol (a float32 transcendental on the card may round one ulp
+    another way than on the CPU), no twin called on the card."""
+    before = {m: m.twin_calls for m in (spells, segred)}
+    got = fn(*arrays, **kw)
+    torch.cuda.synchronize()
+    assert all(m.twin_calls == before[m] for m in (spells, segred))
+    exp = fn(*(a.to("cpu") for a in arrays), **kw)
+    got = got if isinstance(got, tuple) else (got,)
+    exp = exp if isinstance(exp, tuple) else (exp,)
+    for g, e in zip(got, exp):
+        assert g.data.device.type == "cuda" and g.dims == e.dims
+        gn, en = g.data.cpu().numpy(), e.data.numpy()
+        np.testing.assert_array_equal(np.isnan(gn), np.isnan(en))
+        np.testing.assert_allclose(gn, en, rtol=rtol, atol=atol,
+                                   equal_nan=True)
+    return got
+
+
+def _precip(device, seed):
+    from xclim_tpu_torch.core.dataarray import ClimArray
+
+    t = date_range("2001-01-01", periods=1460, calendar="noleap")
+    rng = np.random.default_rng(seed)
+    x = np.abs(rng.normal(3e-5, 3e-5, (len(t), 16, 33))).astype(np.float32)
+    x[rng.random(x.shape) < 0.5] = 0.0
+    x[rng.random(x.shape) < 0.01] = np.nan
+    return ClimArray(torch.as_tensor(x, device=device), ("time", "lat", "lon"),
+                     {"time": t, "lat": np.linspace(-60, 60, 16)},
+                     {"units": "kg m-2 s-1",
+                      "standard_name": "precipitation_flux"}, "pr")
+
+
+def test_fused_chain_on_the_card(cuda):
+    """bench.py's 10-indicator chain through the registry on the card:
+    segred and spells launched, no twin, outputs equal to the CPU run's
+    (counts and run lengths value-equal, sums within 1e-6)."""
+    from xclim_tpu_torch import climjit_chain
+    from xclim_tpu_torch.core.indicator import registry
+
+    arrays = {"tas": _temps(cuda, "noleap", 6, 285.0),
+              "tasmax": _temps(cuda, "noleap", 7, 291.0),
+              "tasmin": _temps(cuda, "noleap", 8, 279.0),
+              "pr": _precip(cuda, 9)}
+    for k, cm in (("tas", "mean"), ("tasmax", "maximum"),
+                  ("tasmin", "minimum")):
+        arrays[k].name = k
+        arrays[k].attrs.update(standard_name="air_temperature",
+                               cell_methods=f"time: {cm}")
+    chain = [("TG_MEAN", "tas", {"freq": "MS"}),
+             ("TX_DAYS_ABOVE", "tasmax", {"thresh": "25 degC"}),
+             ("FROST_DAYS", "tasmin", {}), ("ICE_DAYS", "tasmax", {}),
+             ("GROWING_DEGREE_DAYS", "tas", {"thresh": "4 degC"}),
+             ("HEATING_DEGREE_DAYS", "tas", {"thresh": "17 degC"}),
+             ("COOLING_DEGREE_DAYS", "tas", {"thresh": "18 degC"}),
+             ("HEAT_WAVE_INDEX", "tasmax", {}), ("CDD", "pr", {}),
+             ("PRCPTOT", "pr", {})]
+
+    def run(arr):
+        steps = [lambda a=arr, k=k, v=v, kw=kw: registry[k](a[v], **kw)
+                 for k, v, kw in chain]
+        return climjit_chain(steps)()
+
+    before = segred.launches, spells.launches
+    got = run(arrays)
+    torch.cuda.synchronize()
+    assert segred.launches > before[0] and spells.launches > before[1]
+    exp = run({k: a.to("cpu") for k, a in arrays.items()})
+    for (key, _, _), g, e in zip(chain, got, exp):
+        if key in ("TG_MEAN", "GROWING_DEGREE_DAYS", "HEATING_DEGREE_DAYS",
+                   "COOLING_DEGREE_DAYS", "PRCPTOT"):
+            _close(g.data, e.data)
+        else:
+            _value_equal(g.data, e.data)
+
+
+@pytest.mark.parametrize("name", ["cdd", "cwd", "wetdays", "dry_days",
+                                  "precip_accumulation", "dry_spell_frequency",
+                                  "wet_spell_max_length", "daily_pr_intensity",
+                                  "max_n_day_precipitation_amount", "api"])
+def test_precip_indicators_on_the_card(cuda, name):
+    from xclim_tpu_torch.indicators import atmos
+
+    _card_vs_cpu_close(getattr(atmos, name), _precip(cuda, 10))
+
+
+def test_index_breadth_on_the_card(cuda):
+    """The new index modules on the card against their CPU runs: phase
+    splits and degree days exact, transcendental physics (e_sat, PET)
+    within 1e-5 relative (CUDA's float32 exp, log and pow round an ulp
+    another way than the CPU's)."""
+    from xclim_tpu_torch import indices
+
+    pr = _precip(cuda, 11)
+    tas = _temps(cuda, "noleap", 12, 283.0)
+    tn = _temps(cuda, "noleap", 13, 277.0)
+    tx = _temps(cuda, "noleap", 14, 289.0)
+    for a in (tas, tn, tx):
+        a.coords["lat"] = np.linspace(-60, 60, 16)
+    _card_vs_cpu_close(indices.precip_accumulation, pr, tas, phase="solid")
+    _card_vs_cpu_close(lambda p, t: indices.liquid_precip_ratio(
+        p, tas=t, freq="YS"), pr, tas)
+    _card_vs_cpu_close(indices.huglin_index, tas, tx)
+    _card_vs_cpu_close(indices.biologically_effective_degree_days, tn, tx)
+    _card_vs_cpu_close(indices.prcptot_wetdry_quarter, pr)
+    _card_vs_cpu_close(indices.antecedent_precipitation_index, pr)
+    _card_vs_cpu_close(indices.rain_season, pr)
+    _card_vs_cpu_close(indices.potential_evapotranspiration, tn, tx, tas,
+                       method="TW48", rtol=1e-5, atol=1e-12)
+    _card_vs_cpu_close(indices.saturation_vapor_pressure, tas, rtol=1e-5)
+    hourly = indices.helpers.make_hourly_temperature(
+        tn.isel(time=slice(0, 60)), tx.isel(time=slice(0, 60)))
+    _card_vs_cpu_close(indices.chill_units, hourly)
+    # the dynamic model banks a portion only where E reaches 1, and an E
+    # within rounding of 1 may bank on one device and not the other: each
+    # device is held to a float64 replay that follows its own decisions;
+    # a NaN hour ends the carry, so the NaN-filled series runs it through
+    filled = hourly.copy(data=torch.nan_to_num(hourly.data, nan=281.0))
+    for arr in (hourly, filled):
+        check_chill_portions(arr)
+        check_chill_portions(arr.to("cpu"))

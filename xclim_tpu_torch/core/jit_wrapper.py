@@ -33,7 +33,11 @@ def climjit(fn, on_capacity_error: str = "eager"):
 def climjit_chain(steps):
     """Run a list of index/indicator calls sharing one argument signature;
     returns the tuple of their outputs in order (a step that returns a
-    tuple or list contributes each of its items)."""
+    tuple or list contributes each of its items).
+
+    ``wrapped.partition`` lists the (start, stop) step ranges run as one
+    program, as the reference's does; the whole chain is one eager pass,
+    so it is ``[(0, len(steps))]``."""
     steps = list(steps)
 
     def wrapped(*args, **kwargs):
@@ -43,4 +47,5 @@ def climjit_chain(steps):
             outs.extend(o if isinstance(o, (list, tuple)) else (o,))
         return tuple(outs)
 
+    wrapped.partition = [(0, len(steps))]
     return wrapped

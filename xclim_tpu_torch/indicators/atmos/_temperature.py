@@ -3,12 +3,9 @@
 
 Realm subclasses mirror the reference ladder (Temp(Daily) etc.,
 _temperature.py:117-140); instances are plain declarative constructions.
-Every indicator of the reference's module is here except eleven whose
-compute functions live in modules the port does not have yet
-(``indices/_agro.py``, ``indices/fire/_cffwis.py``): huglin_index,
-biologically_effective_degree_days, latitude_temperature_index,
-cool_night_index, corn_heat_units, effective_growing_degree_days, cp, cu,
-usda_hardiness_zones, australian_hardiness_zones and fire_season.
+Every indicator of the reference's module is here except ``fire_season``,
+whose compute function lives in ``indices/fire/``, which the port does not
+have yet.
 """
 
 from __future__ import annotations
@@ -16,12 +13,19 @@ from __future__ import annotations
 from xclim_tpu_torch import indices
 from xclim_tpu_torch.core.indicator import (
     Daily,
+    Hourly,
     ResamplingIndicatorWithIndexing,
 )
 
 __all__ = [
+    "australian_hardiness_zones",
+    "cool_night_index",
     "cooling_degree_days_approximation",
+    "corn_heat_units",
+    "cp",
+    "cu",
     "dlyfrzthw",
+    "effective_growing_degree_days",
     "first_day_tg_below",
     "first_day_tn_below",
     "first_day_tx_below",
@@ -36,7 +40,9 @@ __all__ = [
     "heating_degree_days_approximation",
     "hot_days",
     "late_frost_days",
+    "latitude_temperature_index",
     "thawing_degree_days",
+    "usda_hardiness_zones",
     "cold_spell_days",
     "cold_spell_duration_index",
     "cold_spell_frequency",
@@ -107,6 +113,8 @@ __all__ = [
     "warm_and_dry_days",
     "warm_and_wet_days",
     "cold_and_wet_days",
+    "huglin_index",
+    "biologically_effective_degree_days",
 ]
 
 
@@ -1105,10 +1113,139 @@ heat_spell_total_length = Temp(
 )
 
 
+# ---------------------------------------------------------------------------
+# agroclimatic indicators (xclim:_temperature.py; compute in indices/_agro.py)
+# ---------------------------------------------------------------------------
 
 
+class HourlyTemp(Hourly):
+    """Hourly temperature indicator (chill models;
+    xclim:_temperature.py:884)."""
+
+    realm = "atmos"
+    keywords = "temperature agriculture"
 
 
+huglin_index = Temp(
+    identifier="huglin_index",
+    title="Huglin heliothermal index",
+    units="",
+    long_name="Huglin heliothermal index",
+    description="Heat-summation index for viticulture (Huglin).",
+    compute=indices.huglin_index,
+)
 
+biologically_effective_degree_days = Temp(
+    identifier="biologically_effective_degree_days",
+    title="Biologically effective degree days",
+    units="K days",
+    long_name="Biologically effective growing degree days",
+    description="Considers daily tasmin/tasmax with latitude-adjusted degree "
+                "days between {start_date} and {end_date}.",
+    compute=indices.biologically_effective_degree_days,
+)
 
+latitude_temperature_index = Temp(
+    identifier="latitude_temperature_index",
+    title="Latitude temperature index",
+    units="",
+    var_name="lti",
+    long_name="Mean temperature of warmest month multiplied by the "
+              "difference of {lat_factor} minus latitude",
+    description="A viticulture suitability index: mean temperature of the "
+                "warmest month multiplied by ({lat_factor} - latitude).",
+    allowed_periods=["Y"],
+    compute=indices.latitude_temperature_index,
+    parameters={"lat_factor": 60},
+)
 
+usda_hardiness_zones = Temp(
+    identifier="usda_hardiness_zones",
+    title="USDA hardiness zones",
+    units="",
+    var_name="hz",
+    long_name="Hardiness zones",
+    description="Plant-suitability classification from a {window}-year "
+                "rolling average of the annual minimum temperature (USDA "
+                "10-degF zones with half-zones).",
+    allowed_periods=["Y"],
+    compute=indices.hardiness_zones,
+    parameters={"method": "usda"},
+)
+
+australian_hardiness_zones = Temp(
+    identifier="australian_hardiness_zones",
+    title="Australian hardiness zones",
+    units="",
+    var_name="hz",
+    long_name="Hardiness zones",
+    description="Plant-suitability classification from a {window}-year "
+                "rolling average of the annual minimum temperature (ANBG "
+                "5-degC zones).",
+    allowed_periods=["Y"],
+    compute=indices.hardiness_zones,
+    parameters={"method": "anbg"},
+)
+
+cool_night_index = Temp(
+    identifier="cool_night_index",
+    title="Cool night index",
+    units="degC",
+    long_name="Mean minimum temperature in late summer",
+    description="Mean minimum temperature in September (northern hemisphere) "
+                "or March (southern hemisphere); a viticulture ripening "
+                "index.",
+    allowed_periods=["Y"],
+    compute=indices.cool_night_index,
+)
+
+corn_heat_units = Temp(
+    identifier="corn_heat_units",
+    title="Corn heat units",
+    units="",
+    long_name="Corn heat units (Tmin > {thresh_tasmin} and Tmax > "
+              "{thresh_tasmax})",
+    description="Temperature-based index of crop development for corn, from "
+                "daily minimum and maximum temperatures.",
+    missing="skip",
+    compute=indices.corn_heat_units,
+)
+
+effective_growing_degree_days = Temp(
+    identifier="effective_growing_degree_days",
+    title="Effective growing degree days",
+    units="K days",
+    var_name="egdd",
+    long_name="Integral of mean daily temperature above {thresh} between "
+              "dynamically-determined season start and end dates",
+    description="{freq} heat-summation between a {method}-determined growing "
+                "season start and the first fall frost after {after_date}.",
+    compute=indices.effective_growing_degree_days,
+)
+
+cp = HourlyTemp(
+    identifier="cp",
+    title="Chill portions",
+    units="",
+    long_name="Chill portions after the Dynamic Model",
+    description="Chill portions estimate the bud-breaking potential of "
+                "crops via the two-step dynamic model of cold-temperature "
+                "accumulation (requires hourly temperature).",
+    cell_methods="time: sum",
+    allowed_periods=["Y"],
+    missing="skip",
+    compute=indices.chill_portions,
+)
+
+cu = HourlyTemp(
+    identifier="cu",
+    title="Chill units",
+    units="",
+    long_name="Chill units after the Utah Model",
+    description="Chill units estimate the bud-breaking potential of crops "
+                "with the Utah model's hourly temperature weights.",
+    cell_methods="time: sum",
+    allowed_periods=["Y"],
+    missing="skip",
+    compute=indices.chill_units,
+)

@@ -3,10 +3,9 @@ bootstrap (reference: xclim:src/xclim/indices/_multivariate.py).
 
 The heat-wave indices evaluate both thresholds into one bool condition and
 take its run statistics over resample periods: the ``spells`` kernel on a
-CUDA tensor. Three branches need ``indices/converters.py``, which the port
-does not have yet: ``liquid_precip_ratio`` without ``prsn``, and
-``precip_accumulation`` / ``precip_average`` with a ``phase``. They raise
-``NotImplementedError``.
+CUDA tensor. ``liquid_precip_ratio`` without ``prsn`` and
+``precip_accumulation`` / ``precip_average`` with a ``phase`` split the
+precipitation by ``indices/converters.py``'s binary phase approximation.
 """
 
 from __future__ import annotations
@@ -61,12 +60,6 @@ __all__ = [
     "water_cycle_intensity",
     "winter_rain_ratio",
 ]
-
-
-def _needs_converters(what: str):
-    raise NotImplementedError(
-        f"{what} needs indices/converters.py (snowfall_approximation / "
-        "rain_approximation), which xclim_tpu_torch does not port yet")
 
 
 def _per_thresh(per: ClimArray, da: ClimArray, context=None) -> ClimArray:
@@ -240,7 +233,9 @@ def liquid_precip_ratio(pr: ClimArray, prsn: ClimArray | None = None,
                         freq: str = "QS-DEC") -> ClimArray:
     """Ratio of rain to total precipitation (xclim:_multivariate.py:871)."""
     if prsn is None and tas is not None:
-        _needs_converters("liquid_precip_ratio without prsn")
+        from xclim_tpu_torch.indices.converters import snowfall_approximation
+
+        prsn = snowfall_approximation(pr, tas=tas, thresh=thresh, method="binary")
     elif prsn is None:
         raise KeyError("prsn or tas must be supplied.")
     tot = pr.resample(freq).sum()
@@ -256,7 +251,10 @@ def precip_accumulation(pr: ClimArray, tas: ClimArray | None = None,
                         freq: str = "YS") -> ClimArray:
     """Accumulated (liquid/solid/total) precipitation (xclim:_multivariate.py:930)."""
     if phase in ("liquid", "solid"):
-        _needs_converters(f"phase={phase!r}")
+        from xclim_tpu_torch.indices.converters import rain_approximation, snowfall_approximation
+
+        fn = rain_approximation if phase == "liquid" else snowfall_approximation
+        pr = fn(pr, tas=tas, thresh=thresh, method="binary")
     pram = rate2amount(pr)
     u = pram.attrs["units"]
     out = pram.resample(freq).sum()
@@ -271,7 +269,10 @@ def precip_average(pr: ClimArray, tas: ClimArray | None = None,
     """Mean daily (liquid/solid/total) precipitation amount
     (xclim:_multivariate.py:994)."""
     if phase in ("liquid", "solid"):
-        _needs_converters(f"phase={phase!r}")
+        from xclim_tpu_torch.indices.converters import rain_approximation, snowfall_approximation
+
+        fn = rain_approximation if phase == "liquid" else snowfall_approximation
+        pr = fn(pr, tas=tas, thresh=thresh, method="binary")
     pram = rate2amount(pr)
     u = pram.attrs["units"]
     out = pram.resample(freq).mean()

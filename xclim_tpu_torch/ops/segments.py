@@ -35,6 +35,7 @@ __all__ = [
     "segment_argminmax",
     "segment_first_last",
     "rolling_reduce",
+    "weighted_window_sum",
 ]
 
 
@@ -260,3 +261,17 @@ def rolling_reduce(x: torch.Tensor, window: int, op: str, axis: int = 0,
         raise ValueError(f"Unknown rolling op {op!r}")
     out = torch.where(cnt >= min_periods, out, torch.nan)
     return out.movedim(-1, axis)
+
+
+def weighted_window_sum(x: torch.Tensor, axis: int, w: np.ndarray,
+                        before: int, after: int) -> torch.Tensor:
+    """sum_k x[t - before + k] * w[k] along `axis`, NaN-padded past the
+    ends: the reference's gathered window and its sum over it, added from
+    k = 0 up, one shifted pass per weight."""
+    xm = torch.movedim(x, axis, -1)
+    T = xm.shape[-1]
+    xp = torch.nn.functional.pad(xm, (before, after), value=float("nan"))
+    out = torch.zeros_like(xm)
+    for k, wk in enumerate(np.asarray(w, dtype=np.float32)):
+        out = out + xp[..., k:k + T] * float(wk)
+    return torch.movedim(out, -1, axis)
