@@ -103,7 +103,35 @@ Builds the hand-written CUDA kernels from ``xclim_tpu_torch/csrc`` (into
     chill models and max_pr_intensity on a year of hours at 16384 cells
     (the chill portions held to a float64 replay on a 256-cell crop); the
     jet stream on 30 years x 64 latitudes. Each call's time is the median
-    of 3 after a warm-up.
+    of 3 after a warm-up;
+20. drives the fire-weather slice at 16384 cells x 30 noleap years
+    (tas, pr with 45-55 % dry days, hurs, sfcWind; tasmax = tas + 6 K):
+    ``atmos.cffwis`` always on (the median of 3), with the WF93 season and
+    overwintering and with a dry start (one timed call each),
+    ``atmos.dc`` (WF93, overwintering) and ``atmos.dmc``, which run their
+    one code, the kbdi -> df -> ffdi chain and ``atmos.fire_season`` (the
+    median of 3), each after a warm-up on the first year: seconds, peak
+    memory above the inputs, and a profiled run's kernel launches, kernel
+    time and idle share. On a 256-cell crop the card's CFFWIS and the
+    CPU's are each held to a float64 replay of their own days
+    (``xclim_tpu_torch.testing.check_cffwis``), and DC, FFMC and ISI to
+    each other (the outputs that read DMC may part where the two devices'
+    DMC took two sides of b's jump at 33 or 65: their difference is
+    printed); ``atmos.dc`` and ``atmos.dmc`` equal the code of the card's
+    CFFWIS run, DC holds to the CPU run; KBDI holds to the CPU run, DF and
+    FFDI to the CPU on the card's own KBDI and DF, the fire season is
+    equal;
+21. runs every land (snow, streamflow), seaIce and generic indicator once
+    at a size users run (the snow and generic ones at 128 x 128 cells x 30
+    years, streamflow at 4096 stations, sea-ice extent and area on 180 x
+    360 cells x 30 years): seconds, segred and spells launches (no twin on
+    the card), and the outputs against the CPU run on a crop;
+22. runs the calendar's array operations at 16384 cells x 60 years
+    (``convert_calendar`` noleap -> 360_day and back and standard ->
+    noleap, ``stack_periods(window=30, stride=10)`` and
+    ``unstack_periods``, ``mask_between_doys``, ``select_time`` by season,
+    month and doy bounds), each the median of 3 after a warm-up and equal
+    to the CPU run on a 256-cell crop.
 
 Each phase prints its wall seconds (``[wall]``).
 
@@ -3415,6 +3443,604 @@ def phase_index_breadth(device, card, record):
          f"jet latitude {mean_lat:.2f} (planted at 45)")
 
 
+FI_SIDE = 128         # 128 x 128 = 16384 cells
+FI_YEARS = 30         # 10950 noleap days from 1981-01-01
+FI_WARM_DAYS = 365    # the warm-up runs the same calls on the first year
+FI_ROWS = [30, 110]   # two latitude rows (256 cells, -29 and 53 degrees)
+#: two runs of the fire recurrences agree within 3e-6 of each output's
+#: largest value (tests/test_torch_fire.py: XLA:CPU against torch; here
+#: the card against the CPU), but where DMC's b jumps (33, 65)
+FI_REC_TOL = 3e-6
+#: the CFFWIS outputs that do not read DMC, held card against CPU; those
+#: that do (DMC, BUI, FWI, DSR) are held on each device to its float64
+#: replay (xclim_tpu_torch.testing.check_cffwis), since a b decision taken
+#: on two sides of its jump by the two devices moves them for months
+FI_HELD = ("dc", "ffmc", "isi")
+
+
+def _fire_inputs(device):
+    """tas with a seasonal cycle of each hemisphere's phase, pr with 45-55
+    % dry days (exponential wet days of mean 5 mm/d), hurs, sfcWind and
+    tasmax = tas + 6 K, each (10950, 128, 128) float32 made on the card,
+    with a lat coordinate from -60 to 70 degrees."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from xclim_tpu_torch.core.calendar import date_range
+    from xclim_tpu_torch.core.dataarray import ClimArray
+
+    t = date_range("1981-01-01", periods=FI_YEARS * 365, freq="D",
+                   calendar="noleap")
+    lat = np.linspace(-60.0, 70.0, FI_SIDE)
+    coords = {"time": t, "lat": lat, "lon": np.arange(float(FI_SIDE))}
+    shape = (len(t), FI_SIDE, FI_SIDE)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 12)
+    doy = torch.arange(len(t), device=device) % 365
+    season = torch.cos(2 * math.pi * (doy - 200) / 365.0).reshape(-1, 1, 1)
+    north = torch.as_tensor(np.sign(lat), dtype=torch.float32,
+                            device=device).reshape(1, -1, 1)
+
+    def normal(mu, sd):
+        return torch.randn(shape, generator=gen, device=device).mul_(sd).add_(mu)
+
+    dry = 0.45 + 0.1 * torch.rand((1, FI_SIDE, FI_SIDE), generator=gen,
+                                  device=device)
+    u = torch.rand(shape, generator=gen, device=device)
+    w = torch.rand(shape, generator=gen, device=device)
+    pr = torch.where(u < dry, 0.0, -5.0 / 86400.0 * torch.log1p(-w))
+    del u, w
+    tas = normal(0.0, 3.0).add_(283.0 + 12.0 * season * north)
+    spec = {"tas": (tas, "K", "air_temperature", "time: mean"),
+            "pr": (pr, "kg m-2 s-1", "precipitation_flux", None),
+            "hurs": (normal(65.0, 15.0).clamp_(5.0, 100.0), "%",
+                     "relative_humidity", None),
+            "sfcWind": (normal(4.0, 2.5).abs_(), "m s-1", "wind_speed", None),
+            "tasmax": (tas + 6.0, "K", "air_temperature", "time: maximum")}
+    out = {}
+    for name, (data, units, sn, cm) in spec.items():
+        attrs = {"units": units, "standard_name": sn}
+        if cm:
+            attrs["cell_methods"] = cm
+        out[name] = ClimArray(data, ("time", "lat", "lon"), coords, attrs,
+                              name)
+    return out
+
+
+def _fire_calls(a):
+    """name -> (kind, call on the inputs a): kind is the CFFWIS call's
+    keyword arguments (a dict), "dc", "dmc", "chain" or "season"."""
+    from xclim_tpu_torch.indicators import atmos
+
+    def chain():
+        kbdi = atmos.kbdi(a["pr"], a["tasmax"], "1000 mm/yr")
+        df = atmos.df(a["pr"], kbdi)
+        return kbdi, df, atmos.ffdi(df, a["tasmax"], a["hurs"], a["sfcWind"])
+
+    calls = {}
+    for name, kw in (("atmos.cffwis always on", {}),
+                     ("atmos.cffwis WF93 overwintering",
+                      {"season_method": "WF93", "overwintering": True}),
+                     ("atmos.cffwis WF93 dry start",
+                      {"season_method": "WF93", "dry_start": "CFS"})):
+        calls[name] = (kw, lambda kw=kw: tuple(atmos.cffwis(
+            tas=a["tas"], pr=a["pr"], sfcWind=a["sfcWind"], hurs=a["hurs"],
+            **kw)))
+    # the one-code runs, each after the CFFWIS call whose code it returns
+    calls["atmos.dc WF93 overwintering"] = ("dc", lambda: (atmos.dc(
+        tas=a["tas"], pr=a["pr"], season_method="WF93", overwintering=True),))
+    calls["atmos.dmc always on"] = ("dmc", lambda: (atmos.dmc(
+        tas=a["tas"], pr=a["pr"], hurs=a["hurs"]),))
+    calls["kbdi -> df -> ffdi"] = ("chain", chain)
+    calls["atmos.fire_season WF93"] = ("season", lambda: (atmos.fire_season(
+        a["tas"], method="WF93"),))
+    return calls
+
+
+def _device_trace(fn):
+    """One fn() under torch.profiler (CUDA activity only; the raw kernel
+    events are read without building the profiler's tables, which a
+    million launches would make slow): (wall ms profiled, kernel launches,
+    summed kernel ms, idle share of the wall)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.start_ns(), e.end_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA)
+    busy, end = 0, 0
+    for s, e in spans:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    kernel_ms = sum(e - s for s, e in spans) / 1e6
+    return wall_ms, len(spans), kernel_ms, max(0.0, 1.0 - busy / 1e6 / wall_ms)
+
+
+def _fire_check(name, kind, card, crop, earlier):
+    """The card's outputs on the crop (CPU ClimArrays) against the CPU's
+    run of the same call on the crop's inputs: CFFWIS each held to its
+    float64 replay, and DC, FFMC and ISI to each other within FI_REC_TOL of
+    their scale; atmos.dc and atmos.dmc equal to the code of the card's
+    CFFWIS run with the same season (``earlier``, name -> crop outputs),
+    DC to the CPU within FI_REC_TOL; KBDI to FI_REC_TOL, the drought factor
+    and FFDI each on the card's own KBDI and DF to the physics bound; the
+    fire season equal. Returns a line."""
+    import torch
+
+    from xclim_tpu_torch.indicators import atmos
+    from xclim_tpu_torch.testing import check_cffwis
+
+    def scale(x):
+        return float(torch.nan_to_num(x.data.abs(), nan=0.0).max())
+
+    def apart(g, c):
+        return float(torch.nan_to_num((g.data.double() - c.data.double())
+                                      .abs(), nan=0.0).max())
+
+    if kind == "season":
+        want = atmos.fire_season(crop["tas"], method="WF93")
+        _compare(f"{name} cpu vs card", card[0].data, want.data, rtol=0.0,
+                 atol=0.0)
+        return f"equal to the CPU run ({int(want.data.sum())} season days)"
+    if kind in ("dc", "dmc"):
+        full, of = {"dc": ("atmos.cffwis WF93 overwintering", 0),
+                    "dmc": ("atmos.cffwis always on", 1)}[kind]
+        _compare(f"{name} vs the {kind} of {full} on the card", card[0].data,
+                 earlier[full][of].data, rtol=0.0, atol=0.0)
+        args = {k: crop[k] for k in ("tas", "pr", "hurs")}
+        if kind == "dc":
+            cpu = atmos.dc(tas=args["tas"], pr=args["pr"],
+                           season_method="WF93", overwintering=True)
+            e = _compare(f"{name} cpu vs card", card[0].data, cpu.data,
+                         rtol=0.0, atol=FI_REC_TOL * scale(cpu))
+            return (f"equal to the dc of {full} on the card; within {e:.3g} "
+                    f"of the CPU run (bound {FI_REC_TOL * scale(cpu):.3g})")
+        cpu = atmos.dmc(**args)
+        return (f"equal to the dmc of {full} on the card (held to its "
+                f"float64 replay); card vs cpu max {apart(card[0], cpu):.3g}")
+    if kind == "chain":
+        kbdi = atmos.kbdi(crop["pr"], crop["tasmax"], "1000 mm/yr")
+        scale = float(kbdi.data.abs().max())
+        e_k = _compare(f"{name} kbdi cpu vs card", card[0].data, kbdi.data,
+                       rtol=0.0, atol=FI_REC_TOL * scale)
+        df = atmos.df(crop["pr"], card[0])
+        e_d = _compare(f"{name} df on the card's kbdi", card[1].data, df.data,
+                       *BR_TOL["phys"])
+        ffdi = atmos.ffdi(card[1], crop["tasmax"], crop["hurs"],
+                          crop["sfcWind"])
+        e_f = _compare(f"{name} ffdi on the card's df", card[2].data,
+                       ffdi.data, *BR_TOL["phys"])
+        return (f"kbdi within {e_k:.3g} of the CPU run (bound "
+                f"{FI_REC_TOL * scale:.3g}); df {e_d:.3g}, ffdi {e_f:.3g} on "
+                f"the card's own kbdi and df")
+    args = {k: crop[k] for k in ("tas", "pr", "sfcWind", "hurs")}
+    cpu = tuple(atmos.cffwis(**args, **kind))
+    reports = [check_cffwis(o, **args, **kind) for o in (card, cpu)]
+    held = {g.name: _compare(f"{name} {g.name} cpu vs card", g.data, c.data,
+                             rtol=0.0, atol=FI_REC_TOL * scale(c))
+            for g, c in zip(card, cpu) if g.name in FI_HELD}
+    rest = {g.name: apart(g, c) for g, c in zip(card, cpu)
+            if g.name not in FI_HELD}
+    worst = {dev: max(r[o.name][0] for o in card) for dev, r in
+             zip(("card", "cpu"), reports)}
+    return (f"each device's days within {worst['card']:.3g} (card) and "
+            f"{worst['cpu']:.3g} (cpu) of their float64 replays; card vs cpu "
+            f"{', '.join(f'{k} {v:.3g}' for k, v in held.items())} (bound "
+            f"{FI_REC_TOL} of the scale); the outputs that read DMC apart by "
+            f"{', '.join(f'{k} {v:.3g}' for k, v in rest.items())}")
+
+
+def phase_fire(device, card):
+    """The fire-weather slice at 16384 cells x 30 noleap years: CFFWIS
+    always on, with the WF93 season and overwintering, and with a dry
+    start; atmos.dc (WF93, overwintering) and atmos.dmc (always on), which
+    run their one code; the KBDI -> DF -> FFDI chain; the fire season.
+    Each call after a
+    warm-up on the first year: seconds (the median of 3, one timed call for
+    the two season CFFWIS runs), peak device memory above the inputs, and
+    a profiled run's kernel launches, kernel time and idle share; then the
+    card's outputs on a 256-cell crop against the CPU's run."""
+    import torch
+
+    a = _fire_inputs(device)
+    each = a["tas"].data.numel() * 4
+    _log(f"[fire] inputs ({FI_YEARS * 365}, {FI_SIDE}, {FI_SIDE}) float32, "
+         f"{each / 1e9:.3f} GB each: {', '.join(a)}")
+    first = {k: v.isel(time=slice(0, FI_WARM_DAYS)) for k, v in a.items()}
+    crop = {k: v.isel(lat=FI_ROWS).to("cpu") for k, v in a.items()}
+    rows = torch.as_tensor(FI_ROWS, device=device)
+    crops = {}
+    for name, (kind, fn) in _fire_calls(a).items():
+        _fire_calls(first)[name][1]()
+        reps = 1 if isinstance(kind, dict) and kind else 3
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        runs, out = [], None
+        for _ in range(reps):
+            out = None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() - base
+        counts = {k: v for k, v in _counts().items() if v}
+        if counts:
+            raise AssertionError(f"{name} launched a kernel or twin: {counts}")
+        shapes = [tuple(o.shape) for o in out]
+        got = tuple(o.copy(data=o.data.index_select(1, rows).cpu())
+                    for o in out)
+        for o in got:
+            o.coords = dict(o.coords, lat=o.coords["lat"][FI_ROWS])
+        del out
+        wall, launches, kms, idle = _device_trace(fn)
+        sec = statistics.median(runs)
+        _log(f"[fire] {name} {shapes[0]} on {card}: {sec:.4f} s ("
+             f"{'median of 3' if reps == 3 else 'one call'} after a warm-up "
+             f"on {FI_WARM_DAYS} days; runs {[round(v, 4) for v in runs]}), "
+             f"{FI_YEARS * 365 * FI_SIDE ** 2 / sec:,.1f} cell-days/s; peak "
+             f"{peak / 2 ** 30:.3f} GiB above the inputs; profiled: wall "
+             f"{wall:.1f} ms, {launches} kernel launches, {kms:.3f} ms of "
+             f"kernel time, idle {idle * 100:.1f} %")
+        _log(f"[fire] {name}: {len(FI_ROWS) * FI_SIDE}-cell crop: "
+             f"{_fire_check(name, kind, got, crop, crops)}")
+        crops[name] = got
+    del a, first, crop
+    torch.cuda.empty_cache()
+
+
+LS_SIDE = 128         # the snow and generic grids: 128 x 128 cells
+LS_YEARS = 30
+LS_STATIONS = 4096    # streamflow stations
+LS_ICE = (180, 360)   # a 1-degree sea-ice grid
+LS_CROP = 8           # side (rows, stations) of the crops held against the CPU
+LS_FIT_CROP = 32      # the ML fit's crop: its disagreements are counted
+#: tolerance classes of the land, seaIce and generic calls beyond BR_TOL:
+#: lag_snowpack_flow_peaks averages float32 seconds (4e-3 days,
+#: tests/test_torch_hydro_anuclim.py); sen_slope takes differences of
+#: annual means a few ulps apart (1e-4 m3/s a year); the GEV's PWM
+#: estimator cancels in float32 (up to ~4e-4 of a parameter between two
+#: orders of summing its weighted moments, tests/test_torch_stats.py) and
+#: a 20-year return level extrapolates from it: 1e-4 relative (6.4e-6 on
+#: the card against the CPU at 1024 cells of daily precipitation)
+LS_TOL = {"lag": (0.0, 4e-3), "slope": (1e-5, 1e-4), "gev": (1e-4, 0.0)}
+
+
+def _land_inputs(device):
+    """At 128 x 128 cells x 30 noleap years: snd with a seasonal cover
+    (cold-season depth and storms) and snw = 250 kg m-3 x snd, prsn, pr
+    (45-55 % dry days) and sfcWind; at 4096 stations: streamflow q (a
+    seasonal cycle and lognormal noise) with the stations' snw and pr;
+    siconc on 180 x 360 cells with its cell area. Made on the card."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from xclim_tpu_torch.core.calendar import date_range
+    from xclim_tpu_torch.core.dataarray import ClimArray
+
+    t = date_range("1981-01-01", periods=LS_YEARS * 365, freq="D",
+                   calendar="noleap")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 13)
+    doy = torch.arange(len(t), device=device) % 365
+    season = torch.cos(2 * math.pi * (doy - 20) / 365.0)
+
+    def grid(shape, lats=(40.0, 80.0)):
+        lat = np.linspace(*lats, shape[0])
+        return ({"time": t, "lat": lat, "lon": np.arange(float(shape[1]))},
+                season.reshape(-1, 1, 1), (len(t),) + shape, ("time", "lat", "lon"))
+
+    def fields(coords, seas, shape, dims):
+        depth = (0.35 * seas + 0.05 * torch.randn(shape, generator=gen,
+                                                  device=device)).clamp_(min=0)
+        storms = torch.rand(shape, generator=gen, device=device) < 0.03
+        depth = torch.where(storms, depth + 0.3, depth)
+        u = torch.rand(shape, generator=gen, device=device)
+        w = torch.rand(shape, generator=gen, device=device)
+        pr = torch.where(u < 0.5, 0.0, -4.0 / 86400.0 * torch.log1p(-w))
+        spec = {"snd": (depth, "m", "surface_snow_thickness"),
+                "snw": (depth * 250.0, "kg m-2", "surface_snow_amount"),
+                "pr": (pr, "kg m-2 s-1", "precipitation_flux")}
+        return {k: ClimArray(d, dims, coords, {"units": u, "standard_name": sn},
+                             k) for k, (d, u, sn) in spec.items()}
+
+    snow = fields(*grid((LS_SIDE, LS_SIDE)))
+    coords, seas, shape, dims = grid((LS_SIDE, LS_SIDE))
+    prsn = torch.where(torch.rand(shape, generator=gen, device=device) < 0.3,
+                       1e-5 * torch.rand(shape, generator=gen, device=device),
+                       0.0)
+    wind = torch.randn(shape, generator=gen, device=device).mul_(3).add_(5).abs_()
+    snow["prsn"] = ClimArray(prsn, dims, coords, {
+        "units": "kg m-2 s-1", "standard_name": "snowfall_flux"}, "prsn")
+    snow["sfcWind"] = ClimArray(wind, dims, coords, {
+        "units": "m s-1", "standard_name": "wind_speed"}, "sfcWind")
+
+    st_coords = {"time": t, "station": np.arange(float(LS_STATIONS))}
+    st = (len(t), LS_STATIONS)
+    st_seas = season.reshape(-1, 1)
+    flow = fields(st_coords, st_seas, st, ("time", "station"))
+    q = (50 + 25 * torch.roll(st_seas, 120, 0) + torch.exp(
+        2 + torch.randn(st, generator=gen, device=device))).abs_()
+    flow["q"] = ClimArray(q, ("time", "station"), st_coords, {
+        "units": "m3 s-1",
+        "standard_name": "water_volume_transport_in_river_channel"}, "q")
+
+    coords, seas, shape, dims = grid(LS_ICE, (-89.5, 89.5))
+    sic = (50 + 60 * seas + 20 * torch.randn(shape, generator=gen,
+                                             device=device)).clamp_(0, 100)
+    lat = torch.as_tensor(np.radians(coords["lat"]), dtype=torch.float32,
+                          device=device)
+    area = (1.2e10 * torch.cos(lat)).reshape(-1, 1).expand(LS_ICE).contiguous()
+    ice = {"siconc": ClimArray(sic, dims, coords, {
+               "units": "%", "standard_name": "sea_ice_area_fraction"},
+               "siconc"),
+           "areacello": ClimArray(area, ("lat", "lon"), {
+               k: coords[k] for k in ("lat", "lon")},
+               {"units": "m2", "standard_name": "cell_area"}, "areacello")}
+    return snow, flow, ice
+
+
+def _land_calls(snow, flow, ice):
+    """name -> (tolerance class, call) of every land, seaIce and generic
+    indicator on the inputs."""
+    from xclim_tpu_torch.core.units import convert_units_to
+    from xclim_tpu_torch.indicators import generic, land, seaIce
+
+    s, f = snow, flow
+    pr_mm = convert_units_to(s["pr"], "mm/d", context="hydro")
+    return {
+        "land.snd_season_length": ("exact", lambda: land.snd_season_length(s["snd"])),
+        "land.snw_season_length": ("exact", lambda: land.snw_season_length(s["snw"])),
+        "land.snd_season_start": ("exact", lambda: land.snd_season_start(s["snd"])),
+        "land.snw_season_start": ("exact", lambda: land.snw_season_start(s["snw"])),
+        "land.snd_season_end": ("exact", lambda: land.snd_season_end(s["snd"])),
+        "land.snw_season_end": ("exact", lambda: land.snw_season_end(s["snw"])),
+        "land.snd_storm_days": ("exact", lambda: land.snd_storm_days(
+            s["snd"], thresh="20 cm")),
+        "land.snw_storm_days": ("exact", lambda: land.snw_storm_days(
+            s["snw"], thresh="40 kg m-2")),
+        "land.snd_days_above": ("exact", lambda: land.snd_days_above(s["snd"])),
+        "land.snw_days_above": ("exact", lambda: land.snw_days_above(s["snw"])),
+        "land.blowing_snow": ("exact", lambda: land.blowing_snow(
+            s["snd"], s["sfcWind"], snd_thresh="5 cm",
+            sfcWind_thresh="15 km/h")),
+        "land.snow_depth": ("sum", lambda: land.snow_depth(s["snd"])),
+        "land.snd_max_doy": ("exact", lambda: land.snd_max_doy(s["snd"])),
+        "land.snw_max": ("exact", lambda: land.snw_max(s["snw"])),
+        "land.snw_max_doy": ("exact", lambda: land.snw_max_doy(s["snw"])),
+        "land.snow_melt_we_max": ("sum", lambda: land.snow_melt_we_max(s["snw"])),
+        "land.melt_and_precip_max": ("sum", lambda: land.melt_and_precip_max(
+            s["snw"], s["pr"])),
+        "land.holiday_snow_days": ("exact", lambda: land.holiday_snow_days(
+            s["snd"])),
+        "land.holiday_snow_and_snowfall_days": ("exact", lambda:
+            land.holiday_snow_and_snowfall_days(s["snd"], s["prsn"])),
+        "land.base_flow_index": ("sum", lambda: land.base_flow_index(f["q"])),
+        "land.rb_flashiness_index": ("sum", lambda: land.rb_flashiness_index(
+            f["q"])),
+        "land.doy_qmax": ("exact", lambda: land.doy_qmax(f["q"])),
+        "land.doy_qmin": ("exact", lambda: land.doy_qmin(f["q"])),
+        "land.ssi": ("si", lambda: land.standardized_streamflow_index(
+            f["q"], freq="MS")),
+        "land.sgi (normal fit)": ("si", lambda:
+            land.standardized_groundwater_index(f["snd"], freq="MS", window=2,
+                                                dist="norm")),
+        "land.flow_index": ("sum", lambda: land.flow_index(f["q"], p=0.95)),
+        "land.high_flow_frequency": ("exact", lambda: land.high_flow_frequency(
+            f["q"], threshold_factor=1.5)),
+        "land.low_flow_frequency": ("exact", lambda: land.low_flow_frequency(
+            f["q"], threshold_factor=0.8)),
+        "land.base_flow_index_seasonal_ratio": ("sum", lambda:
+            land.base_flow_index_seasonal_ratio(f["q"])),
+        "land.lag_snowpack_flow_peaks": ("lag", lambda:
+            land.lag_snowpack_flow_peaks(f["snw"], f["q"])),
+        "land.runoff_ratio": ("sum", lambda: land.runoff_ratio(
+            f["q"], f["pr"], area="1000 km2")),
+        "land.sen_slope": ("slope", lambda: land.sen_slope(f["q"])),
+        "seaIce.sea_ice_extent": ("sum", lambda: seaIce.sea_ice_extent(
+            ice["siconc"], ice["areacello"])),
+        "seaIce.sea_ice_area": ("sum", lambda: seaIce.sea_ice_area(
+            ice["siconc"], ice["areacello"])),
+        "generic.stats YS max": ("exact", lambda: generic.stats(
+            pr_mm, freq="YS", op="max")),
+        "generic.fit genextreme ML": ("fit", lambda: (
+            generic.stats(pr_mm, freq="YS", op="max"),
+            generic.fit(generic.stats(pr_mm, freq="YS", op="max"),
+                        dist="genextreme"))),
+        "generic.return_level (20 years, genextreme PWM)": ("gev", lambda:
+            generic.return_level(pr_mm)),
+    }
+
+
+def _land_crop(da):
+    """The first LS_CROP rows and columns (LS_CROP^2 stations) of da, on the
+    CPU; the sea-ice sums run over the whole grid, so their inputs and
+    outputs are cut to the first year instead."""
+    dims = da.dims
+    if dims == ("time",) or ("lat" in dims and da.shape[dims.index("lat")]
+                             == LS_ICE[0]):
+        return (da.isel(time=slice(0, 365)) if "time" in dims else da).to(
+            "cpu")
+    cut = {d: slice(0, LS_CROP) for d in ("lat", "lon") if d in dims}
+    if "station" in dims:
+        cut["station"] = slice(0, LS_CROP ** 2)
+    return da.isel(**cut).to("cpu")
+
+
+def phase_land_seaice_generic(device, card, record):
+    """Each land (snow, streamflow), seaIce and generic indicator once at a
+    size users run: the snow indicators and the generic ones at 128 x 128
+    cells x 30 years, streamflow at 4096 stations, sea-ice extent and area
+    on 180 x 360 cells; each call's seconds and segred/spells launches (no
+    twin on the card), and its outputs against its CPU run on a crop (the
+    sea-ice sums on the whole grid over the first year, the GEV ML fit on
+    32 x 32 cells)."""
+    import torch
+
+    from xclim_tpu_torch.core.units import convert_units_to
+
+    snow, flow, ice = _land_inputs(device)
+    _log(f"[land] inputs: {', '.join(snow)} ({LS_YEARS * 365}, {LS_SIDE}, "
+         f"{LS_SIDE}); {', '.join(flow)} ({LS_YEARS * 365}, {LS_STATIONS}); "
+         f"siconc ({LS_YEARS * 365}, {LS_ICE[0]}, {LS_ICE[1]}), "
+         f"{ice['siconc'].data.numel() * 4 / 1e9:.3f} GB")
+    cpu = ({k: _land_crop(v) for k, v in snow.items()},
+           {k: _land_crop(v) for k, v in flow.items()},
+           {k: _land_crop(v) for k, v in ice.items()})
+    fit_cpu = convert_units_to(snow["pr"], "mm/d", context="hydro").isel(
+        lat=slice(0, LS_FIT_CROP), lon=slice(0, LS_FIT_CROP)).to("cpu")
+    calls_c = _land_calls(*cpu)
+    total = 0.0
+    for name, (tol, fn) in _land_calls(snow, flow, ice).items():
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        total += sec
+        counts = {k: v for k, v in _counts().items() if v}
+        if any(k.endswith("_twin") for k in counts):
+            raise AssertionError(f"{name} on the card called a twin: {counts}")
+        for k, v in counts.items():
+            if k in record:
+                record[k]["paths"][name] = v
+        out = out if isinstance(out, tuple) else (out,)
+        shapes = [tuple(o.shape) for o in out]
+        if tol == "fit":
+            got = [o.isel(lat=slice(0, LS_FIT_CROP), lon=slice(0, LS_FIT_CROP)
+                          ).data.cpu() for o in out]
+            errs = [_gev_fits_agree(name, got, fit_cpu)]
+        else:
+            got = [_land_crop(o).data for o in out]
+            want = calls_c[name][1]()
+            want = [w.data for w in (want if isinstance(want, tuple)
+                                     else (want,))]
+            if tol in LS_TOL:
+                rtol, atol = LS_TOL[tol]
+                errs = [_compare(f"{name} [{i}] cpu vs card", g, w,
+                                 rtol=rtol, atol=atol)
+                        for i, (g, w) in enumerate(zip(got, want))]
+            else:
+                errs = _breadth_check(name, tol, got, want)
+        del out
+        _log(f"[land] {name} {shapes} on {card}: {sec:.4f} s (one call); "
+             f"launches {json.dumps(counts)}; crop: CPU run max_abs_err "
+             f"{[float(f'{e:.3g}') for e in errs]} ({tol})")
+    _log(f"[land] the {len(calls_c)} calls: {total:.3f} s in all")
+    del snow, flow, ice, cpu, fit_cpu, calls_c
+    torch.cuda.empty_cache()
+
+
+CAL_YEARS = 60        # 1961-2020
+CAL_CROP = 256        # cells of the crop held against the CPU
+
+
+def _calendar_inputs(device):
+    """tas at 16384 cells over 60 years: a noleap and a standard series,
+    (21900 or 21915, 128, 128) float32 on the card."""
+    import numpy as np
+    import torch
+
+    from xclim_tpu_torch.core.calendar import date_range
+    from xclim_tpu_torch.core.dataarray import ClimArray
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 14)
+    out = {}
+    for cal in ("noleap", "standard"):
+        t = date_range("1961-01-01", end="2020-12-31", freq="D", calendar=cal)
+        x = torch.randn((len(t), FI_SIDE, FI_SIDE), generator=gen,
+                        device=device).mul_(8).add_(283)
+        out[cal] = ClimArray(x, ("time", "lat", "lon"), {
+            "time": t, "lat": np.linspace(-60.0, 70.0, FI_SIDE),
+            "lon": np.arange(float(FI_SIDE))},
+            {"units": "K", "standard_name": "air_temperature"}, "tas")
+    return out
+
+
+def _calendar_calls(a):
+    """name -> call of each calendar array operation on the inputs."""
+    from xclim_tpu_torch.core import calendar as cal
+
+    nl, st = a["noleap"], a["standard"]
+    return {
+        "convert_calendar noleap -> 360_day": lambda: cal.convert_calendar(
+            nl, "360_day"),
+        "convert_calendar noleap -> 360_day -> noleap": lambda:
+            cal.convert_calendar(cal.convert_calendar(nl, "360_day"), "noleap"),
+        "convert_calendar standard -> noleap": lambda: cal.convert_calendar(
+            st, "noleap"),
+        "stack_periods(window=30, stride=10)": lambda: cal.stack_periods(
+            nl, window=30, stride=10),
+        "stack_periods + unstack_periods": lambda: cal.unstack_periods(
+            cal.stack_periods(nl, window=30, stride=10)),
+        "mask_between_doys (100, 250)": lambda: cal.mask_between_doys(
+            st, (100, 250)),
+        "select_time season JJA": lambda: cal.select_time(st, season="JJA"),
+        "select_time month DJF, drop": lambda: cal.select_time(
+            st, drop=True, month=[12, 1, 2]),
+        "select_time doy_bounds (320, 60)": lambda: cal.select_time(
+            nl, doy_bounds=(320, 60)),
+    }
+
+
+def phase_calendar(device, card):
+    """The calendar's array operations at 16384 cells x 60 years (noleap
+    and standard daily tas): calendar conversions, period stacking and its
+    inverse, a doy mask and the time selections; each the median of 3
+    after a warm-up, its outputs on a 256-cell crop equal to the CPU's run
+    on the crop's inputs."""
+    import torch
+
+    a = _calendar_inputs(device)
+    _log(f"[calendar] inputs: noleap {tuple(a['noleap'].shape)}, standard "
+         f"{tuple(a['standard'].shape)} float32, "
+         f"{a['standard'].data.numel() * 4 / 1e9:.3f} GB")
+    rows = list(range(CAL_CROP // FI_SIDE))
+    crop = {k: v.isel(lat=rows).to("cpu") for k, v in a.items()}
+    calls_c = _calendar_calls(crop)
+    for name, fn in _calendar_calls(a).items():
+        _reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in _counts().items() if v}
+        if counts:
+            raise AssertionError(f"{name} launched a kernel or twin: {counts}")
+        got = out.isel(lat=rows)
+        want = calls_c[name]()
+        if got.dims != want.dims:
+            raise AssertionError(f"{name}: dims {got.dims} != {want.dims}")
+        if "time" in want.coords and not bool(
+                (got.time.encode() == want.time.encode()).all()):
+            raise AssertionError(f"{name}: time coordinates differ")
+        _compare(f"{name} cpu vs card", got.data, want.data, rtol=0.0,
+                 atol=0.0)
+        shape = tuple(out.shape)
+        del out, got
+        sec, runs = _timed(fn)
+        _log(f"[calendar] {name} {shape} on {card}: {sec * 1e3:.3f} ms "
+             f"(median of 3 after a warm-up; runs "
+             f"{[round(v * 1e3, 3) for v in runs]} ms); {CAL_CROP}-cell crop "
+             f"equal to the CPU run")
+    del a, crop, calls_c
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -3505,6 +4131,9 @@ def main() -> int:
     del crop
     torch.cuda.empty_cache()
     run(phase_index_breadth, device, card, record)
+    run(phase_fire, device, card)
+    run(phase_land_seaice_generic, device, card, record)
+    run(phase_calendar, device, card)
     _log(f"[wall] chip_smoke total: {time.perf_counter() - start:.1f} s")
 
     _log(json.dumps({"kernels": list(record.values())}))

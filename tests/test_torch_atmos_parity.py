@@ -1,29 +1,23 @@
-"""Name parity of what the port has of ``indicators.atmos`` and
-``indicators.convert``: the same public names as the JAX package's
-modules, and for each indicator the same registry key, registry id and
-``identifier``. The only names allowed to be missing are those that wait
-for ``indices/fire/``: the six fire-weather indicators, their six module
-aliases and ``fire_season``. That list shrinks to nothing with the fire
-slice."""
+"""Name parity of the port's indicator realms (``atmos``, ``convert``,
+``land``, ``seaIce``, ``generic``): the same public names as the JAX
+package's modules, the same ``__all__``, and for each indicator the same
+registry key, registry id, ``identifier``, class name and output
+``var_name``s. With the fire slice ported nothing is missing."""
 
 import pytest
 
 import xclim_tpu.indicators.atmos as jatmos
 import xclim_tpu.indicators.convert as jconvert
+import xclim_tpu.indicators.generic as jgeneric
+import xclim_tpu.indicators.land as jland
+import xclim_tpu.indicators.seaIce as jseaice
 from xclim_tpu.core.indicator import Indicator as JIndicator
 from xclim_tpu_torch.core.indicator import Indicator
-from xclim_tpu_torch.indicators import atmos, convert
+from xclim_tpu_torch.indicators import atmos, convert, generic, land, seaIce
 
-#: waits for indices/fire/ (xclim_tpu/indicators/atmos/_precip.py:344-416,
-#: _temperature.py:1140, atmos/__init__.py:42-56)
-WAITS_FOR_FIRE = {
-    "cffwis", "dc", "dmc", "kbdi", "df", "ffdi",
-    "cffwis_indices", "drought_code", "duff_moisture_code",
-    "griffiths_drought_factor", "mcarthur_forest_fire_danger_index",
-    "keetch_byram_drought_index",
-    "fire_season",
-}
-MODULES = {"atmos": (jatmos, atmos), "convert": (jconvert, convert)}
+MODULES = {"atmos": (jatmos, atmos), "convert": (jconvert, convert),
+           "land": (jland, land), "seaIce": (jseaice, seaIce),
+           "generic": (jgeneric, generic)}
 
 
 def _public(mod):
@@ -33,17 +27,14 @@ def _public(mod):
 @pytest.mark.parametrize("realm", sorted(MODULES))
 def test_public_names(realm):
     ref, port = MODULES[realm]
-    missing = _public(ref) - _public(port)
-    allowed = WAITS_FOR_FIRE if realm == "atmos" else set()
-    assert missing == allowed & _public(ref)
-    assert not _public(port) - _public(ref)
+    assert _public(port) == _public(ref)
     assert sorted(getattr(port, "__all__", [])) == sorted(
-        n for n in getattr(ref, "__all__", []) if n not in allowed)
+        getattr(ref, "__all__", []))
 
 
 def _indicators(realm):
     ref, _ = MODULES[realm]
-    return sorted(n for n in _public(ref) - WAITS_FOR_FIRE
+    return sorted(n for n in _public(ref)
                   if isinstance(getattr(ref, n), JIndicator))
 
 
@@ -62,6 +53,8 @@ def test_registry_key_and_identifier(realm, name):
 
 
 def test_the_fire_list_is_exactly_what_is_missing():
-    missing = (_public(jatmos) - _public(atmos)) | (
-        _public(jconvert) - _public(convert))
-    assert missing == WAITS_FOR_FIRE
+    """The list of names waiting for ``indices/fire/`` is empty: no realm
+    of the reference has a public name the port lacks."""
+    missing = set().union(*(_public(ref) - _public(port)
+                            for ref, port in MODULES.values()))
+    assert missing == set()

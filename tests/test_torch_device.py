@@ -274,3 +274,85 @@ def test_fao_allen98_host_arrays_take_the_default_device(no_default):
         converters.fao_allen98(rn, t, w, es, ea, 0.1, 0.066)
     assert converters.fao_allen98(torch.as_tensor(rn), t, w, es, ea, 0.1,
                                   0.066).device.type == "cpu"
+
+
+def test_fire_indices_and_indicators_on_cpu_tensors(no_default):
+    """CFFWIS (always on, with a season, overwintering and a dry start),
+    the KBDI -> DF -> FFDI chain and the fire season on CPU tensors, with
+    initial codes given as numpy arrays: the day lengths and the state go
+    to the data's device."""
+    from xclim_tpu_torch.indicators import atmos
+    from xclim_tpu_torch.indices import fire
+
+    tas = _with_lat(_series("tas", 285.0, 60), "K", "tas", "air_temperature")
+    tasmax = _with_lat(_series("tasmax", 291.0, 61), "K", "tasmax")
+    pr = _with_lat(_series("pr", 0.0, 62).copy(
+        data=(_series("pr", 0.0, 62).data * 1e-5).clamp(min=0)),
+        "kg m-2 s-1", "pr", "precipitation_flux")
+    hurs = _with_lat(_series("hurs", 70.0, 63), "%", "hurs")
+    wind = _with_lat(_series("sfcWind", 5.0, 64).copy(
+        data=_series("sfcWind", 5.0, 64).data.abs()), "m s-1", "sfcWind")
+    tas, tasmax, pr, hurs, wind = (x.isel(time=slice(0, 400)) for x in
+                                   (tas, tasmax, pr, hurs, wind))
+    codes = {"dc0": np.full(3, 100.0, np.float32),
+             "dmc0": np.full(3, 20.0, np.float32)}
+    outs = list(fire.cffwis_indices(tas, pr, wind, hurs))
+    outs += list(fire.cffwis_indices(tas, pr, wind, hurs, season_method="WF93",
+                                     overwintering=True, **codes))
+    outs += [fire.drought_code(tas, pr, season_method="WF93",
+                               dry_start="CFS", dc0=codes["dc0"]),
+             fire.fire_season(tas, method="WF93")]
+    kbdi = atmos.kbdi(pr, tasmax, "800 mm/yr")
+    df = atmos.df(pr, kbdi)
+    outs += [kbdi, df, atmos.ffdi(df, tasmax, hurs, wind),
+             atmos.fire_season(tas), atmos.cffwis(tas, pr, wind, hurs)[0]]
+    assert all(o.device.type == "cpu" for o in outs)
+
+
+def test_land_seaice_generic_indicators_on_cpu_tensors(no_default):
+    from xclim_tpu_torch.indicators import generic, land, seaIce
+
+    snd = _series("snd", 0.2, 65)
+    snd = ClimArray(snd.data.abs(), snd.dims, dict(snd.coords),
+                    {"units": "m", "standard_name": "surface_snow_thickness"},
+                    "snd")
+    q = _series("q", 50.0, 66)
+    q = ClimArray(q.data.abs(), q.dims, dict(q.coords),
+                  {"units": "m3 s-1"}, "q")
+    sic = _series("siconc", 50.0, 67)
+    sic = ClimArray(sic.data.clamp(0, 100), sic.dims, dict(sic.coords),
+                    {"units": "%", "standard_name": "sea_ice_area_fraction"},
+                    "siconc")
+    area = ClimArray(torch.full((3,), 1e3), ("x",), {},
+                     {"units": "km2", "standard_name": "cell_area"},
+                     "areacello")
+    outs = [land.snd_season_length(snd), land.snd_days_above(snd),
+            land.snd_storm_days(snd), land.base_flow_index(q),
+            land.doy_qmax(q), land.flow_index(q, p=0.95),
+            seaIce.sea_ice_extent(sic, area), seaIce.sea_ice_area(sic, area),
+            generic.stats(q, freq="YS", op="max"),
+            generic.fit(generic.stats(q, freq="MS", op="max"), dist="norm"),
+            generic.return_level(q, mode="max", t=2, dist="gumbel_r")]
+    assert all(o.device.type == "cpu" for o in outs)
+
+
+def test_calendar_array_operations_on_cpu_tensors(no_default):
+    from xclim_tpu_torch.core import calendar as cal
+
+    tas = _series("tas", 285.0, 68)
+    doys = ClimArray(torch.full((3,), 100.0), ("x",), {}, {}, "d")
+    outs = [cal.stack_periods(tas, window=2, stride=1),
+            cal.unstack_periods(cal.stack_periods(tas, window=2)),
+            cal.convert_calendar(tas, "360_day"),
+            cal.convert_calendar(tas, "standard", missing=np.nan),
+            cal.mask_between_doys(tas, (60, 200)),
+            cal.mask_between_doys(tas, (doys, doys + 50)),
+            cal.select_time(tas, season="JJA"),
+            cal.convert_doy(tas.resample("YS").max(), "360_day"),
+            cal.within_bnds_doy(tas, low=torch.full((365, 3), 280.0),
+                                high=torch.full((365, 3), 290.0))]
+    mu, sd = cal.climatological_mean_doy(tas.data, tas.time)
+    assert all(o.device.type == "cpu" for o in outs)
+    assert mu.device.type == "cpu" and sd.device.type == "cpu"
+    with pytest.raises(AssertionError, match="default_device"):
+        cal.climatological_mean_doy(tas.values, tas.time)

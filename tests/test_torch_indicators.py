@@ -278,10 +278,9 @@ def test_percentile_indicator_matches_reference(name, var, mu, per, kw, cal,
 import xclim_tpu.indicators.atmos._temperature as jtemperature  # noqa: E402
 from xclim_tpu_torch.indicators.atmos import _temperature as temperature  # noqa: E402
 
-#: the reference's temperature indicators whose compute functions live in
-#: modules the port does not have yet (indices/_agro.py, fire/_cffwis.py)
-#: waits for indices/fire/
-NOT_PORTED = {"fire_season"}
+#: the fire season, held against the reference in tests/test_torch_fire.py
+#: on inputs it takes (a seasonal cycle, snow depth)
+FIRE = {"fire_season"}
 #: the agroclimatic indicators, held against the reference in
 #: tests/test_torch_agro.py on inputs they take (a lat coordinate, hourly
 #: temperature, 30-year windows)
@@ -303,12 +302,11 @@ SUM_INDICATORS = {"cooling_degree_days", "heating_degree_days",
 THRESHOLD_INDICATORS = sorted(
     n for n in temperature.__all__
     if not any(v.endswith("_per") for v in getattr(atmos, n)._variables)
-    and n not in {i[0] for i in INDICATORS} and n not in AGRO)
+    and n not in {i[0] for i in INDICATORS} and n not in AGRO | FIRE)
 
 
 def test_temperature_module_names_and_declarations():
-    assert temperature.__all__ == [n for n in jtemperature.__all__
-                                   if n not in NOT_PORTED]
+    assert temperature.__all__ == jtemperature.__all__
     for name in temperature.__all__:
         got, exp = getattr(atmos, name), getattr(jatmos, name)
         assert got.identifier == exp.identifier

@@ -1,10 +1,12 @@
 """Calendar engine: CF-calendar datetime math, frequency parsing, resample segmentation.
 
-The host part of ``xclim_tpu.core.calendar``: all calendar logic runs
-host-side in vectorized numpy and produces *static integer tables* (segment
-ids, gather indices, expected counts) that the device code consumes as
-tensors. This replaces the reference's cftime/pandas machinery (reference:
-src/xclim/core/calendar.py) without any dynamic per-element Python.
+All calendar logic runs host-side in vectorized numpy and produces *static
+integer tables* (segment ids, gather indices, expected counts) that the
+device code consumes as tensors. This replaces the reference's
+cftime/pandas machinery (reference: src/xclim/core/calendar.py) without any
+dynamic per-element Python. The array-level operations at the end
+(``stack_periods``, ``convert_calendar``, ``mask_between_doys``, ...) apply
+those tables to a ClimArray's tensor on its own device.
 
 Supported CF calendars: standard / gregorian / proleptic_gregorian (treated as
 proleptic Gregorian), julian, noleap / 365_day, all_leap / 366_day, 360_day.
@@ -890,3 +892,406 @@ def percentile_doy_table(time: TimeIndex, window: int = 5) -> tuple[np.ndarray, 
     table = np.where(inrange, pos[idx], -1)
     table = np.where(table >= 0, table, -1)
     return table.reshape(len(doys), -1).astype(np.int32), doys.astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# period stacking (xclim core/calendar.py:1396 stack_periods / :1598 unstack)
+# ---------------------------------------------------------------------------
+
+
+def stack_periods_table(time: TimeIndex, window: int = 30, stride: int | None = None,
+                        min_length: int | None = None, freq: str = "YS"):
+    """Static gather table for stacking `window`-period slices along a new
+    'period' axis (the reference's stack_periods, core/calendar.py:1396).
+
+    Returns (table, period_starts): table (n_periods, max_len) int32 indices
+    into the time axis (-1 padded), and the TimeIndex of period starts.
+    """
+    stride = stride or window
+    min_length = min_length or window
+    spec = resample_segments(time, freq)
+    n = spec.nseg
+    periods = []
+    p_idx = []
+    for i0 in range(0, n, stride):
+        i1 = i0 + window
+        if i1 > n:
+            if (n - i0) < min_length:
+                break
+            i1 = n
+        if (i1 - i0) < min_length:
+            continue
+        s = int(spec.starts[i0])
+        e = int(spec.starts[i1 - 1] + spec.counts[i1 - 1])
+        periods.append((s, e))
+        p_idx.append(i0)
+    if not periods:
+        raise ValueError("No complete periods found.")
+    maxlen = max(e - s for s, e in periods)
+    table = np.full((len(periods), maxlen), -1, dtype=np.int32)
+    for k, (s, e) in enumerate(periods):
+        table[k, : e - s] = np.arange(s, e, dtype=np.int32)
+    return table, spec.labels[np.asarray(p_idx)]
+
+
+def _labels(lab, calendar) -> TimeIndex:
+    if len(lab) == 3:
+        return TimeIndex(lab[0], lab[1], lab[2], calendar=calendar)
+    return TimeIndex(*lab, calendar=calendar)
+
+
+def time_bnds(time: TimeIndex, freq: str | None = None):
+    """(start, end) bounds of each timestep's period (xclim
+    core/calendar.py:793): two TimeIndex of len(time), the start of the
+    step's period and the start of the next one."""
+    if freq is None:
+        freq = time.infer_freq()
+        if freq is None:
+            raise ValueError("Cannot infer freq for time_bnds.")
+    pidx, label_for, _ = _period_index(time, freq)
+    uniq, inv = np.unique(pidx, return_inverse=True)
+    lo = _labels(label_for(uniq), time.calendar)
+    hi = _labels(label_for(uniq + 1), time.calendar)
+    return lo[inv], hi[inv]
+
+
+def climatological_mean_doy(arr, time: TimeIndex, window: int = 5):
+    """Mean and standard deviation (ddof 0) per day of year over a centred
+    `window`-day window of every year (xclim core/calendar.py:907), time on
+    axis 0. A tensor gives tensors on its device; a numpy array is
+    computed on ``default_device()`` and gives numpy arrays, as the
+    reference's host function does."""
+    import torch
+
+    from xclim_tpu_torch.core.dataarray import _tensor
+
+    table, _ = percentile_doy_table(time, window=window)
+    host = not isinstance(arr, torch.Tensor)
+    x = _tensor(np.asarray(arr)) if host else arr
+    idx = torch.as_tensor(table, device=x.device)
+    flat = idx.reshape(-1).clamp(min=0).long()
+    g = x.index_select(0, flat).reshape(idx.shape + x.shape[1:])
+    valid = (idx >= 0).reshape(idx.shape + (1,) * (x.ndim - 1))
+    g = torch.where(valid, g, torch.nan)
+    mu = torch.nanmean(g, dim=1)
+    sd = torch.sqrt(torch.nanmean((g - mu.unsqueeze(1)) ** 2, dim=1))
+    return (mu.cpu().numpy(), sd.cpu().numpy()) if host else (mu, sd)
+
+
+# ---------------------------------------------------------------------------
+# public array-level calendar operations
+# (xclim core/calendar.py:1166 mask_between_doys, :1396 stack_periods,
+#  :1598 unstack_periods; xarray-level convert_calendar)
+# ---------------------------------------------------------------------------
+
+
+def _along_time(values, da):
+    """A (T,) host or device vector shaped to broadcast along da's time
+    axis, on da's device."""
+    import torch
+
+    shape = [1] * da.ndim
+    shape[da.time_axis] = len(da.time)
+    return torch.as_tensor(values, device=da.data.device).reshape(shape)
+
+
+def mask_between_doys(da, doy_bounds, include_bounds=(True, True)):
+    """Boolean mask of steps inside day-of-year bounds
+    (xclim core/calendar.py:1166).
+
+    `doy_bounds` may be a pair of ints (possibly wrapping the year end) or a
+    pair of ClimArrays (or tensors) of per-cell bounds without a time dim,
+    in da's order of the other dims. Returns a ClimArray of bools on `da`'s
+    dims and device (a host mask when `da` is a TimeIndex).
+    """
+    import torch
+
+    from xclim_tpu_torch.core.dataarray import ClimArray, _tensor
+
+    time = da.time if isinstance(da, ClimArray) else da
+    start, end = doy_bounds
+    if isinstance(start, (int, np.integer)) and isinstance(end, (int, np.integer)):
+        m = select_time_mask(time, doy_bounds=(int(start), int(end)),
+                             include_bounds=include_bounds)
+        if not isinstance(da, ClimArray):
+            return m
+        return ClimArray(_along_time(m, da).expand(da.shape), da.dims,
+                         dict(da.coords), {}, "mask")
+    if not isinstance(da, ClimArray):
+        raise TypeError("Array bounds require a ClimArray input.")
+    sv, ev = (_tensor(getattr(b, "data", b), like=da.data)
+              for b in (start, end))
+    sv = torch.where(torch.isnan(sv), 1.0, sv)
+    ev = torch.where(torch.isnan(ev), float(max_doy(time.calendar)), ev)
+    if not include_bounds[0]:
+        sv = sv + 1
+    if not include_bounds[1]:
+        ev = ev - 1
+    doy = _along_time(time.doy.astype(np.float32), da)
+    other = [1 if d == "time" else s for d, s in zip(da.dims, da.shape)]
+    svb = sv.reshape(other) if sv.ndim else sv
+    evb = ev.reshape(other) if ev.ndim else ev
+    inside = torch.where(svb > evb, (doy >= svb) | (doy <= evb),
+                         (doy >= svb) & (doy <= evb))
+    return ClimArray(inside.expand(da.shape), da.dims, dict(da.coords), {},
+                     "mask")
+
+
+def stack_periods(da, window: int = 30, stride: int | None = None,
+                  min_length: int | None = None, freq: str = "YS"):
+    """Stack (possibly overlapping) `window`-period slices of `da` on a new
+    leading 'period' dimension (xclim core/calendar.py:1396).
+
+    One static gather table gives a fixed (n_periods, max_len) layout, NaN
+    padded; the inverse mapping is kept in ``coords['_stack']`` for
+    :func:`unstack_periods`.
+    """
+    import torch
+
+    from xclim_tpu_torch.core.dataarray import ClimArray
+
+    table, starts = stack_periods_table(da.time, window=window, stride=stride,
+                                        min_length=min_length, freq=freq)
+    ax = da.time_axis
+    x = torch.movedim(da.data, ax, 0)
+    tbl = torch.as_tensor(table, device=x.device)
+    g = x.index_select(0, tbl.reshape(-1).clamp(min=0).long()).reshape(
+        tbl.shape + x.shape[1:])
+    mask = (tbl >= 0).reshape(tbl.shape + (1,) * (x.ndim - 1))
+    g = torch.movedim(torch.where(mask, g, torch.nan), 1, ax + 1)
+    coords = {k: v for k, v in da.coords.items() if k != "time"}
+    coords["period"] = starts
+    coords["_stack"] = {"table": table, "time": da.time,
+                        "stride": stride or window, "window": window}
+    return ClimArray(g, ("period",) + da.dims, coords, dict(da.attrs), da.name)
+
+
+def unstack_periods(da, dim: str = "period"):
+    """Invert :func:`stack_periods` (xclim core/calendar.py:1598).
+
+    For overlapping windows (stride < window) each timestep takes its value
+    from the last period that holds it, as the reference does when
+    reconstructing from overlapping climatological windows.
+    """
+    import torch
+
+    from xclim_tpu_torch.core.dataarray import ClimArray
+
+    info = da.coords.get("_stack")
+    if info is None:
+        raise ValueError("Input was not produced by stack_periods.")
+    table: np.ndarray = info["table"]
+    time: TimeIndex = info["time"]
+    pax = da.dims.index(dim)
+    x = torch.movedim(da.data, pax, 0)
+    tax = da.dims.index("time") - (1 if pax < da.dims.index("time") else 0)
+    x = torch.movedim(x, tax + 1, 1)  # (period, slot, ...)
+    # the last period holding a step owns it; with stride == window it is
+    # the only one
+    owner = np.full(len(time), -1, dtype=np.int64)
+    slot = np.zeros(len(time), dtype=np.int64)
+    for p in range(table.shape[0]):
+        valid = table[p] >= 0
+        owner[table[p][valid]] = p
+        slot[table[p][valid]] = np.nonzero(valid)[0]
+    keep = owner >= 0
+    gathered = x[torch.as_tensor(owner[keep], device=x.device),
+                 torch.as_tensor(slot[keep], device=x.device)]
+    out_dims = tuple(d for d in da.dims if d != dim)
+    coords = {k: v for k, v in da.coords.items() if k not in (dim, "_stack")}
+    coords["time"] = time[keep]
+    return ClimArray(torch.movedim(gathered, 0, out_dims.index("time")),
+                     out_dims, coords, dict(da.attrs), da.name)
+
+
+def convert_calendar(da, target: str, align_on: str = "date", missing=None):
+    """Convert a ClimArray's time coordinate to another calendar
+    (xarray ``convert_calendar`` / xclim core/calendar.py docs).
+
+    Dates absent from the target calendar (Feb 29 -> noleap) are dropped;
+    with ``missing`` set, dates of the target calendar absent from the
+    source are inserted filled with ``missing`` (at the source's inferred
+    frequency, else daily). 360_day conversions map the day of year
+    proportionally (``align_on='year'``) whatever ``align_on`` says.
+    """
+    import torch
+
+    from xclim_tpu_torch.core.dataarray import ClimArray
+
+    time = da.time
+    new_time, keep = time.convert_calendar(target)
+    ax = da.time_axis
+    x = torch.movedim(da.data, ax, 0)
+    x = x.index_select(0, torch.as_tensor(np.nonzero(keep)[0], device=x.device))
+    if missing is not None:
+        freq = time.infer_freq() or "D"
+        full = date_range(new_time.isoformat(0),
+                          end=new_time.isoformat(len(new_time) - 1),
+                          freq=freq, calendar=target)
+        lookup = {int(e): i for i, e in enumerate(full.encode())}
+        idx = np.array([lookup[int(e)] for e in new_time.encode()],
+                       dtype=np.int64)
+        filled = torch.full((len(full),) + x.shape[1:], float(missing),
+                            dtype=x.dtype, device=x.device)
+        x = filled.index_copy(0, torch.as_tensor(idx, device=x.device), x)
+        new_time = full
+    coords = dict(da.coords)
+    coords["time"] = new_time
+    return ClimArray(torch.movedim(x, 0, ax), da.dims, coords,
+                     dict(da.attrs), da.name)
+
+
+# ---------------------------------------------------------------------------
+# public aliases & small API helpers (reference export parity,
+# xclim core/calendar.py)
+# ---------------------------------------------------------------------------
+
+#: Type alias for 'MM-DD' day-of-year strings (xclim DayOfYearStr)
+DayOfYearStr = str
+
+#: Calendars with a constant year length (xclim core/calendar.py:108)
+uniform_calendars = ("noleap", "all_leap", "365_day", "366_day", "360_day")
+
+
+def ensure_cftime_array(time):
+    """Normalize a time axis to a TimeIndex, which plays the role of a
+    cftime array here (xclim core/calendar.py)."""
+    if isinstance(time, TimeIndex):
+        return time
+    arr = np.asarray(time)
+    if np.issubdtype(arr.dtype, np.datetime64):
+        return TimeIndex.from_datetime64(arr)
+    raise TypeError(f"Cannot interpret {type(time)} as a time index.")
+
+
+def is_offset_divisor(divisor: str, offset: str) -> bool:
+    """Whether a whole number of `divisor` periods fit in one `offset` period
+    (xclim core/calendar.py:629)."""
+    mult_d, base_d, _, _ = parse_offset(divisor)
+    mult_o, base_o, _, _ = parse_offset(offset)
+    order = {"s": 0, "min": 1, "h": 2, "D": 3, "W": 4, "M": 5, "Q": 6, "Y": 7}
+    bd = {"T": "min", "H": "h"}.get(base_d, base_d)
+    bo = {"T": "min", "H": "h"}.get(base_o, base_o)
+    if order[bd] > order[bo]:
+        return False
+    if bd in ("W", "M", "Q", "Y") or bo in ("W", "M", "Q", "Y"):
+        # calendar-based: month-multiple logic
+        months = {"M": 1, "Q": 3, "Y": 12}
+        if bd in months and bo in months:
+            return (months[bo] * mult_o) % (months[bd] * mult_d) == 0
+        if bd == "W":
+            return bo == "W" and mult_o % mult_d == 0
+        # a fixed sub-month divisor divides any month-based period only if
+        # it divides a day
+        return freq_seconds(divisor) <= 86400 and \
+            (86400 % freq_seconds(divisor) == 0)
+    return freq_seconds(offset) % freq_seconds(divisor) == 0
+
+
+def within_bnds_doy(arr, *, low, high):
+    """True where values lie within per-doy bounds (xclim
+    core/calendar.py:934). `low`/`high` have a leading 'dayofyear' dim;
+    they are gathered onto arr's time axis (axis 0)."""
+    import torch
+
+    from xclim_tpu_torch.core.dataarray import ClimArray, _tensor
+
+    doy = arr.time.doy.astype(np.int64)
+
+    def _on_time(b):
+        bd = _tensor(getattr(b, "data", b), like=arr.data)
+        doys = np.asarray(b.coords["dayofyear"]) if isinstance(b, ClimArray) \
+            else np.arange(1, bd.shape[0] + 1)
+        pos = np.clip(np.searchsorted(doys, doy), 0, len(doys) - 1)
+        bd = bd.index_select(0, torch.as_tensor(pos, device=bd.device))
+        return bd.reshape(bd.shape + (1,) * (arr.ndim - bd.ndim))
+
+    out = (arr.data >= _on_time(low)) & (arr.data <= _on_time(high))
+    return ClimArray(out, arr.dims, dict(arr.coords), {}, "within_bnds")
+
+
+def convert_doy(source, target_cal: str, source_cal: str | None = None,
+                align_on: str = "year"):
+    """Convert day-of-year values between calendars (xclim
+    core/calendar.py convert_doy): proportional mapping of the doy onto the
+    target calendar's year length. A ClimArray with a time axis maps each
+    year by its own lengths; anything else by the calendars' longest year
+    (``source_cal`` defaults to standard)."""
+    from xclim_tpu_torch.core.dataarray import ClimArray, _tensor
+
+    is_da = isinstance(source, ClimArray)
+    vals = source.data if is_da else _tensor(source)
+    if is_da and source.time is not None:
+        years = source.time.year
+        src_cal = source_cal or source.time.calendar
+        nd_src = _along_time(days_in_year(years, src_cal).astype(np.float32),
+                             source)
+        nd_tgt = _along_time(days_in_year(years, target_cal).astype(np.float32),
+                             source)
+    else:
+        nd_src = float(max_doy(source_cal or "standard"))
+        nd_tgt = float(max_doy(target_cal))
+    new = (vals - 0.5) / nd_src * nd_tgt + 0.5
+    if not is_da:
+        return new
+    out = source.copy(data=new)
+    out.attrs["calendar"] = normalize_calendar(target_cal)
+    return out
+
+
+def split_time_to_season_year(da, freq: str = "QS-DEC"):
+    """Reshape a quarterly series onto ('year', 'season') dims (xclim
+    core/calendar.py split_time_to_season_year); December counts toward
+    the next year's DJF."""
+    import torch
+
+    from xclim_tpu_torch.core.dataarray import ClimArray
+
+    labels = da.time
+    year = labels.year + (labels.month == 12).astype(np.int64)
+    seasons = np.array(["DJF", "MAM", "JJA", "SON"])
+    years = np.unique(year)
+    tbl = np.full((len(years), 4), -1, dtype=np.int64)
+    # DJF, MAM, JJA, SON = 0..3
+    tbl[np.searchsorted(years, year), labels.month % 12 // 3] = \
+        np.arange(len(labels))
+    data = torch.movedim(da.data, da.dims.index("time"), 0)
+    idx = torch.as_tensor(tbl, device=data.device)
+    g = data.index_select(0, idx.reshape(-1).clamp(min=0)).reshape(
+        idx.shape + data.shape[1:])
+    g = torch.where((idx >= 0).reshape(idx.shape + (1,) * (data.ndim - 1)),
+                    g, torch.nan)
+    space_dims = tuple(d for d in da.dims if d != "time")
+    coords = {k: v for k, v in da.coords.items() if k in space_dims}
+    return ClimArray(g, ("year", "season") + space_dims,
+                     {"year": years, "season": seasons, **coords},
+                     dict(da.attrs), da.name)
+
+
+def add_season_coord(da):
+    """Attach a 'season' coordinate derived from the time axis (xclim
+    core/calendar.py add_season_coord)."""
+    out = da.copy()
+    out.coords["season"] = da.time.season
+    return out
+
+
+def select_time(da, drop: bool = False, **indexer):
+    """Select (or mask) the timesteps matched by the indexer: the function
+    form of ``ClimArray.select_time`` (xclim core/calendar.py:1259)."""
+    return da.select_time(drop=drop, **indexer)
+
+
+#: the doy-climatology functions the reference re-exports from core.calendar
+#: (xclim core/calendar.py:396-907); they live in core/percentiles.py, which
+#: imports this module, so they are looked up on first use
+_FROM_PERCENTILES = ("adjust_doy_calendar", "build_climatology_bounds",
+                     "percentile_doy", "resample_doy")
+
+
+def __getattr__(name):
+    if name in _FROM_PERCENTILES:
+        from xclim_tpu_torch.core import percentiles
+
+        return getattr(percentiles, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,3 +1,3 @@
 """Indicator realm modules (reference: xclim:src/xclim/indicators/)."""
 
-from xclim_tpu_torch.indicators import atmos, convert  # noqa: F401
+from xclim_tpu_torch.indicators import atmos, convert, generic, land, seaIce  # noqa: F401

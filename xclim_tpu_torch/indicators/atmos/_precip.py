@@ -1,10 +1,5 @@
 """Precipitation indicator declarations
-(reference: xclim:src/xclim/indicators/atmos/_precip.py).
-
-Every indicator of the reference's module is here except the fire-weather
-family (``FireWeather``: cffwis, dc, dmc, kbdi, df, ffdi), whose compute
-functions live in ``indices/fire/``, which the port does not have yet.
-"""
+(reference: xclim:src/xclim/indicators/atmos/_precip.py)."""
 
 from __future__ import annotations
 
@@ -14,11 +9,17 @@ from xclim_tpu_torch.core.indicator import Daily, Hourly, ResamplingIndicatorWit
 __all__ = [
     "api",
     "aridity_index",
+    "cffwis",
     "days_over_precip_doy_thresh",
     "days_with_snow",
+    "dc",
+    "df",
+    "dmc",
     "dryness_index",
+    "ffdi",
     "first_snowfall",
     "fraction_over_precip_doy_thresh",
+    "kbdi",
     "last_snowfall",
     "liquid_precip_ratio",
     "liquidprcpavg",
@@ -335,10 +336,83 @@ wet_prcptot = PrecipWithIndexing(
 
 
 # ---------------------------------------------------------------------------
-# additional reference indicators (xclim:_precip.py second half: snow,
+# additional reference indicators (xclim:_precip.py second half: fire, snow,
 # standardized indices, ratios)
 # ---------------------------------------------------------------------------
 
+
+class FireWeather(Precip):
+    """Fire-weather indicator (CFFWIS / FFDI families)."""
+
+    keywords = "fire"
+    missing = "skip"
+
+
+cffwis = FireWeather(
+    identifier="cffwis",
+    title="Canadian Forest Fire Weather Index System",
+    cf_attrs=[
+        {"var_name": "dc", "units": "", "long_name": "Drought code"},
+        {"var_name": "dmc", "units": "", "long_name": "Duff moisture code"},
+        {"var_name": "ffmc", "units": "",
+         "long_name": "Fine fuel moisture code"},
+        {"var_name": "isi", "units": "", "long_name": "Initial spread index"},
+        {"var_name": "bui", "units": "", "long_name": "Buildup index"},
+        {"var_name": "fwi", "units": "", "long_name": "Fire weather index"},
+        {"var_name": "dsr", "units": "",
+         "long_name": "Daily severity rating"},
+    ],
+    compute=indices.cffwis_indices,
+)
+
+dc = FireWeather(
+    identifier="dc",
+    title="Drought code",
+    units="",
+    long_name="Drought code",
+    description="Numerical code estimating the average moisture content of "
+                "deep, compact organic layers (CFFWIS).",
+    compute=indices.drought_code,
+)
+
+dmc = FireWeather(
+    identifier="dmc",
+    title="Duff moisture code",
+    units="",
+    long_name="Duff moisture code",
+    description="Numerical code estimating the average moisture content of "
+                "loosely compacted organic layers of moderate depth (CFFWIS).",
+    compute=indices.duff_moisture_code,
+)
+
+kbdi = FireWeather(
+    identifier="kbdi",
+    title="Keetch-Byram drought index",
+    units="mm/day",
+    long_name="Keetch-Byram drought index",
+    description="Amount of water necessary to bring the soil moisture "
+                "content back to field capacity.",
+    compute=indices.keetch_byram_drought_index,
+)
+
+df = FireWeather(
+    identifier="df",
+    title="Griffiths drought factor",
+    units="",
+    long_name="Griffiths drought factor",
+    description="Numeric indicator of the forest fire fuel availability in "
+                "the deep litter bed (Griffiths method).",
+    compute=indices.griffiths_drought_factor,
+)
+
+ffdi = FireWeather(
+    identifier="ffdi",
+    title="McArthur forest fire danger index",
+    units="",
+    long_name="McArthur forest fire danger index (Mark 5)",
+    description="Numeric rating of the potential danger of a forest fire.",
+    compute=indices.mcarthur_forest_fire_danger_index,
+)
 
 spi = Precip(
     identifier="spi",

@@ -3,9 +3,6 @@
 
 Realm subclasses mirror the reference ladder (Temp(Daily) etc.,
 _temperature.py:117-140); instances are plain declarative constructions.
-Every indicator of the reference's module is here except ``fire_season``,
-whose compute function lives in ``indices/fire/``, which the port does not
-have yet.
 """
 
 from __future__ import annotations
@@ -26,6 +23,7 @@ __all__ = [
     "cu",
     "dlyfrzthw",
     "effective_growing_degree_days",
+    "fire_season",
     "first_day_tg_below",
     "first_day_tn_below",
     "first_day_tx_below",
@@ -1110,6 +1108,16 @@ heat_spell_total_length = Temp(
                 "freq": {"default": "YS"},
                 "threshold1": {"default": "20 degC"},
                 "threshold2": {"default": "33 degC"}},
+)
+
+fire_season = Temp(
+    identifier="fire_season",
+    title="Fire season mask",
+    units="",
+    long_name="Fire season mask",
+    description="Fire season mask, computed with method {method}.",
+    missing="skip",
+    compute=indices.fire_season,
 )
 
 

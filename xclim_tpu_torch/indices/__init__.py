@@ -1,8 +1,8 @@
 """Index functions (reference: xclim:src/xclim/indices/__init__.py).
 
-Every index module of the reference but ``fire/``: the simple per-period
-reductions, the threshold, multivariate (with the doy-percentile indices
-and their bootstrap), agroclimatic, ANUCLIM, hydrological and synoptic
+Every index module of the reference: the simple per-period reductions, the
+threshold, multivariate (with the doy-percentile indices and their
+bootstrap), agroclimatic, ANUCLIM, hydrological, synoptic and fire-weather
 indices, the physical converters, the solar helpers, the generic and
 run-length building blocks, and the distribution fitting of ``stats.py``.
 """
@@ -21,3 +21,5 @@ from xclim_tpu_torch.indices._multivariate import *  # noqa: F401,F403
 from xclim_tpu_torch.indices import converters, generic  # noqa: F401
 from xclim_tpu_torch.indices.converters import *  # noqa: F401,F403
 from xclim_tpu_torch.indices import helpers, run_length, stats  # noqa: F401
+from xclim_tpu_torch.indices import fire  # noqa: F401
+from xclim_tpu_torch.indices.fire import *  # noqa: F401,F403
