@@ -131,7 +131,34 @@ Builds the hand-written CUDA kernels from ``xclim_tpu_torch/csrc`` (into
     noleap, ``stack_periods(window=30, stride=10)`` and
     ``unstack_periods``, ``mask_between_doys``, ``select_time`` by season,
     month and doy bounds), each the median of 3 after a warm-up and equal
-    to the CPU run on a 256-cell crop.
+    to the CPU run on a 256-cell crop;
+23. runs each of the 131 indicators of the YAML modules icclim, anuclim
+    and cf at 128 x 128 cells x 30 noleap years with every variable they
+    read (tas, tasmax, tasmin, pr, snd, hurs, psl, sfcWind, wsgsmax, sund;
+    0.72 GB each) and the percentile inputs from ``percentile_doy`` over
+    the series: seconds (one warm-up, one timed run), segred and spells
+    launches, the outputs against the CPU run on an 8 x 8 crop, an entry
+    that only renames a core indicator equal to it, and the five entries
+    that refuse such inputs in the JAX package refusing them on both
+    devices alike;
+24. writes a classic NetCDF file of tas, tasmax, tasmin and pr at 16384
+    cells x 10950 days (2.87 GB, scipy, a temporary directory), reads it
+    with the native reader (counted in ``xclim_tpu_torch.io.netcdf.opens``;
+    values equal to what was written), moves it to the card and runs the
+    command line's pipeline (``xclim_tpu_torch.cli.Pipeline``: the data
+    flags and ten icclim indicators) plain and ``--fused`` (equal to each
+    other, the indicators on a crop equal to the CPU pipeline), timing the
+    read, host to card, compute and write apart; then the pipeline once
+    more from the file, and click's ``main`` where click is installed
+    (the write needs h5py; each of PyYAML, click and h5py is printed as
+    installed or missing);
+25. at the same size, ``data_flags`` for tas, tasmax, tasmin and pr and
+    ``ecad_compliant`` (each flag on a crop equal to the CPU run),
+    ``spatial_analogs`` of one cell's 30 annual samples x 3 indicators
+    against the 16384 cells with each metric (the crop held to the CPU's
+    float32 and float64 runs), ``sharded_jit(atmos.tg_mean)`` on the (1, 1)
+    mesh equal to the plain call, ``utils.profiling.profile``'s trace (in
+    a fresh process) and ``timed``'s synced seconds.
 
 Each phase prints its wall seconds (``[wall]``).
 
@@ -4041,6 +4068,658 @@ def phase_calendar(device, card):
     torch.cuda.empty_cache()
 
 
+YM_SIDE = 128         # 128 x 128 = 16384 cells
+YM_YEARS = 30         # 10950 noleap days from 1981-01-01
+YM_CROP = 8           # side of the crop held against the CPU run
+YM_MODULES = ("icclim", "anuclim", "cf")
+#: the units of pr each module reads (anuclim's totals convert their
+#: output to "mm", which needs an amount rate)
+YM_PR_UNITS = {"icclim": "kg m-2 s-1", "anuclim": "mm d-1",
+               "cf": "kg m-2 s-1"}
+#: percentile input -> (variable, percentile)
+YM_PERCENTILES = {"tas_per": ("tas", 90), "tasmax_per": ("tasmax", 90),
+                  "tasmin_per": ("tasmin", 10), "pr_per": ("pr", 75)}
+
+
+def _yaml_inputs(device):
+    """Every variable the three YAML modules read, (10950, 128, 128)
+    float32 on the card from one seeded generator (0.72 GB each): tas,
+    tasmax, tasmin with each hemisphere's seasonal cycle, pr with 45-55 %
+    dry days, snd with winter snow, hurs, psl, sfcWind, wsgsmax, sund; a
+    lat coordinate from -60 to 70."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from xclim_tpu_torch.core.calendar import date_range
+    from xclim_tpu_torch.core.dataarray import ClimArray
+
+    t = date_range("1981-01-01", periods=YM_YEARS * 365, freq="D",
+                   calendar="noleap")
+    lat = np.linspace(-60.0, 70.0, YM_SIDE)
+    coords = {"time": t, "lat": lat, "lon": np.arange(float(YM_SIDE))}
+    shape = (len(t), YM_SIDE, YM_SIDE)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 15)
+    doy = torch.arange(len(t), device=device) % 365
+    season = torch.cos(2 * math.pi * (doy - 200) / 365.0).reshape(-1, 1, 1)
+    north = torch.as_tensor(np.sign(lat), dtype=torch.float32,
+                            device=device).reshape(1, -1, 1)
+
+    def normal(mu, sd, seas=0.0):
+        x = torch.randn(shape, generator=gen, device=device).mul_(sd)
+        return x.add_(mu + seas * season * north)
+
+    dry = 0.45 + 0.1 * torch.rand((1, YM_SIDE, YM_SIDE), generator=gen,
+                                  device=device)
+    u = torch.rand(shape, generator=gen, device=device)
+    w = torch.rand(shape, generator=gen, device=device)
+    pr = torch.where(u < dry, 0.0, -6.0 / 86400.0 * torch.log1p(-w))
+    del u, w
+    tas = normal(281.0, 3.0, 12.0)
+    spec = {
+        "tas": (tas, "K", "air_temperature", "time: mean"),
+        "tasmax": (tas + 6.0 + normal(0.0, 1.0), "K", "air_temperature",
+                   "time: maximum"),
+        "tasmin": (tas - 6.0 + normal(0.0, 1.0), "K", "air_temperature",
+                   "time: minimum"),
+        "pr": (pr, "kg m-2 s-1", "precipitation_flux", None),
+        "snd": (normal(0.05, 0.2, -0.3).clamp_(min=0.0), "m",
+                "surface_snow_thickness", None),
+        "hurs": (normal(70.0, 12.0).clamp_(5.0, 100.0), "%",
+                 "relative_humidity", None),
+        "psl": (normal(101300.0, 900.0), "Pa", "air_pressure_at_sea_level",
+                None),
+        "sfcWind": (normal(5.0, 3.0).abs_(), "m s-1", "wind_speed", None),
+        "wsgsmax": (normal(14.0, 5.0).abs_(), "m s-1", "wind_speed_of_gust",
+                    None),
+        "sund": (normal(20000.0, 12000.0, 8000.0).clamp_(min=0.0), "s",
+                 "duration_of_sunshine", None),
+    }
+    out = {}
+    for name, (data, units, sn, cm) in spec.items():
+        attrs = {"units": units, "standard_name": sn}
+        if cm:
+            attrs["cell_methods"] = cm
+        out[name] = ClimArray(data, ("time", "lat", "lon"), coords, attrs,
+                              name)
+    return out
+
+
+def _yaml_datasets(a):
+    """Per module, the ClimDataset its indicators read: the inputs, pr in
+    the module's units and the four percentile inputs (percentile_doy,
+    window 5, over the series itself)."""
+    from xclim_tpu_torch.core.dataarray import ClimDataset
+    from xclim_tpu_torch.core.percentiles import percentile_doy
+    from xclim_tpu_torch.core.units import convert_units_to
+
+    base = ClimDataset(dict(a))
+    for key, (var, per) in YM_PERCENTILES.items():
+        base[key] = percentile_doy(a[var], window=5, per=per)
+    out = {}
+    for m in YM_MODULES:
+        ds = base.copy()
+        if YM_PR_UNITS[m] != a["pr"].attrs["units"]:
+            ds["pr"] = convert_units_to(a["pr"], YM_PR_UNITS[m],
+                                        context="hydro")
+        out[m] = ds
+    return out
+
+
+def _ym_crop(ds):
+    """The first YM_CROP x YM_CROP cells of every variable, on the CPU."""
+    from xclim_tpu_torch.core.dataarray import ClimDataset
+
+    return ClimDataset({k: v.isel(lat=slice(0, YM_CROP),
+                                  lon=slice(0, YM_CROP)).to("cpu")
+                        for k, v in ds.items()})
+
+
+def _ym_kwargs(ind):
+    """freq="YS" where the indicator takes a freq its module does not set;
+    a threshold of 10 degC where the module leaves it open (cf's *TT
+    temperature spells and sums)."""
+    import inspect
+
+    out = {}
+    for name, value in (("freq", "YS"), ("threshold", "10 degC")):
+        p = ind.parameters.get(name)
+        if p is not None and not p.injected and (
+                name == "freq" or p.default is inspect.Parameter.empty):
+            out[name] = value
+    return out
+
+
+def _ym_call(ind, ds):
+    """(outputs as a tuple, None) or (None, the error) of ind on ds."""
+    import warnings
+
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            out = ind(ds=ds, **_ym_kwargs(ind))
+    except Exception as err:  # noqa: BLE001  (compared with the CPU run's)
+        return None, err
+    return (out if isinstance(out, tuple) else (out,)), None
+
+
+def _ym_renames():
+    """YAML key -> core registry key, for the entries that only rename a
+    core indicator (``base:`` and nothing else)."""
+    import json
+    import pathlib
+
+    import xclim_tpu_torch
+
+    data = pathlib.Path(xclim_tpu_torch.__file__).parent / "data"
+    out = {}
+    for m in YM_MODULES:
+        defs = json.loads((data / f"{m}.json").read_text())["indicators"]
+        for ident, d in defs.items():
+            if d and set(d) == {"base"}:
+                out[f"{m}.{ident.upper()}"] = d["base"].upper()
+    return out
+
+
+def phase_yaml_modules(device, card, record):
+    """Every indicator of the YAML modules icclim, anuclim and cf (131) on
+    the card at 128 x 128 cells x 30 noleap years, with every variable they
+    read and the percentile inputs from percentile_doy over the series:
+    each call's seconds (one warm-up, then one timed run) and segred/spells
+    launches (no twin on the card); its outputs held to its CPU run on an
+    8 x 8 crop (the same percentiles, cropped); an entry that only renames
+    a core indicator equal to that indicator's card output; an entry that
+    refuses the inputs refuses them on both devices with the same error.
+    Returns the inputs."""
+    import torch
+
+    import xclim_tpu_torch.indicators  # noqa: F401  (the YAML modules)
+    from xclim_tpu_torch.core.indicator import registry
+
+    a = _yaml_inputs(device)
+    t0 = time.perf_counter()
+    dss = _yaml_datasets(a)
+    torch.cuda.synchronize()
+    _log(f"[yaml] inputs: {len(a)} variables ({YM_YEARS * 365}, {YM_SIDE}, "
+         f"{YM_SIDE}) float32, {a['tas'].data.numel() * 4 / 1e9:.3f} GB each; "
+         f"the four percentile inputs in {time.perf_counter() - t0:.3f} s")
+    crops = {m: _ym_crop(ds) for m, ds in dss.items()}
+    renames = _ym_renames()
+    keys = sorted(k for k in registry if k.split(".")[0] in YM_MODULES)
+    if len(keys) != 131:
+        raise AssertionError(f"{len(keys)} YAML indicators, expected 131")
+    failed, total, refused = [], 0.0, []
+    launches = {"segred": 0, "spells": 0}
+    for key in keys:
+        m = key.split(".")[0]
+        ind = registry[key]
+        _ym_call(ind, dss[m])  # warm-up
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        out, err = _ym_call(ind, dss[m])
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = {k: v for k, v in _counts().items() if v}
+        want, cerr = _ym_call(ind, crops[m])
+        if err is not None or cerr is not None:
+            if err is None or cerr is None or type(err) is not type(cerr) \
+                    or str(err) != str(cerr):
+                failed.append(f"{key}: card {err!r}, cpu {cerr!r}")
+            else:
+                refused.append(key)
+                _log(f"[yaml] {key}: refuses the inputs on the card and on "
+                     f"the CPU alike ({type(err).__name__}: {str(err)[:80]})")
+            continue
+        total += sec
+        if any(k.endswith("_twin") for k in counts):
+            raise AssertionError(f"{key} on the card called a twin: {counts}")
+        for k, v in counts.items():
+            if k in record:
+                record[k]["paths"][f"yaml {key}"] = v
+            if k in launches:
+                launches[k] += v
+        errs = []
+        try:
+            for i, (g, w) in enumerate(zip(out, want)):
+                got = g.isel(lat=slice(0, YM_CROP), lon=slice(0, YM_CROP))
+                if not bool(torch.isfinite(g.data.float()).any()):
+                    raise AssertionError(f"{key} [{i}]: no finite value")
+                # counts exactly; floats within RTOL, as the CPU tests
+                errs.append(_compare(f"{key} [{i}] cpu vs card", got.data,
+                                     w.data, rtol=RTOL, atol=0.0))
+            if key in renames:
+                core, _ = _ym_call(registry[renames[key]], dss[m])
+                for i, (g, c) in enumerate(zip(out, core)):
+                    _compare(f"{key} [{i}] vs {renames[key]}", g.data, c.data,
+                             rtol=0.0, atol=0.0)
+        except AssertionError as exc:
+            failed.append(str(exc))
+        _log(f"[yaml] {key} {[tuple(o.shape) for o in out]} on {card}: "
+             f"{sec:.4f} s; launches {json.dumps(counts)}; {YM_CROP}x{YM_CROP} "
+             f"crop: CPU run max_abs_err {[float(f'{e:.3g}') for e in errs]}"
+             + (f"; equal to {renames[key]}" if key in renames else ""))
+        del out, want
+    _log(f"[yaml] {len(keys) - len(refused)} calls: {total:.3f} s in all; "
+         f"segred {launches['segred']} and spells {launches['spells']} "
+         f"launches; {len(refused)} refuse the inputs on both devices "
+         f"({', '.join(refused)})")
+    if failed:
+        raise AssertionError("YAML indicators disagree:\n" + "\n".join(failed))
+    if not launches["segred"] or not launches["spells"]:
+        raise AssertionError(f"the YAML indicators launched {launches}")
+    del dss, crops
+    torch.cuda.empty_cache()
+    return a
+
+
+CLI_VARS = ("tas", "tasmax", "tasmin", "pr")
+#: the command line's chain: ten icclim indicators after the data flags
+#: (which, as in the reference, replace what earlier commands merged)
+CLI_CHAIN = ("icclim.TG", "icclim.TXx", "icclim.TNn", "icclim.SU",
+             "icclim.FD", "icclim.TR", "icclim.GD4", "icclim.CDD",
+             "icclim.CWD", "icclim.RX5day")
+
+
+def _write_classic(path, a):
+    """The CLI variables of `a` as a classic (64-bit offset) NetCDF file
+    written by scipy: the host values written, by name."""
+    import numpy as np
+    from scipy.io import netcdf_file
+
+    host = {k: a[k].values for k in CLI_VARS}
+    t = a["tas"].time
+    with netcdf_file(str(path), "w", version=2) as f:
+        f.createDimension("time", len(t))
+        f.createDimension("lat", YM_SIDE)
+        f.createDimension("lon", YM_SIDE)
+        tv = f.createVariable("time", "f8", ("time",))
+        tv[:] = np.arange(len(t), dtype=np.float64)
+        tv.units = b"days since 1981-01-01"
+        tv.calendar = b"noleap"
+        for c in ("lat", "lon"):
+            cv = f.createVariable(c, "f8", (c,))
+            cv[:] = a["tas"].coords[c]
+        for k, x in host.items():
+            v = f.createVariable(k, "f4", ("time", "lat", "lon"))
+            v[:] = x
+            for name, val in a[k].attrs.items():
+                setattr(v, name, val.encode())
+    return host
+
+
+def _cli_run(pipe):
+    """The CLI's commands on a Pipeline: dataflags, then the chain (and the
+    fused chain's run); returns the flag lines."""
+    from xclim_tpu_torch.cli import get_indicator
+
+    lines = pipe.dataflags()
+    for name in CLI_CHAIN:
+        pipe.indicator(get_indicator(name))
+    pipe.run_fused()
+    return lines
+
+
+def phase_cli(device, card, record, a):
+    """The command line's pipeline on the card: a classic NetCDF file of
+    16384 cells x 10950 days (tas, tasmax, tasmin, pr; 2.87 GB, written by
+    scipy in a temporary directory) opened by the native reader (values
+    equal to what was written), moved to the card, the data flags and ten
+    icclim indicators run plain and --fused (equal to each other; the
+    indicators on an 8 x 8 crop equal to the pipeline's CPU run), the
+    output written where h5py is installed; read, host to card, compute and
+    write timed apart; the whole pipeline from the file once more, and
+    through click's ``main`` where click is installed."""
+    import importlib
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from xclim_tpu_torch.cli import Pipeline
+    from xclim_tpu_torch.core.dataarray import ClimDataset
+    from xclim_tpu_torch.io import netcdf, open_dataset, to_netcdf
+
+    have = {}
+    for pkg in ("yaml", "click", "h5py"):
+        try:
+            mod = importlib.import_module(pkg)
+            have[pkg] = True
+            _log(f"[install] {pkg}: {getattr(mod, '__version__', 'installed')}")
+        except ImportError:
+            have[pkg] = False
+            _log(f"[install] {pkg}: missing")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/in.nc"
+        t0 = time.perf_counter()
+        host = _write_classic(path, a)
+        size = os.path.getsize(path)
+        _log(f"[cli] wrote {path.split('/')[-1]}: {size / 1e9:.3f} GB classic "
+             f"NetCDF (64-bit offsets) in {time.perf_counter() - t0:.3f} s")
+        before = dict(netcdf.opens)
+        t0 = time.perf_counter()
+        ds_host = open_dataset(path, device="cpu")
+        t_read = time.perf_counter() - t0
+        if netcdf.opens["native"] != before["native"] + 1:
+            raise AssertionError(f"the native reader did not serve the open: "
+                                 f"{before} -> {netcdf.opens}")
+        for k, x in host.items():
+            if not np.array_equal(ds_host[k].values, x, equal_nan=True):
+                raise AssertionError(f"{k}: read values differ from written")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ds_card = ClimDataset({k: v.to(device) for k, v in ds_host.items()},
+                              dict(ds_host.attrs))
+        torch.cuda.synchronize()
+        t_h2d = time.perf_counter() - t0
+        outs, secs, counts = {}, {}, {}
+        for fused in (False, True):
+            pipe = Pipeline(path, device=device, fused=fused)
+            pipe.ds_in = ds_card
+            _cli_run(pipe)  # warm-up
+            pipe = Pipeline(path, device=device, fused=fused)
+            pipe.ds_in = ds_card
+            torch.cuda.synchronize()
+            _reset_counts()
+            t0 = time.perf_counter()
+            lines = _cli_run(pipe)
+            torch.cuda.synchronize()
+            secs[fused] = time.perf_counter() - t0
+            counts[fused] = {k: v for k, v in _counts().items() if v}
+            outs[fused] = pipe.ds_out
+            name = "cli chain" + (" --fused" if fused else "")
+            for k, v in counts[fused].items():
+                if k in record:
+                    record[k]["paths"][name] = v
+            if any(k.endswith("_twin") for k in counts[fused]):
+                raise AssertionError(f"{name} called a twin: {counts[fused]}")
+            if not counts[fused].get("segred") or not counts[fused].get("spells"):
+                raise AssertionError(f"{name} launched {counts[fused]}")
+        plain, fused_out = outs[False], outs[True]
+        if list(plain.keys()) != list(fused_out.keys()):
+            raise AssertionError(f"plain {list(plain.keys())} != fused "
+                                 f"{list(fused_out.keys())}")
+        for k in plain:
+            _compare(f"cli {k} plain vs --fused", plain[k].data.float(),
+                     fused_out[k].data.float(), rtol=0.0, atol=0.0)
+        # the indicators on a crop against the pipeline's CPU run
+        crop = ClimDataset({k: v.isel(lat=slice(0, YM_CROP),
+                                      lon=slice(0, YM_CROP))
+                            for k, v in ds_host.items()})
+        cpipe = Pipeline(path, device="cpu")
+        cpipe.ds_in = crop
+        _cli_run(cpipe)
+        errs = []
+        for k, w in cpipe.ds_out.items():
+            if w.data.dtype == torch.bool:
+                continue  # flags reduced over the whole grid
+            g = plain[k].isel(lat=slice(0, YM_CROP), lon=slice(0, YM_CROP))
+            errs.append(_compare(f"cli {k} cpu vs card", g.data, w.data,
+                                 rtol=RTOL, atol=0.0))
+        t_write = None
+        if have["h5py"]:
+            t0 = time.perf_counter()
+            to_netcdf(plain, f"{tmp}/out.nc")
+            t_write = time.perf_counter() - t0
+        n_flags = sum(v.data.dtype == torch.bool for v in plain.values())
+        _log(f"[cli] read {t_read:.3f} s (native reader, {size / 1e9 / t_read:.3f}"
+             f" GB/s), host -> card {t_h2d:.3f} s, compute plain "
+             f"{secs[False]:.4f} s / --fused {secs[True]:.4f} s (dataflags for "
+             f"{len(CLI_VARS)} variables, {n_flags} flags, + {len(CLI_CHAIN)} "
+             f"indicators), write "
+             + (f"{t_write:.3f} s" if t_write is not None else
+                "not run (h5py missing)")
+             + f" on {card}; launches plain {json.dumps(counts[False])}, "
+             f"--fused {json.dumps(counts[True])}; plain == --fused; "
+             f"{YM_CROP}x{YM_CROP} crop vs the CPU pipeline max_abs_err "
+             f"{[float(f'{e:.3g}') for e in errs]}")
+        _log("[cli] flags: " + "; ".join(lines))
+        del ds_card, plain, fused_out, outs
+        torch.cuda.empty_cache()
+        # the whole pipeline from the file, opened to the card directly
+        before = netcdf.opens["native"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe = Pipeline(path, f"{tmp}/out2.nc" if have["h5py"] else None,
+                        device=device)
+        _cli_run(pipe)
+        pipe.finish()
+        torch.cuda.synchronize()
+        t_all = time.perf_counter() - t0
+        if netcdf.opens["native"] != before + 1:
+            raise AssertionError("the native reader did not serve the "
+                                 "pipeline's open")
+        _log(f"[cli] the pipeline from the file: {t_all:.3f} s (open on the "
+             f"card, flags, {len(CLI_CHAIN)} indicators"
+             + (", write" if have["h5py"] else "") + ")")
+        del pipe
+        if have["click"]:
+            from xclim_tpu_torch.cli import make_cli
+
+            args = ["--device", str(device), "-i", path]
+            if have["h5py"]:
+                args += ["-o", f"{tmp}/out3.nc"]
+            args += ["dataflags", *CLI_CHAIN]
+            t0 = time.perf_counter()
+            make_cli().main(args, standalone_mode=False)
+            torch.cuda.synchronize()
+            _log(f"[cli] click's main {' '.join(args[:2])} ... : "
+                 f"{time.perf_counter() - t0:.3f} s")
+            if have["h5py"]:
+                back = open_dataset(f"{tmp}/out3.nc", device="cpu")
+                _log(f"[cli] wrote and read back {len(back.keys())} outputs")
+        else:
+            _log("[cli] click missing: the command group was not run (the "
+                 "pipeline it calls ran above)")
+    torch.cuda.empty_cache()
+
+
+#: analog metric -> (rtol, atol), card against the CPU run on the crop
+#: (tests/test_torch_dataflags_analog.py states the same bounds against the
+#: JAX package on unit-scale samples). The indicators here are in K and mm
+#: (up to ~3000), so a difference of two float32 means rounds to ~eps times
+#: the mean: the card may also stand within AN_F64_FACTOR times the CPU
+#: float32 run's own largest distance from a float64 run of the crop.
+AN_TOL = {"seuclidean": (1e-5, 0.0), "nearest_neighbor": (0.0, 1e-6),
+          "zech_aslan": (0.0, 1e-5), "szekely_rizzo": (0.0, 2e-4),
+          "mahalanobis": (1e-5, 0.0), "kolmogorov_smirnov": (0.0, 1e-6),
+          "kldiv": (1e-5, 0.0), "friedman_rafsky": (0.0, 0.0)}
+AN_F64_FACTOR = 4.0
+
+
+def _analog_check(method, got, target_c, cand_c):
+    """The card's metric on the crop against the CPU's float32 and float64
+    runs: within AN_TOL of the float32 run, or no farther from the float64
+    run than AN_F64_FACTOR times the float32 run is. Returns (card vs
+    float32, card vs float64, float32 vs float64) max abs errors."""
+    import torch
+
+    from xclim_tpu_torch import analog
+
+    w32 = analog.spatial_analogs(target_c, cand_c, method=method).data
+    w64 = analog.spatial_analogs(target_c.astype(torch.float64),
+                                 cand_c.astype(torch.float64),
+                                 method=method).data.double()
+    g = got.double()
+    e32 = float((g - w32.double()).abs().max())
+    e64 = float((g - w64).abs().max())
+    own = float((w32.double() - w64).abs().max())
+    rtol, atol = AN_TOL[method]
+    within = bool(((g - w32.double()).abs()
+                   <= atol + rtol * w32.double().abs()).all())
+    if not torch.equal(torch.isnan(g), torch.isnan(w32.double())) or not (
+            within or e64 <= AN_F64_FACTOR * own):
+        raise AssertionError(f"spatial_analogs {method} cpu vs card: max abs "
+                             f"err {e32:.3g} (rtol {rtol}, atol {atol}); vs "
+                             f"float64 {e64:.3g}, the CPU's own {own:.3g}")
+    return e32, e64, own
+
+
+#: utils.profiling.profile around atmos.tg_mean on the card, in a fresh
+#: process: after a torch.profiler session of about a million kernel
+#: launches (the fire phase's traces), later sessions in the same process
+#: record no device activity (a 1.3 M-launch session, then 0 kernel events;
+#: after 300 k, 1 of 2)
+_PROFILE_PROBE = """
+import glob, json, tempfile
+import torch
+from xclim_tpu_torch.core.calendar import date_range
+from xclim_tpu_torch.core.dataarray import ClimArray
+from xclim_tpu_torch.indicators import atmos
+from xclim_tpu_torch.utils import profile
+
+t = date_range("1981-01-01", periods=3650, calendar="noleap")
+tas = ClimArray(torch.randn(3650, 128, 128, device="cuda") + 285.0,
+                ("time", "lat", "lon"), {"time": t},
+                {"units": "K", "standard_name": "air_temperature",
+                 "cell_methods": "time: mean"}, "tas")
+atmos.tg_mean(tas, freq="MS")
+with tempfile.TemporaryDirectory() as tmp:
+    with profile(tmp):
+        atmos.tg_mean(tas, freq="MS")
+    (trace,) = glob.glob(tmp + "/trace-*.json")
+    events = json.loads(open(trace).read())["traceEvents"]
+print(json.dumps({"events": len(events),
+                  "kernels": sum(e.get("cat") == "kernel" for e in events)}))
+"""
+
+
+def _profile_trace_kernels() -> int:
+    """Kernel events in the Chrome trace utils.profiling.profile writes
+    around atmos.tg_mean on the card, in a fresh process (_PROFILE_PROBE)."""
+    import os
+
+    res = subprocess.run([sys.executable, "-c", _PROFILE_PROBE],
+                         cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        raise AssertionError(f"profile probe failed:\n{res.stderr[-2000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])["kernels"]
+
+
+def phase_flags_analogs_scale(device, card, a):
+    """At 16384 cells x 30 years (the YAML phase's inputs): data_flags for
+    tas, tasmax, tasmin and pr and ecad_compliant, each flag on an 8 x 8
+    crop equal to its CPU run; spatial_analogs of one target cell (30
+    annual samples x 3 indicators) against the 16384 cells with each
+    metric, the crop against its CPU run; sharded_jit(atmos.tg_mean) on the
+    (1, 1) mesh equal to the plain call; utils.profiling.profile's trace and
+    timed's synced seconds."""
+    import torch
+
+    from xclim_tpu_torch import analog
+    from xclim_tpu_torch.core import dataflags
+    from xclim_tpu_torch.core.dataarray import ClimArray, ClimDataset, concat
+    from xclim_tpu_torch.indicators import atmos
+    from xclim_tpu_torch.parallel import sharded_jit, space_mesh
+    from xclim_tpu_torch.utils import timed
+
+    ds = ClimDataset({k: a[k] for k in CLI_VARS})
+    crop = ClimDataset({k: v.isel(lat=slice(0, YM_CROP),
+                                  lon=slice(0, YM_CROP)).to("cpu")
+                        for k, v in ds.items()})
+    for name in CLI_VARS:
+        sec, runs = _timed(lambda n=name: dataflags.data_flags(ds[n], ds),
+                           reps=1)
+        full = dataflags.data_flags(ds[name], ds, dims=None)
+        want = dataflags.data_flags(crop[name], crop, dims=None)
+        raised = []
+        for k, w in want.items():
+            g = full[k]
+            if (g is None) != (w is None):
+                raise AssertionError(f"{name} {k}: card {g}, cpu {w}")
+            if w is None:
+                continue
+            gc = g.isel(lat=slice(0, YM_CROP), lon=slice(0, YM_CROP))
+            if not torch.equal(gc.data.cpu(), w.data):
+                raise AssertionError(f"{name} {k}: flags differ on the crop "
+                                     f"({int((gc.data.cpu() != w.data).sum())})")
+            if bool(g.data.any()):
+                raised.append(k)
+        _log(f"[flags] data_flags({name}) on {card}: {sec:.4f} s (after a "
+             f"warm-up); {len(want)} flags, raised: {raised or 'none'}; "
+             f"{YM_CROP}x{YM_CROP} crop equal to the CPU run")
+    sec, _ = _timed(lambda: dataflags.ecad_compliant(ds), reps=1)
+    ecad = dataflags.ecad_compliant(ds, dims=None, append=False)
+    want = dataflags.ecad_compliant(crop, dims=None, append=False)
+    if not torch.equal(ecad.isel(lat=slice(0, YM_CROP), lon=slice(
+            0, YM_CROP)).data.cpu(), want.data):
+        raise AssertionError("ecad_compliant differs on the crop")
+    _log(f"[flags] ecad_compliant on {card}: {sec:.4f} s; "
+         f"{float(ecad.data.float().mean()) * 100:.2f} % of values pass; crop "
+         f"equal to the CPU run")
+
+    # spatial analogs: 30 annual samples x 3 indicators at every cell
+    inds = [atmos.tg_mean(a["tas"], freq="YS"), atmos.tx_max(a["tasmax"], freq="YS"),
+            atmos.precip_accumulation(a["pr"], freq="YS")]
+    cand = concat(inds, "variables")  # (variables, time, lat, lon)
+    cand = cand.transpose("time", "variables", "lat", "lon")
+    cand.data = cand.data.contiguous()
+    target = ClimArray(cand.data[:, :, YM_SIDE // 2, YM_SIDE // 3],
+                       ("time", "variables"), {"time": cand.coords["time"]},
+                       {}, "target")
+    cand_c = cand.isel(lat=slice(0, YM_CROP), lon=slice(0, YM_CROP)).to("cpu")
+    target_c = target.to("cpu")
+    for method, (rtol, atol) in AN_TOL.items():
+        if method == "friedman_rafsky":
+            # a scipy loop over the cells on the host: one run, no warm-up
+            reps = 1
+            t0 = time.perf_counter()
+            out = analog.spatial_analogs(target, cand, method=method)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+        else:
+            reps = 3
+            sec, runs = _timed(lambda m=method: analog.spatial_analogs(
+                target, cand, method=m), reps=reps)
+            out = analog.spatial_analogs(target, cand, method=method)
+        if tuple(out.shape) != (YM_SIDE, YM_SIDE) or out.data.device != device \
+                or not bool(torch.isfinite(out.data).all()):
+            raise AssertionError(f"{method}: {tuple(out.shape)} on "
+                                 f"{out.data.device}, finite "
+                                 f"{bool(torch.isfinite(out.data).all())}")
+        e32, e64, own = _analog_check(method, out.data[:YM_CROP, :YM_CROP].cpu(),
+                                      target_c, cand_c)
+        _log(f"[analog] {method} ({YM_YEARS} x 3 target, {YM_SIDE ** 2} "
+             f"cells) on {card}: {sec:.4f} s ({'one run' if reps == 1 else 'median of 3 after a warm-up'}"
+             f"); crop: card vs CPU float32 max_abs_err "
+             f"{e32:.3g} (rtol {rtol}, atol {atol}), card vs float64 "
+             f"{e64:.3g}, CPU float32 vs float64 {own:.3g}")
+    del inds, cand, cand_c
+
+    # scale: the (1, 1) mesh, the profiler, timed
+    tas = a["tas"]
+    mesh = space_mesh()
+    if mesh.shape != (1, 1):
+        raise AssertionError(f"one card, mesh {mesh.shape}")
+    plain = atmos.tg_mean(tas, freq="MS")
+    _reset_counts()
+    sharded = sharded_jit(lambda x: atmos.tg_mean(x, freq="MS"), mesh)(tas)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _counts().items() if v}
+    _compare("sharded_jit(atmos.tg_mean) vs atmos.tg_mean", sharded.data,
+             plain.data, rtol=0.0, atol=0.0)
+    sec, _ = _timed(lambda: sharded_jit(lambda x: atmos.tg_mean(x, freq="MS"),
+                                        mesh)(tas))
+    sec_plain, _ = _timed(lambda: atmos.tg_mean(tas, freq="MS"))
+    kernels = _profile_trace_kernels()
+    with timed("atmos.tg_mean") as t:
+        t["sync"] = atmos.tg_mean(tas, freq="MS")
+    if kernels == 0 or t["seconds"] <= 0:
+        raise AssertionError(f"profile: {kernels} kernel events; timed "
+                             f"{t['seconds']}")
+    _log(f"[scale] sharded_jit(atmos.tg_mean) on the {mesh.shape} mesh on "
+         f"{card}: {sec:.4f} s (median of 3; plain call {sec_plain:.4f} s), "
+         f"equal to the plain call; launches {json.dumps(counts)}; "
+         f"profile() wrote a Chrome trace with {kernels} kernel events (a "
+         f"fresh process); timed() {t['seconds']:.4f} s")
+    del plain, sharded
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -4134,6 +4813,11 @@ def main() -> int:
     run(phase_fire, device, card)
     run(phase_land_seaice_generic, device, card, record)
     run(phase_calendar, device, card)
+    a = run(phase_yaml_modules, device, card, record)
+    run(phase_cli, device, card, record, a)
+    run(phase_flags_analogs_scale, device, card, a)
+    del a
+    torch.cuda.empty_cache()
     _log(f"[wall] chip_smoke total: {time.perf_counter() - start:.1f} s")
 
     _log(json.dumps({"kernels": list(record.values())}))

@@ -356,3 +356,62 @@ def test_calendar_array_operations_on_cpu_tensors(no_default):
     assert mu.device.type == "cpu" and sd.device.type == "cpu"
     with pytest.raises(AssertionError, match="default_device"):
         cal.climatological_mean_doy(tas.values, tas.time)
+
+
+def test_yaml_modules_on_cpu_tensors(no_default):
+    from xclim_tpu_torch.indicators import anuclim, cf, icclim
+
+    tas = _series("tas", 285.0, 69)
+    tasmax = _series("tasmax", 291.0, 70)
+    tasmax.attrs["cell_methods"] = "time: maximum"
+    outs = [icclim.TG(tas, freq="YS"), icclim.SU(tasmax, freq="YS"),
+            anuclim.P4_TempSeasonality(tas), cf.txx(tasmax, freq="MS"),
+            cf.ctmgeTT(tas, threshold="10 degC", freq="YS")]
+    assert all(o.device.type == "cpu" for o in outs)
+
+
+def test_dataflags_and_analogs_on_cpu_tensors(no_default):
+    from xclim_tpu_torch import analog
+    from xclim_tpu_torch.core.dataarray import ClimDataset
+    from xclim_tpu_torch.core.dataflags import data_flags, ecad_compliant
+
+    tas = _series("tas", 285.0, 71)
+    ds = ClimDataset({"tas": tas, "tasmax": _series("tasmax", 291.0, 72)})
+    flags = data_flags(tas, ds, freq="MS")
+    assert all(v.device.type == "cpu" for v in flags.values() if v is not None)
+    assert ecad_compliant(ds)["ecad_qc_flag"].device.type == "cpu"
+    target = ClimArray(torch.randn(30, 2), ("time", "variables"))
+    cand = ClimArray(torch.randn(30, 2, 3), ("time", "variables", "x"))
+    for method in ("kldiv", "friedman_rafsky"):
+        out = analog.spatial_analogs(target, cand, method=method)
+        assert out.device.type == "cpu" and out.shape == (3,)
+
+
+def test_io_cli_and_helpers_take_the_device_they_are_given(tmp_path, no_default):
+    from xclim_tpu_torch.cli import Pipeline, get_indicator
+    from xclim_tpu_torch.io import open_dataset, to_netcdf
+    from xclim_tpu_torch.parallel import sharded_jit, space_mesh
+    from xclim_tpu_torch.testing import generate_atmos
+
+    ds = generate_atmos(nyears=1, device="cpu")
+    to_netcdf(ds, tmp_path / "a.nc")
+    back = open_dataset(tmp_path / "a.nc", device="cpu")
+    assert back["tas"].device.type == "cpu"
+    pipe = Pipeline(str(tmp_path / "a.nc"), device="cpu")
+    pipe.indicator(get_indicator("icclim.TG"), freq="YS")
+    assert pipe.finish()["TG"].device.type == "cpu"
+    mesh = space_mesh(devices=[torch.device("cpu")] * 2)
+    grid = ClimArray(torch.rand(10, 2, 2), ("time", "lat", "lon"))
+    assert sharded_jit(lambda x: x.data.mean(0), mesh)(grid).device.type == "cpu"
+
+
+def test_io_and_helpers_need_a_device_without_a_card(tmp_path, monkeypatch):
+    from xclim_tpu_torch.io import open_dataset, to_netcdf
+    from xclim_tpu_torch.testing import generate_atmos
+
+    to_netcdf(generate_atmos(nyears=1, device="cpu"), tmp_path / "a.nc")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        open_dataset(tmp_path / "a.nc")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        generate_atmos(nyears=1)

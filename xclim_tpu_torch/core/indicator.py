@@ -12,9 +12,11 @@ its compute function. The call pipeline is identical in behavior:
 (reference call pipeline: core/indicator.py:865-945, _postprocess :1522-1550,
 _update_attrs :1085-1148).
 
-Not ported yet: the YAML virtual-module builder
-(``build_indicator_module_from_yaml`` and ``core/yaml_schema.py``), which
-comes with the index-breadth slice.
+YAML virtual modules (``icclim``, ``anuclim``, ``cf`` and a user's own file)
+are built by :func:`build_indicator_module_from_yaml`; the bundled three are
+read from JSON copies of their definitions (``xclim_tpu_torch/data``) by
+:mod:`xclim_tpu_torch.indicators`, through the same dict path and schema
+check, so that building them needs no YAML parser.
 """
 
 from __future__ import annotations
@@ -59,6 +61,8 @@ __all__ = [
     "ResamplingIndicatorWithIndexing",
     "registry",
     "iter_indicators",
+    "build_indicator_module",
+    "build_indicator_module_from_yaml",
 ]
 
 registry: dict[str, "Indicator"] = {}
@@ -757,6 +761,198 @@ def iter_indicators():
     yield from registry.items()
 
 
+# ---------------------------------------------------------------------------
+# YAML virtual modules (xclim:core/indicator.py:1703-1860)
+# ---------------------------------------------------------------------------
+
+
+def build_indicator_module(name: str, objs: dict, doc: str | None = None,
+                           reload: bool = False):
+    """Create (or extend) a virtual module holding indicator instances
+    (xclim:core/indicator.py:1703)."""
+    import sys
+    import types
+
+    import xclim_tpu_torch.indicators as indicators_mod
+
+    full = f"xclim_tpu_torch.indicators.{name}"
+    if full in sys.modules and not reload:
+        mod = sys.modules[full]
+    else:
+        mod = types.ModuleType(full, doc or f"Virtual indicator module {name}.")
+        sys.modules[full] = mod
+        setattr(indicators_mod, name, mod)
+    for key, obj in objs.items():
+        setattr(mod, key, obj)
+    mod.__dict__.setdefault("iter_indicators",
+                            lambda: ((k, v) for k, v in vars(mod).items()
+                                     if isinstance(v, Indicator)))
+    return mod
+
+
+_BASE_CLASSES = {
+    "Indicator": Indicator,
+    "ReducingIndicator": ReducingIndicator,
+    "ResamplingIndicator": ResamplingIndicator,
+    "ResamplingIndicatorWithIndexing": ResamplingIndicatorWithIndexing,
+    "Daily": Daily,
+    "Hourly": Hourly,
+}
+
+
+def _resolve_compute(path: str):
+    """The compute function a YAML ``compute:`` names: a bare name from
+    :mod:`xclim_tpu_torch.indices` or its ``generic`` module, or a dotted
+    path. A dotted path into the JAX package (``xclim_tpu.<module>.<name>``)
+    resolves to the port's module of the same name, never to the JAX
+    package; a path whose module the port lacks raises."""
+    import importlib
+
+    if "." in path:
+        modname, fname = path.rsplit(".", 1)
+        root, _, rest = modname.partition(".")
+        if root == "xclim_tpu":
+            ported = "xclim_tpu_torch" + (f".{rest}" if rest else "")
+            try:
+                mod = importlib.import_module(ported)
+            except ModuleNotFoundError as err:
+                raise ValueError(
+                    f"compute {path!r} names a module of the JAX package "
+                    f"that the port does not have ({ported})") from err
+        else:
+            mod = importlib.import_module(modname)
+        return getattr(mod, fname)
+    import xclim_tpu_torch.indices as indices_mod
+
+    if hasattr(indices_mod, path):
+        return getattr(indices_mod, path)
+    import xclim_tpu_torch.indices.generic as generic_mod
+
+    return getattr(generic_mod, path)
+
+
+def build_indicator_module_from_yaml(filename, name: str | None = None,
+                                     indices=None, translations=None,
+                                     mode: str = "raise", encoding: str = "utf-8",
+                                     validate: bool = True):
+    """Build indicators from a YAML definition file
+    (xclim:core/indicator.py:1761). Supports the reference's YAML layout:
+    ``base:``, ``compute:``, ``input:``, ``parameters:``, ``cf_attrs``/flat attrs.
+
+    With ``validate=True`` (default) the parsed module is schema-checked
+    first (xclim:core/indicator.py:1845-1852 / data/schema.yml) and a
+    malformed module raises :class:`ValidationError` with a field-level
+    report. Needs PyYAML (imported here, not at module import).
+    """
+    from pathlib import Path
+
+    import yaml
+
+    filepath = Path(filename)
+    with open(filepath, encoding=encoding) as f:
+        yml = yaml.safe_load(f)
+    return _module_from_dict(
+        yml, name=name or (yml.get("module") if isinstance(yml, dict) else None)
+        or filepath.stem, source=filepath.name, indices=indices,
+        translations=translations, mode=mode, validate=validate)
+
+
+def _module_from_dict(yml: dict, name: str | None = None,
+                                     source: str = "<dict>", indices=None,
+                                     translations=None, mode: str = "raise",
+                                     validate: bool = True):
+    """Build a virtual indicator module from an already parsed module
+    definition (the dict ``yaml.safe_load`` gives for a module file, or
+    ``json.load`` of its JSON copy); the path of
+    :func:`build_indicator_module_from_yaml` after parsing."""
+    if validate:
+        from xclim_tpu_torch.core.yaml_schema import check_yaml_module
+
+        check_yaml_module(yml, source=source)
+    name = name or yml.get("module", source)
+    doc = yml.get("doc")
+    default_base = yml.get("base", "Daily")
+    realm = yml.get("realm", "atmos")
+    objs = {}
+    for ident, data in (yml.get("indicators") or {}).items():
+        try:
+            objs[ident] = _indicator_from_dict(ident, data, default_base, realm,
+                                               indices=indices, module=name)
+        except Exception as err:
+            if mode == "raise":
+                raise
+            warnings.warn(f"Could not build indicator {ident}: {err}")
+    mod = build_indicator_module(name, objs, doc=doc, reload=True)
+    if translations:
+        from xclim_tpu_torch.core.locales import load_locale
+
+        for locale, trans in translations.items():
+            load_locale(trans, locale)
+    return mod
+
+
+def _indicator_from_dict(identifier: str, data: dict, default_base: str, realm: str,
+                         indices=None, module: str | None = None):
+    data = dict(data or {})
+    base_name = data.pop("base", default_base)
+    # a base may name a core indicator (bare key) or a sibling indicator of
+    # the same virtual module (prefixed key)
+    base_key = next((k for k in (base_name.upper(),
+                                 f"{module}.{base_name.upper()}")
+                     if k in registry), None)
+    if base_key is not None:
+        base_ind = registry[base_key]
+        base_cls = type(base_ind)
+        compute = base_ind.compute
+        inherited = {
+            "realm": base_ind.realm,
+            "cf_attrs": [dict(a) for a in base_ind.cf_attrs],
+            "title": base_ind.title,
+            "abstract": base_ind.abstract,
+            "missing": base_ind.missing,
+            "src_freq": base_ind.src_freq,
+        }
+    else:
+        base_cls = _BASE_CLASSES.get(base_name, Daily)
+        compute = None
+        inherited = {}
+
+    compute_name = data.pop("compute", None)
+    if compute_name is not None:
+        if indices is not None and compute_name in getattr(indices, "__dict__", indices if isinstance(indices, dict) else {}):
+            compute = indices[compute_name] if isinstance(indices, dict) \
+                else getattr(indices, compute_name)
+        else:
+            compute = _resolve_compute(compute_name)
+    if compute is None:
+        raise ValueError(f"No compute function for indicator {identifier}.")
+
+    input_map = data.pop("input", {})
+    params = data.pop("parameters", {})
+    cf_flat = {k: data.pop(k) for k in list(data) if k in _CF_NAMES}
+    cf_attrs = data.pop("cf_attrs", None)
+    if cf_attrs is None and (cf_flat or inherited.get("cf_attrs")):
+        merged = dict(inherited.get("cf_attrs", [{}])[0])
+        merged.update(cf_flat)
+        merged["var_name"] = identifier
+        cf_attrs = [merged]
+
+    if input_map:
+        compute = _wrap_input_map(compute, input_map)
+
+    kwds = {**inherited}
+    kwds.update({k: v for k, v in data.items() if isinstance(v, (str, int, float, list, dict))})
+    kwds.update({
+        "identifier": identifier,
+        "module": module,
+        "realm": data.get("realm", realm or inherited.get("realm", "atmos")),
+        "compute": compute,
+        "cf_attrs": cf_attrs or [{}],
+        "parameters": params,
+    })
+    return base_cls(**kwds)
+
+
 def _wrap_input_map(compute: Callable, input_map: dict):
     """Rename compute variables per the YAML ``input:`` mapping
     (official name → compute arg)."""
@@ -783,3 +979,38 @@ def _wrap_input_map(compute: Callable, input_map: dict):
     wrapped.__signature__ = sig.replace(parameters=new_params)
     wrapped.in_units = getattr(compute, "in_units", {})
     return wrapped
+
+
+class IndicatorRegistrar:
+    """Compatibility alias: in the reference this mixin performs registration
+    (xclim:core/indicator.py:281); here registration happens in
+    :meth:`Indicator.__init__`, so this simply exposes the same surface."""
+
+    @classmethod
+    def get_instance(cls):
+        for ind in registry.values():
+            if type(ind) is cls:
+                return ind
+        raise ValueError(f"No instance of {cls.__name__} registered.")
+
+
+class StandardizedIndexes(ResamplingIndicator):
+    """Resampling indicator for standardized indexes (SPI/SPEI family;
+    xclim:core/indicator.py:1961)."""
+
+    realm = "atmos"
+    missing = "skip"
+
+
+def add_iter_indicators(module):
+    """Add an ``iter_indicators`` generator to a virtual indicator module
+    (xclim:core/indicator.py:1682)."""
+    if not hasattr(module, "iter_indicators"):
+        def iter_indicators():
+            for name in getattr(module, "__all__", dir(module)):
+                obj = getattr(module, name, None)
+                if isinstance(obj, Indicator):
+                    yield name, obj
+
+        module.iter_indicators = iter_indicators
+    return module

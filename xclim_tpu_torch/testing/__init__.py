@@ -1,4 +1,7 @@
-"""Checks that hold the port's results to independent float64 replays.
+"""Testing support: synthetic data generators, the laziness guard and the
+testing-data utilities (reference: xclim:src/xclim/testing/; the modules
+``helpers``, ``fixtures`` and ``utils``), and checks that hold the port's
+results to independent float64 replays.
 
 :func:`check_cffwis` holds the Canadian fire weather codes
 (``indices.fire``) on any device to a float64 replay on the CPU, written
@@ -26,8 +29,25 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from xclim_tpu_torch.testing.helpers import (  # noqa: F401
+    assert_lazy,
+    generate_atmos,
+    test_grid,
+    test_timeseries,
+)
+from xclim_tpu_torch.testing import utils  # noqa: F401
+from xclim_tpu_torch.testing.utils import (  # noqa: F401
+    list_input_variables,
+    nimbus,
+    open_dataset,
+    show_versions,
+)
+
 __all__ = ["CFFWIS_FWI_ATOL", "CFFWIS_RTOL", "CFFWIS_SCALE_TOL", "chill_replay",
-           "check_chill_portions", "cffwis_replay", "check_cffwis"]
+           "check_chill_portions", "cffwis_replay", "check_cffwis",
+           "assert_lazy", "generate_atmos", "list_input_variables", "nimbus",
+           "open_dataset", "show_versions", "test_grid", "test_timeseries",
+           "utils"]
 
 
 def chill_replay(tas_K, bank=None):
