@@ -1,0 +1,12 @@
+"""sdba.idle_ms: the device's idle milliseconds a call in the gaps that
+begin while a program ``sdba.train`` or ``sdba.adjust`` span
+(``TrainAdjust.train`` / ``.adjust``) is open, in the traced run's second
+stretch (``perfbench/program.py``): the program's own host work, apart from
+the harness's between and around its calls. Nothing to read where the
+program has no such span."""
+
+from perfbench import program
+
+
+def read(run):
+    return program.idle_ms_per_call(run, ("sdba.train", "sdba.adjust"))

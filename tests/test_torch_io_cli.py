@@ -214,8 +214,12 @@ def test_cli_info_and_indices():
     for name in ("icclim.TG", "cf.CDD", "tg_mean"):
         assert _invoke(cli, ["info", name]).output == _invoke(
             jcli, ["info", name]).output
-    got = _invoke(cli, ["indices"]).output.splitlines()
-    assert len(got) == len(registry) == 349
+    # the built-in modules' indicators: other test files register their own
+    builtin = {k.lower() for k, v in registry.items()
+               if v.module in (None, "icclim", "anuclim", "cf")}
+    got = [line for line in _invoke(cli, ["indices"]).output.splitlines()
+           if line.split(" : ")[0] in builtin]
+    assert len(got) == len(builtin) == 349
     assert set(got) <= set(_invoke(jcli, ["indices"]).output.splitlines())
 
 

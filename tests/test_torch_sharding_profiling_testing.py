@@ -170,12 +170,17 @@ def test_sharded_jit_wrapper_on_tensors(mesh):
 def test_profile_writes_a_chrome_trace(tmp_path):
     from xclim_tpu_torch.utils import profile
 
+    from xclim_tpu_torch.ops.quantile import nan_quantile
+
     with profile(str(tmp_path)) as logdir:
         torch.ones(64).cumsum(0)
+        nan_quantile(torch.rand(80, 3), [0.5], axis=0)
     (trace,) = list(tmp_path.glob("trace-*.json"))
     assert logdir == str(tmp_path)
     names = {e.get("name") for e in json.loads(trace.read_text())["traceEvents"]}
     assert any(n and "cumsum" in n for n in names)
+    # the program's spans are on inside the block
+    assert "xtt:op.quantile" in names
 
 
 def test_timed(capsys):
@@ -243,6 +248,18 @@ def test_assert_lazy():
                 float(x.sum())
 
 
+#: the realms and YAML modules the packages build their indicators in
+REALMS = ("atmos", "land", "seaIce", "generic")
+MODULES = (None, "icclim", "anuclim", "cf")
+
+
+def _builtin(inputs: dict, registry) -> dict:
+    """``list_input_variables()`` cut to the built-in modules' indicators."""
+    keys = {k.lower() for k, v in registry.items() if v.module in MODULES}
+    cut = {var: [k for k in inds if k in keys] for var, inds in inputs.items()}
+    return {var: inds for var, inds in cut.items() if inds}
+
+
 def test_testing_utils(tmp_path):
     from xclim_tpu.testing import utils as jutils
     from xclim_tpu_torch.io import to_netcdf
@@ -255,8 +272,13 @@ def test_testing_utils(tmp_path):
     assert ds["tas"].device.type == "cpu"
     assert "torch" in utils.show_versions()
     assert utils.publish_release_notes() == jutils.publish_release_notes()
-    got = utils.list_input_variables()
-    exp = jutils.list_input_variables()
+    # only the built-in realms and modules, on both sides: other test files
+    # register indicators of their own in either registry
+    from xclim_tpu.core.indicator import registry as jregistry
+    from xclim_tpu_torch.core.indicator import registry
+
+    got = _builtin(utils.list_input_variables(realms=REALMS), registry)
+    exp = _builtin(jutils.list_input_variables(realms=REALMS), jregistry)
     assert got["tas"] and set(got) <= set(exp)
     for var, inds in got.items():
         assert set(inds) <= set(exp[var]), var

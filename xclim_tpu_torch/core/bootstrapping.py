@@ -34,6 +34,7 @@ from xclim_tpu_torch.ops.bootstrap import (
     topk_rank_tables,
 )
 from xclim_tpu_torch.ops.quantile import nan_quantile
+from xclim_tpu_torch.utils.profiling import span
 
 __all__ = ["percentile_bootstrap", "bootstrap_func"]
 
@@ -95,39 +96,41 @@ def bootstrap_func(compute_index_func, **kwargs) -> ClimArray:
         raise KeyError("Bootstrap needs at least two in-base years overlapping the data.")
 
     # plain (non-bootstrapped) result for all periods
-    plain = compute_index_func(**kwargs)
+    with span("bootstrap.plain"):
+        plain = compute_index_func(**kwargs)
 
-    # --- the in-base sample tensor (doy, year, window, ...) ---
-    sub = da.sel_time(mask=np.isin(da.time.year, in_base_years))
-    mx = max_doy(da.time.calendar)
-    has_366 = int(sub.time.doy.max()) == 366
-    if has_366:
-        sub = sub.sel_time(mask=sub.time.doy < 366)
-    table, doys = percentile_doy_table(sub.time, window=window)
-    n_doy = len(doys)
-    nyears = len(in_base_years)
-    xf = sub.data.movedim(da.time_axis, 0)
-    t = torch.as_tensor(table.reshape(n_doy, nyears, window),
-                        dtype=torch.int64, device=xf.device)
-    D = xf[t.clamp(min=0)]  # (n_doy, nyears, window, ...)
-    D = torch.where((t >= 0).reshape(t.shape + (1,) * (D.ndim - 3)), D,
-                    torch.nan)
+    with span("bootstrap.tables"):
+        # --- the in-base sample tensor (doy, year, window, ...) ---
+        sub = da.sel_time(mask=np.isin(da.time.year, in_base_years))
+        mx = max_doy(da.time.calendar)
+        has_366 = int(sub.time.doy.max()) == 366
+        if has_366:
+            sub = sub.sel_time(mask=sub.time.doy < 366)
+        table, doys = percentile_doy_table(sub.time, window=window)
+        n_doy = len(doys)
+        nyears = len(in_base_years)
+        xf = sub.data.movedim(da.time_axis, 0)
+        t = torch.as_tensor(table.reshape(n_doy, nyears, window),
+                            dtype=torch.int64, device=xf.device)
+        D = xf[t.clamp(min=0)]  # (n_doy, nyears, window, ...)
+        D = torch.where((t >= 0).reshape(t.shape + (1,) * (D.ndim - 3)), D,
+                        torch.nan)
 
-    space_dims = tuple(d for d in da.dims if d != "time")
-    space_coords = {k: v for k, v in da.coords.items() if k in space_dims}
-    space_shape = tuple(D.shape[3:])
+        space_dims = tuple(d for d in da.dims if d != "time")
+        space_coords = {k: v for k, v in da.coords.items() if k in space_dims}
+        space_shape = tuple(D.shape[3:])
 
-    # --- the per-pair quantile strategy: candidate tables for the tails ---
-    qs_np = percentiles / 100.0
-    tails = np.minimum(qs_np, 1 - qs_np)
-    use_topk = bool((tails <= 0.25).all())
-    if use_topk:
-        N = nyears * window
-        C = math.prod(space_shape)
-        year_id = np.arange(nyears).repeat(window)
-        K = max(topk_capacity(N, window, float(qv)) for qv in qs_np)
-        tabs = topk_rank_tables(D.reshape(n_doy, N, C), year_id, K)
-        Dt = D.reshape(n_doy, nyears, window, C).permute(0, 3, 1, 2)
+        # --- the per-pair quantile strategy: candidate tables for the tails
+        qs_np = percentiles / 100.0
+        tails = np.minimum(qs_np, 1 - qs_np)
+        use_topk = bool((tails <= 0.25).all())
+        if use_topk:
+            N = nyears * window
+            C = math.prod(space_shape)
+            year_id = np.arange(nyears).repeat(window)
+            K = max(topk_capacity(N, window, float(qv)) for qv in qs_np)
+            tabs = topk_rank_tables(D.reshape(n_doy, N, C), year_id, K)
+            Dt = D.reshape(n_doy, nyears, window, C).permute(0, 3, 1, 2)
 
     def per_for_replacement(b_idx: int) -> torch.Tensor:
         """(O, doy, ..., Q) percentiles with year b replaced by each other year."""
@@ -174,17 +177,23 @@ def bootstrap_func(compute_index_func, **kwargs) -> ClimArray:
         sel = np.nonzero(out_years == b_year)[0]
         if len(sel) == 0:
             continue
-        p = per_for_replacement(b_idx)
-        if not keep_per_dim:
-            p = p[..., 0]
-        per_bo = ClimArray(p, pdims, pcoords, dict(per.attrs), per.name)
-        res_mean = compute_index_func(**{**kwargs, per_key: per_bo}).mean(
-            dim="_bootstrap")
-        # year b's periods, in the plain result's dim order
-        idx = torch.as_tensor(sel, device=data.device)
-        take = res_mean.data.index_select(res_mean.dims.index("time"), idx)
-        take = take.permute([res_mean.dims.index(d) for d in plain.dims])
-        data.index_copy_(out_tax, idx, take.to(data.dtype))
+        with span("bootstrap.year"):
+            with span("bootstrap.thresholds"):
+                p = per_for_replacement(b_idx)
+                if not keep_per_dim:
+                    p = p[..., 0]
+            with span("bootstrap.recount"):
+                per_bo = ClimArray(p, pdims, pcoords, dict(per.attrs),
+                                   per.name)
+                res_mean = compute_index_func(
+                    **{**kwargs, per_key: per_bo}).mean(dim="_bootstrap")
+                # year b's periods, in the plain result's dim order
+                idx = torch.as_tensor(sel, device=data.device)
+                take = res_mean.data.index_select(
+                    res_mean.dims.index("time"), idx)
+                take = take.permute([res_mean.dims.index(d)
+                                     for d in plain.dims])
+                data.index_copy_(out_tax, idx, take.to(data.dtype))
 
     out = plain.copy(data=data)
     out.attrs = dict(plain.attrs)

@@ -48,6 +48,7 @@ from xclim_tpu_torch.core.options import (
 )
 from xclim_tpu_torch.core.units import convert_units_to, units2pint
 from xclim_tpu_torch.core.variables import VARIABLES
+from xclim_tpu_torch.utils.profiling import span
 
 __all__ = [
     "Daily",
@@ -361,40 +362,49 @@ class Indicator:
                         continue
                     out[key] = self(*args, ds=node, **kwds)
             return out
-        das, params = self._parse_variables_from_call(args, kwds, ds)
-        self._preprocess_and_checks(das, params)
-        call_kwargs = {**das}
-        for name, p in self.parameters.items():
-            if name in das or p.kind == InputKind.KWARGS:
-                continue
-            if p.injected:
-                call_kwargs[name] = p.value
-            elif name in params:
-                call_kwargs[name] = params[name]
-        # extra kwargs routed through **indexer-style catch-alls (only when
-        # the compute function actually takes **kwargs; indexer params for
-        # computes without them are consumed by IndexingIndicator)
-        if self._compute_has_kwargs():
-            for name, v in params.items():
-                if name not in call_kwargs and name not in self.parameters:
-                    call_kwargs[name] = v
-        outs = self.compute(**call_kwargs)
-        if not isinstance(outs, tuple):
-            outs = (outs,)
-        if len(outs) != len(self.cf_attrs):
-            raise ValueError(
-                f"Indicator {self.identifier} produced {len(outs)} outputs but "
-                f"{len(self.cf_attrs)} were declared.")
-        outs = [self._convert_units(o, a) for o, a in zip(outs, self.cf_attrs)]
-        outs = self._postprocess(outs, das, params)
-        outs = [self._update_attrs(o, a, das, params) for o, a in zip(outs, self.cf_attrs)]
-        if OPTIONS[AS_DATASET]:
-            dset = ClimDataset({o.name: o for o in outs})
-            return dset
-        if len(outs) == 1:
-            return outs[0]
-        nt = namedtuple(self.identifier, [a["var_name"] for a in self.cf_attrs])
-        return nt(*outs)
+        with span("indicator.call"):
+            with span("indicator.checks"):
+                das, params = self._parse_variables_from_call(args, kwds, ds)
+                self._preprocess_and_checks(das, params)
+            call_kwargs = {**das}
+            for name, p in self.parameters.items():
+                if name in das or p.kind == InputKind.KWARGS:
+                    continue
+                if p.injected:
+                    call_kwargs[name] = p.value
+                elif name in params:
+                    call_kwargs[name] = params[name]
+            # extra kwargs routed through **indexer-style catch-alls (only
+            # when the compute function actually takes **kwargs; indexer
+            # params for computes without them are consumed by
+            # IndexingIndicator)
+            if self._compute_has_kwargs():
+                for name, v in params.items():
+                    if name not in call_kwargs and name not in self.parameters:
+                        call_kwargs[name] = v
+            with span("indicator.compute"):
+                outs = self.compute(**call_kwargs)
+            if not isinstance(outs, tuple):
+                outs = (outs,)
+            if len(outs) != len(self.cf_attrs):
+                raise ValueError(
+                    f"Indicator {self.identifier} produced {len(outs)} outputs "
+                    f"but {len(self.cf_attrs)} were declared.")
+            with span("indicator.units"):
+                outs = [self._convert_units(o, a)
+                        for o, a in zip(outs, self.cf_attrs)]
+            with span("indicator.missing"):
+                outs = self._postprocess(outs, das, params)
+            with span("indicator.attrs"):
+                outs = [self._update_attrs(o, a, das, params)
+                        for o, a in zip(outs, self.cf_attrs)]
+                if OPTIONS[AS_DATASET]:
+                    return ClimDataset({o.name: o for o in outs})
+                if len(outs) == 1:
+                    return outs[0]
+                nt = namedtuple(self.identifier,
+                                [a["var_name"] for a in self.cf_attrs])
+                return nt(*outs)
 
     def _parse_variables_from_call(self, args, kwds, ds):
         """Bind call args; pull string-named variables from ds

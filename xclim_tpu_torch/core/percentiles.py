@@ -17,6 +17,7 @@ import torch
 from xclim_tpu_torch.core.calendar import max_doy, percentile_doy_table
 from xclim_tpu_torch.core.dataarray import ClimArray
 from xclim_tpu_torch.ops.quantile import nan_quantile
+from xclim_tpu_torch.utils.profiling import span
 
 __all__ = [
     "percentile_doy",
@@ -40,12 +41,13 @@ def doy_quantile_gather(da: ClimArray, window: int):
 
     Returns (samples, doys, table); samples are NaN at missing positions.
     """
-    table, doys = percentile_doy_table(da.time, window=window)
-    xf = da.data.movedim(da.time_axis, 0)
-    t = torch.as_tensor(table, dtype=torch.int64, device=xf.device)
-    g = xf[t.clamp(min=0)]  # (n_doy, nyears*window, ...)
-    ok = (t >= 0).reshape(t.shape + (1,) * (g.ndim - 2))
-    return torch.where(ok, g, torch.nan), doys, table
+    with span("percentiles.gather"):
+        table, doys = percentile_doy_table(da.time, window=window)
+        xf = da.data.movedim(da.time_axis, 0)
+        t = torch.as_tensor(table, dtype=torch.int64, device=xf.device)
+        g = xf[t.clamp(min=0)]  # (n_doy, nyears*window, ...)
+        ok = (t >= 0).reshape(t.shape + (1,) * (g.ndim - 2))
+        return torch.where(ok, g, torch.nan), doys, table
 
 
 def percentile_doy(arr: ClimArray, window: int = 5, per=10.0,
@@ -58,33 +60,35 @@ def percentile_doy(arr: ClimArray, window: int = 5, per=10.0,
     the ``climatology_bounds``/``window``/``alpha``/``beta`` attrs the
     bootstrap reads.
     """
-    per_arr = np.atleast_1d(np.asarray(per, dtype=np.float32))
-    mx = max_doy(arr.time.calendar)
-    present_366 = int(arr.time.doy.max()) == 366
-    # with a doy 366, compute on doys 1..365 and interpolate to 1..366 (the
-    # 366th doy has a quarter of the samples; xclim:core/calendar.py:489-491)
-    sub = arr.sel_time(mask=arr.time.doy < 366) if present_366 else arr
+    with span("percentiles.doy"):
+        per_arr = np.atleast_1d(np.asarray(per, dtype=np.float32))
+        mx = max_doy(arr.time.calendar)
+        present_366 = int(arr.time.doy.max()) == 366
+        # with a doy 366, compute on doys 1..365 and interpolate to 1..366
+        # (the 366th doy has a quarter of the samples;
+        # xclim:core/calendar.py:489-491)
+        sub = arr.sel_time(mask=arr.time.doy < 366) if present_366 else arr
 
-    g, doys, _ = doy_quantile_gather(sub, window)
-    p = nan_quantile(g, per_arr / 100.0, axis=1, alpha=alpha, beta=beta)
-    p = p.movedim(0, -1)  # (n_doy, ..., Q)
-    if present_366:
-        p = _interp_doy_axis(p, len(doys), mx)
-        doy_coord = np.arange(1, mx + 1, dtype=np.int32)
-    else:
-        doy_coord = doys
+        g, doys, _ = doy_quantile_gather(sub, window)
+        p = nan_quantile(g, per_arr / 100.0, axis=1, alpha=alpha, beta=beta)
+        p = p.movedim(0, -1)  # (n_doy, ..., Q)
+        if present_366:
+            p = _interp_doy_axis(p, len(doys), mx)
+            doy_coord = np.arange(1, mx + 1, dtype=np.int32)
+        else:
+            doy_coord = doys
 
-    space_dims = tuple(d for d in arr.dims if d != "time")
-    dims = ("dayofyear",) + space_dims + ("percentiles",)
-    coords = {k: v for k, v in arr.coords.items() if k in space_dims}
-    coords["dayofyear"] = doy_coord
-    coords["percentiles"] = per_arr
-    attrs = dict(arr.attrs)
-    attrs["climatology_bounds"] = build_climatology_bounds(arr)
-    attrs["window"] = window
-    attrs["alpha"] = alpha
-    attrs["beta"] = beta
-    return ClimArray(p, dims, coords, attrs, "per")
+        space_dims = tuple(d for d in arr.dims if d != "time")
+        dims = ("dayofyear",) + space_dims + ("percentiles",)
+        coords = {k: v for k, v in arr.coords.items() if k in space_dims}
+        coords["dayofyear"] = doy_coord
+        coords["percentiles"] = per_arr
+        attrs = dict(arr.attrs)
+        attrs["climatology_bounds"] = build_climatology_bounds(arr)
+        attrs["window"] = window
+        attrs["alpha"] = alpha
+        attrs["beta"] = beta
+        return ClimArray(p, dims, coords, attrs, "per")
 
 
 def _doy_positions(n_src: int, n_tgt: int) -> np.ndarray:

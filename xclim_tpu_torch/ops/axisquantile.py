@@ -31,6 +31,7 @@ import torch
 
 from xclim_tpu_torch.ops import _build
 from xclim_tpu_torch.ops.quantile import _node_constants, nan_quantile_plain
+from xclim_tpu_torch.utils.profiling import span
 
 __all__ = ["MAX_AXIS", "axis_quantile_small", "axis_quantile_small_plain",
            "staged_route"]
@@ -78,40 +79,41 @@ def axis_quantile_small(x: torch.Tensor, q, axis: int = 0,
     semantics and the bits of
     :func:`~xclim_tpu_torch.ops.quantile.nan_quantile_plain`."""
     global launches, staged_launches, direct_launches
-    if x.device.type != "cuda":
-        raise ValueError(f"no axisquantile kernel for device {x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"x must be float32, got {x.dtype}")
-    ax = axis % x.ndim
-    M = x.shape[ax]
-    if not 1 <= M <= MAX_AXIS:
-        raise ValueError(f"axis of {M} samples: the kernel takes 1 to "
-                         f"{MAX_AXIS}")
-    qv, coff = _node_constants(_q_host(q), alpha, beta)
-    nq = len(qv)
-    xc = x.contiguous()
-    pre = int(np.prod(x.shape[:ax], dtype=np.int64))
-    post = int(np.prod(x.shape[ax + 1:], dtype=np.int64))
-    rest = x.shape[:ax] + x.shape[ax + 1:]
-    out = torch.empty((nq, pre * post), dtype=torch.float32, device=x.device)
-    if out.numel() == 0:
+    with span("op.axisquantile"):
+        if x.device.type != "cuda":
+            raise ValueError(f"no axisquantile kernel for device {x.device}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"x must be float32, got {x.dtype}")
+        ax = axis % x.ndim
+        M = x.shape[ax]
+        if not 1 <= M <= MAX_AXIS:
+            raise ValueError(f"axis of {M} samples: the kernel takes 1 to "
+                             f"{MAX_AXIS}")
+        qv, coff = _node_constants(_q_host(q), alpha, beta)
+        nq = len(qv)
+        xc = x.contiguous()
+        pre = int(np.prod(x.shape[:ax], dtype=np.int64))
+        post = int(np.prod(x.shape[ax + 1:], dtype=np.int64))
+        rest = x.shape[:ax] + x.shape[ax + 1:]
+        out = torch.empty((nq, pre * post), dtype=torch.float32, device=x.device)
+        if out.numel() == 0:
+            return out.reshape((nq,) + rest)
+        nodes = _device_nodes(np.concatenate([qv, coff]).tobytes(), x.device)
+        staged = staged_route(post, xc.data_ptr())
+        fn = _function()
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = fn(xc.data_ptr(), out.data_ptr(), nodes.data_ptr(), M, nq, pre,
+                     post, int(staged), stream)
+        if err != 0:
+            raise RuntimeError(f"axisquantile kernel launch failed: CUDA error "
+                               f"{err}")
+        launches += 1
+        if staged:
+            staged_launches += 1
+        else:
+            direct_launches += 1
         return out.reshape((nq,) + rest)
-    nodes = _device_nodes(np.concatenate([qv, coff]).tobytes(), x.device)
-    staged = staged_route(post, xc.data_ptr())
-    fn = _function()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(xc.data_ptr(), out.data_ptr(), nodes.data_ptr(), M, nq, pre,
-                 post, int(staged), stream)
-    if err != 0:
-        raise RuntimeError(f"axisquantile kernel launch failed: CUDA error "
-                           f"{err}")
-    launches += 1
-    if staged:
-        staged_launches += 1
-    else:
-        direct_launches += 1
-    return out.reshape((nq,) + rest)
 
 
 @functools.cache

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from xclim_tpu_torch.ops import _build
+from xclim_tpu_torch.utils.profiling import span
 
 __all__ = ["qdm_adjust_doy", "qdm_adjust_doy_plain", "qdm_adjust_series",
            "qdm_adjust_series_plain", "af_in_shared", "bracket_table",
@@ -123,18 +124,19 @@ def qdm_adjust_doy(xd: torch.Tensor, af: torch.Tensor, q,
     constant extrapolation) and applied with ``kind``; NaN where xd is.
     """
     global twin_calls
-    q = _check_q(q, kind)
-    if xd.ndim != 3:
-        raise ValueError("xd must be (n_doy, Y, C) and af (n_doy, nq, C)")
-    n_doy, Y, C = xd.shape
-    _check_af(xd, af, n_doy, len(q), C)
-    if xd.device.type == "cpu":
-        twin_calls += 1
-        return qdm_adjust_doy_plain(xd, af, q, kind)
-    x = xd.contiguous()
-    out = torch.empty_like(x)
-    _launch(x, None, af, q, kind, out, n_doy, Y, C)
-    return out
+    with span("op.qdmadjust"):
+        q = _check_q(q, kind)
+        if xd.ndim != 3:
+            raise ValueError("xd must be (n_doy, Y, C) and af (n_doy, nq, C)")
+        n_doy, Y, C = xd.shape
+        _check_af(xd, af, n_doy, len(q), C)
+        if xd.device.type == "cpu":
+            twin_calls += 1
+            return qdm_adjust_doy_plain(xd, af, q, kind)
+        x = xd.contiguous()
+        out = torch.empty_like(x)
+        _launch(x, None, af, q, kind, out, n_doy, Y, C)
+        return out
 
 
 def qdm_adjust_series(xf2: torch.Tensor, table: torch.Tensor, af: torch.Tensor,
@@ -150,24 +152,25 @@ def qdm_adjust_series(xf2: torch.Tensor, table: torch.Tensor, af: torch.Tensor,
     to its own step. A step the table does not hold is left unwritten.
     """
     global twin_calls
-    q = _check_q(q, kind)
-    if xf2.ndim != 2 or table.ndim != 2:
-        raise ValueError("xf2 must be (T, C) and table (n_doy, Y)")
-    if table.dtype.is_floating_point or table.dtype == torch.bool:
-        raise TypeError(f"table must hold integers, got {table.dtype}")
-    if table.device != xf2.device:
-        raise ValueError(f"xf2 on {xf2.device} but table on {table.device}")
-    n_doy, Y = table.shape
-    T, C = xf2.shape
-    _check_af(xf2, af, n_doy, len(q), C)
-    if xf2.device.type == "cpu":
-        twin_calls += 1
-        return qdm_adjust_series_plain(xf2, table, af, q, kind)
-    x = xf2.contiguous()
-    out = torch.empty_like(x)
-    _launch(x, table.to(torch.int32).contiguous(), af, q, kind, out, n_doy,
-            Y, C)
-    return out
+    with span("op.qdmadjust"):
+        q = _check_q(q, kind)
+        if xf2.ndim != 2 or table.ndim != 2:
+            raise ValueError("xf2 must be (T, C) and table (n_doy, Y)")
+        if table.dtype.is_floating_point or table.dtype == torch.bool:
+            raise TypeError(f"table must hold integers, got {table.dtype}")
+        if table.device != xf2.device:
+            raise ValueError(f"xf2 on {xf2.device} but table on {table.device}")
+        n_doy, Y = table.shape
+        T, C = xf2.shape
+        _check_af(xf2, af, n_doy, len(q), C)
+        if xf2.device.type == "cpu":
+            twin_calls += 1
+            return qdm_adjust_series_plain(xf2, table, af, q, kind)
+        x = xf2.contiguous()
+        out = torch.empty_like(x)
+        _launch(x, table.to(torch.int32).contiguous(), af, q, kind, out, n_doy,
+                Y, C)
+        return out
 
 
 def _launch(x, rows, af, q, kind, out, n_doy, Y, C):

@@ -28,6 +28,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from xclim_tpu_torch.utils.profiling import span
+
 __all__ = ["nan_quantile", "nan_quantile_plain", "nan_percentile"]
 
 
@@ -55,16 +57,17 @@ def nan_quantile(x: torch.Tensor, q, axis: int = -1, alpha: float = 1.0,
     tensor with shape q.shape + x.shape-without-axis (quantile axis first,
     matching xclim ``_nan_quantile``), on x's device.
     """
-    # imported here: ops.axisquantile imports this module
-    from xclim_tpu_torch.ops import axisquantile
+    with span("op.quantile"):
+        # imported here: ops.axisquantile imports this module
+        from xclim_tpu_torch.ops import axisquantile
 
-    ax = axis % x.ndim
-    if 1 < x.shape[ax] <= axisquantile.MAX_AXIS and x.dtype == torch.float32:
-        if x.device.type == "cuda":
-            return axisquantile.axis_quantile_small(x, q, ax, alpha, beta)
-        if x.device.type == "cpu":
-            axisquantile.twin_calls += 1
-    return nan_quantile_plain(x, q, ax, alpha, beta)
+        ax = axis % x.ndim
+        if 1 < x.shape[ax] <= axisquantile.MAX_AXIS and x.dtype == torch.float32:
+            if x.device.type == "cuda":
+                return axisquantile.axis_quantile_small(x, q, ax, alpha, beta)
+            if x.device.type == "cpu":
+                axisquantile.twin_calls += 1
+        return nan_quantile_plain(x, q, ax, alpha, beta)
 
 
 def nan_quantile_plain(x: torch.Tensor, q, axis: int = -1, alpha: float = 1.0,

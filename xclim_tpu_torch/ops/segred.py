@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from xclim_tpu_torch.ops import _build
+from xclim_tpu_torch.utils.profiling import span
 
 __all__ = ["SUPPORTED_OPS", "segment_reduce_onepass",
            "segment_reduce_onepass_plain"]
@@ -83,31 +84,32 @@ def segment_reduce_onepass(x2: torch.Tensor, starts, counts,
     ``count``); var and std are population statistics (ddof=0).
     """
     global launches, twin_calls
-    starts, counts = _check(x2, starts, counts, op)
-    if x2.device.type == "cpu":
-        twin_calls += 1
-        return segment_reduce_onepass_plain(x2, starts, counts, op)
-    if x2.device.type != "cuda":
-        raise ValueError(f"no segred kernel for device {x2.device}")
+    with span("op.segred"):
+        starts, counts = _check(x2, starts, counts, op)
+        if x2.device.type == "cpu":
+            twin_calls += 1
+            return segment_reduce_onepass_plain(x2, starts, counts, op)
+        if x2.device.type != "cuda":
+            raise ValueError(f"no segred kernel for device {x2.device}")
 
-    x = x2.contiguous()
-    C = x.shape[1]
-    nseg = len(starts)
-    st, ct = _device_bounds(starts.astype(np.int32).tobytes(),
-                            counts.astype(np.int32).tobytes(), x.device)
-    dtype = torch.int32 if op == "count" else torch.float32
-    out = torch.empty((nseg, C), dtype=dtype, device=x.device)
-    if out.numel() == 0:
+        x = x2.contiguous()
+        C = x.shape[1]
+        nseg = len(starts)
+        st, ct = _device_bounds(starts.astype(np.int32).tobytes(),
+                                counts.astype(np.int32).tobytes(), x.device)
+        dtype = torch.int32 if op == "count" else torch.float32
+        out = torch.empty((nseg, C), dtype=dtype, device=x.device)
+        if out.numel() == 0:
+            return out
+        fn = _function()
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = fn(x.data_ptr(), st.data_ptr(), ct.data_ptr(), out.data_ptr(),
+                     nseg, C, _OP_CODES[op], stream)
+        if err != 0:
+            raise RuntimeError(f"segred kernel launch failed: CUDA error {err}")
+        launches += 1
         return out
-    fn = _function()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), st.data_ptr(), ct.data_ptr(), out.data_ptr(),
-                 nseg, C, _OP_CODES[op], stream)
-    if err != 0:
-        raise RuntimeError(f"segred kernel launch failed: CUDA error {err}")
-    launches += 1
-    return out
 
 
 def _function():

@@ -37,6 +37,7 @@ import torch
 
 from xclim_tpu_torch.ops import _build
 from xclim_tpu_torch.ops.segred import _device_bounds
+from xclim_tpu_torch.utils.profiling import span
 
 __all__ = ["OPS", "spell_stats", "spell_stats_plain", "time_parts"]
 
@@ -121,38 +122,39 @@ def spell_stats(x: torch.Tensor, starts, counts, window: int, op=None,
     with the time axis replaced by the segment axis, on x's device.
     """
     global launches, twin_calls
-    starts, counts = _check(x, starts, counts, window, op, thresh, axis)
-    if x.device.type == "cpu":
-        twin_calls += 1
-        return spell_stats_plain(x, starts, counts, window, op, thresh, axis)
-    if x.device.type != "cuda":
-        raise ValueError(f"no spells kernel for device {x.device}")
-    v, restore = _btc_view(x, axis)
-    if v.dtype == torch.bool:
-        v = v.view(torch.uint8)
-    B, T, C = v.shape
-    nseg = len(starts)
-    outs = [torch.empty((B, nseg, C), dtype=torch.float32, device=v.device)
-            for _ in range(4)]
-    if B * nseg * C == 0:
-        return tuple(restore(o.zero_()) for o in outs)
-    st, ct = _device_bounds(starts.astype(np.int32).tobytes(),
-                            counts.astype(np.int32).tobytes(), v.device)
-    code = _MASK if op is None else OPS[op]
-    nparts = time_parts(B, nseg, C, counts)
-    scratch = torch.empty((6 * B * nseg * nparts * C if nparts > 1 else 0,),
-                          dtype=torch.int32, device=v.device)
-    fn = _function()
-    with torch.cuda.device(v.device):
-        stream = torch.cuda.current_stream(v.device).cuda_stream
-        err = fn(v.data_ptr(), code, float(thresh or 0.0), int(window),
-                 st.data_ptr(), ct.data_ptr(), *(o.data_ptr() for o in outs),
-                 B, T, nseg, C, nparts,
-                 scratch.data_ptr() if nparts > 1 else None, stream)
-    if err != 0:
-        raise RuntimeError(f"spells kernel launch failed: CUDA error {err}")
-    launches += 1
-    return tuple(restore(o) for o in outs)
+    with span("op.spells"):
+        starts, counts = _check(x, starts, counts, window, op, thresh, axis)
+        if x.device.type == "cpu":
+            twin_calls += 1
+            return spell_stats_plain(x, starts, counts, window, op, thresh, axis)
+        if x.device.type != "cuda":
+            raise ValueError(f"no spells kernel for device {x.device}")
+        v, restore = _btc_view(x, axis)
+        if v.dtype == torch.bool:
+            v = v.view(torch.uint8)
+        B, T, C = v.shape
+        nseg = len(starts)
+        outs = [torch.empty((B, nseg, C), dtype=torch.float32, device=v.device)
+                for _ in range(4)]
+        if B * nseg * C == 0:
+            return tuple(restore(o.zero_()) for o in outs)
+        st, ct = _device_bounds(starts.astype(np.int32).tobytes(),
+                                counts.astype(np.int32).tobytes(), v.device)
+        code = _MASK if op is None else OPS[op]
+        nparts = time_parts(B, nseg, C, counts)
+        scratch = torch.empty((6 * B * nseg * nparts * C if nparts > 1 else 0,),
+                              dtype=torch.int32, device=v.device)
+        fn = _function()
+        with torch.cuda.device(v.device):
+            stream = torch.cuda.current_stream(v.device).cuda_stream
+            err = fn(v.data_ptr(), code, float(thresh or 0.0), int(window),
+                     st.data_ptr(), ct.data_ptr(), *(o.data_ptr() for o in outs),
+                     B, T, nseg, C, nparts,
+                     scratch.data_ptr() if nparts > 1 else None, stream)
+        if err != 0:
+            raise RuntimeError(f"spells kernel launch failed: CUDA error {err}")
+        launches += 1
+        return tuple(restore(o) for o in outs)
 
 
 def time_parts(B: int, nseg: int, C: int, counts) -> int:

@@ -48,6 +48,7 @@ import torch
 
 from xclim_tpu_torch.ops import _build
 from xclim_tpu_torch.ops.quantile import _node_constants, nan_quantile_plain
+from xclim_tpu_torch.utils.profiling import span
 
 __all__ = ["doy_window_quantiles", "doy_window_quantiles_plain",
            "doy_window_stage", "stage_plain", "doy_chunks",
@@ -130,15 +131,16 @@ def doy_window_quantiles(xg: torch.Tensor, q, window: int, alpha: float = 1.0,
     valid samples -> NaN).
     """
     global launches, twin_calls, global_launches
-    _check(xg, window)
-    if xg.device.type == "cpu":
-        twin_calls += 1
-        return doy_window_quantiles_plain(xg, q, window, alpha, beta)
-    out = _launch(xg, q, window, alpha, beta, None)
-    launches += 1
-    if not window_in_shared(window, xg.shape[1]):
-        global_launches += 1
-    return out
+    with span("op.winquantile"):
+        _check(xg, window)
+        if xg.device.type == "cpu":
+            twin_calls += 1
+            return doy_window_quantiles_plain(xg, q, window, alpha, beta)
+        out = _launch(xg, q, window, alpha, beta, None)
+        launches += 1
+        if not window_in_shared(window, xg.shape[1]):
+            global_launches += 1
+        return out
 
 
 def doy_window_stage(xg: torch.Tensor, q, window: int, stage: int,

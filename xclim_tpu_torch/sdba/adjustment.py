@@ -35,6 +35,7 @@ from xclim_tpu_torch.sdba.utils import (
     windowed_doy_mean,
     windowed_doy_quantile,
 )
+from xclim_tpu_torch.utils.profiling import span
 
 __all__ = ["EmpiricalQuantileMapping", "DetrendedQuantileMapping",
            "QuantileDeltaMapping", "Scaling", "LOCI", "ExtremeValues",
@@ -199,23 +200,29 @@ class TrainAdjust:
 
     @classmethod
     def train(cls, ref: ClimArray, hist: ClimArray, **kwargs):
-        hist = convert_units_to(hist, ref, context="infer")
-        group = Grouper(kwargs.pop("group", "time"), kwargs.pop("window", 1)) \
-            if not isinstance(kwargs.get("group"), Grouper) else kwargs.pop("group")
-        obj = cls._train(ref, hist, group=group, **kwargs)
-        obj.train_units = ref.attrs.get("units", "")
-        return obj
+        with span("sdba.train"):
+            with span("sdba.units"):
+                hist = convert_units_to(hist, ref, context="infer")
+            group = Grouper(kwargs.pop("group", "time"), kwargs.pop("window", 1)) \
+                if not isinstance(kwargs.get("group"), Grouper) else kwargs.pop("group")
+            obj = cls._train(ref, hist, group=group, **kwargs)
+            obj.train_units = ref.attrs.get("units", "")
+            return obj
 
     def adjust(self, sim: ClimArray, **kwargs):
-        sim = convert_units_to(sim, self.train_units, context="infer")
-        out = self._adjust(sim, **kwargs)
-        out.attrs = dict(sim.attrs)
-        out.attrs["units"] = self.train_units
-        out.attrs["history"] = (sim.attrs.get("history", "") +
-                                f"\nBias-adjusted with {type(self).__name__}"
-                                f"(group={self.group.group}, kind={self.kind}).")
-        out.name = sim.name
-        return out
+        with span("sdba.adjust"):
+            with span("sdba.units"):
+                sim = convert_units_to(sim, self.train_units, context="infer")
+            out = self._adjust(sim, **kwargs)
+            with span("sdba.attrs"):
+                out.attrs = dict(sim.attrs)
+                out.attrs["units"] = self.train_units
+                out.attrs["history"] = (
+                    sim.attrs.get("history", "")
+                    + f"\nBias-adjusted with {type(self).__name__}"
+                    f"(group={self.group.group}, kind={self.kind}).")
+                out.name = sim.name
+            return out
 
 
 class EmpiricalQuantileMapping(TrainAdjust):

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from xclim_tpu_torch.core.calendar import TimeIndex, max_doy
+from xclim_tpu_torch.utils.profiling import span
 
 __all__ = ["Grouper"]
 
@@ -173,14 +174,15 @@ class Grouper:
         return h.digest()
 
     def _cached(self, kind: bytes, time: TimeIndex, device, build):
-        cache = getattr(self, "_device_tables", None)
-        if cache is None:
-            cache = {}
-            object.__setattr__(self, "_device_tables", cache)
-        key = (kind, self._time_key(time), str(torch.device(device)))
-        if key not in cache:
-            cache[key] = build()
-        return cache[key]
+        with span("sdba.tables"):
+            cache = getattr(self, "_device_tables", None)
+            if cache is None:
+                cache = {}
+                object.__setattr__(self, "_device_tables", cache)
+            key = (kind, self._time_key(time), str(torch.device(device)))
+            if key not in cache:
+                cache[key] = build()
+            return cache[key]
 
     def adjust_table(self, time: TimeIndex) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Tables to process per-group then scatter back to the time axis.

@@ -15,6 +15,7 @@ import torch
 
 from xclim_tpu_torch.ops import winquantile
 from xclim_tpu_torch.ops.quantile import nan_quantile
+from xclim_tpu_torch.utils.profiling import span
 
 __all__ = ["equally_spaced_nodes", "grouped_quantile", "interp_on_quantiles",
            "grouped_rank",
@@ -79,12 +80,13 @@ def windowed_doy_quantile(xf: torch.Tensor, doy_table: torch.Tensor,
     CPU tensors. Hyndman-Fan semantics of
     :func:`~xclim_tpu_torch.ops.quantile.nan_quantile`.
     """
-    xd = gather_doy_slices(xf, doy_table)         # (n_doy, occ, ...space)
-    sshape = tuple(xd.shape[2:])
-    xd2 = xd.reshape(tuple(xd.shape[:2]) + (-1,)) if xd.ndim != 3 else xd
-    out = winquantile.doy_window_quantiles(xd2, q, window, alpha=alpha,
-                                           beta=beta)
-    return out.reshape(tuple(out.shape[:2]) + sshape)
+    with span("sdba.quantiles"):
+        xd = gather_doy_slices(xf, doy_table)     # (n_doy, occ, ...space)
+        sshape = tuple(xd.shape[2:])
+        xd2 = xd.reshape(tuple(xd.shape[:2]) + (-1,)) if xd.ndim != 3 else xd
+        out = winquantile.doy_window_quantiles(xd2, q, window, alpha=alpha,
+                                               beta=beta)
+        return out.reshape(tuple(out.shape[:2]) + sshape)
 
 
 def windowed_doy_mean(xf: torch.Tensor, doy_table: torch.Tensor,

@@ -1,27 +1,197 @@
-"""Profiling helpers around ``torch.profiler``.
+"""Profiling and tracing around ``torch.profiler``.
 
 The reference's observability is the dask dashboard (xclim:cli.py:471-474);
 here the equivalents are profiler traces in the Chrome trace format
-(viewable in Perfetto or ``chrome://tracing``) and wall-clock timing that
-waits for the card.
+(viewable in Perfetto or ``chrome://tracing``), the program's own spans, and
+wall-clock timing that waits for the card.
+
+Spans. The program opens :func:`span` at its stages (``indicator.call`` and
+its checks, compute, units, missing and attrs; the bootstrap's plain
+compute, tables and in-base years; ``percentiles.doy``; ``sdba.train`` and
+``sdba.adjust`` with their units, tables, quantiles and attrs; the op
+entries ``op.*``). Outside :func:`tracing` a span costs one check of a
+module-level flag and returns its name's shared no-op. Inside it, each span
+keeps a record (name, id, parent id, the id of the outermost span it sits
+in, host start and end from ``time.perf_counter_ns()``, the host syncs made
+while it was the innermost span) and opens
+``torch.profiler.record_function("xtt:" + name)``, so that a profiler
+running at the same time holds the span on its own clock, around the
+operations and kernels launched inside it. While tracing is on,
+``torch.cuda.set_sync_debug_mode("warn")`` makes every synchronizing CUDA
+call warn; the warnings are counted (``host_syncs``) and not shown.
+
+Operator use::
+
+    with profile("traces"):              # a Chrome trace with the spans
+        atmos.tx90p(tasmax, tasmax_per=per, bootstrap=True)
+
+    with tracing() as tr:                # the records in memory
+        atmos.tx90p(tasmax, tasmax_per=per, bootstrap=True)
+    tr.spans, tr.counters["host_syncs"]
+
+    with timed("tx90p", sync=lambda: out) as t:   # prints the seconds
+        out = atmos.tx90p(tasmax, tasmax_per=per)
+
+Spans, and the sync counter, assume one host thread calls the program.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import tempfile
 import time
+import warnings
 
-__all__ = ["profile", "timed"]
+__all__ = ["Trace", "profile", "span", "timed", "tracing"]
+
+#: what a range of the program's spans is named by in a profiler trace
+PREFIX = "xtt:"
+#: the start of the warning torch gives for a synchronizing CUDA call
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+#: the Trace collecting while :func:`tracing` is on, else None
+_trace = None
+#: a name's shared no-op span (built on the name's first use)
+_off: dict = {}
+
+
+class Trace:
+    """What one :func:`tracing` block collected.
+
+    ``spans``: one record a span, in the order they opened: {"name", "id",
+    "parent" (None at the outermost), "root" (the outermost span's id, shared
+    by the spans of one public call), "start_ns", "end_ns", "host_syncs"}.
+    ``counters``: {"host_syncs": every sync counted in the block, inside a
+    span or not}.
+    """
+
+    def __init__(self):
+        self.spans: list[dict] = []
+        self.counters = {"host_syncs": 0}
+        self._open: list[dict] = []
+
+    def _count_sync(self) -> None:
+        self.counters["host_syncs"] += 1
+        if self._open:
+            self._open[-1]["host_syncs"] += 1
+
+
+def _decorate(name: str, fn):
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with span(name):
+            return fn(*args, **kwargs)
+    return wrapper
+
+
+class _Off:
+    """A span while tracing is off: enters and exits doing nothing; as a
+    decorator, the function opens its span on each call."""
+
+    __slots__ = ("name",)
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+    def __call__(self, fn):
+        return _decorate(self.name, fn)
+
+
+class _Span(_Off):
+    __slots__ = ("trace", "record", "_range")
+
+    def __init__(self, trace: Trace, name: str):
+        super().__init__(name)
+        self.trace = trace
+
+    def __enter__(self):
+        import torch
+
+        t = self.trace
+        parent = t._open[-1] if t._open else None
+        sid = len(t.spans) + 1
+        self.record = rec = {
+            "name": self.name, "id": sid,
+            "parent": parent["id"] if parent else None,
+            "root": parent["root"] if parent else sid,
+            "start_ns": time.perf_counter_ns(), "end_ns": None,
+            "host_syncs": 0}
+        t.spans.append(rec)
+        t._open.append(rec)
+        self._range = torch.profiler.record_function(PREFIX + self.name)
+        self._range.__enter__()
+        return None
+
+    def __exit__(self, *exc):
+        self._range.__exit__(*exc)
+        self.record["end_ns"] = time.perf_counter_ns()
+        self.trace._open.pop()          # spans exit innermost first
+        return False
+
+
+def span(name: str):
+    """The program's span ``name``: a context manager, or a decorator
+    (``@span("op.x")``) that opens it around each call. Records only inside
+    :func:`tracing`."""
+    if _trace is None:
+        off = _off.get(name)
+        return off if off is not None else _off.setdefault(name, _Off(name))
+    return _Span(_trace, name)
+
+
+@contextlib.contextmanager
+def tracing():
+    """Collect the program's spans and host syncs for the block; yields the
+    :class:`Trace` (in memory; nothing is written). Inside a block already
+    tracing, yields that block's Trace. On exit the sync debug mode and the
+    warning filters are as before."""
+    global _trace
+    if _trace is not None:
+        yield _trace
+        return
+    import torch
+
+    trace = Trace()
+    cuda = torch.cuda.is_available()
+    with warnings.catch_warnings():
+        warnings.filterwarnings("always", message=SYNC_WARNING)
+        shown = warnings.showwarning
+
+        def showwarning(message, category, filename, lineno, file=None,
+                        line=None):
+            if str(message).startswith(SYNC_WARNING):
+                trace._count_sync()
+            else:
+                shown(message, category, filename, lineno, file, line)
+
+        warnings.showwarning = showwarning
+        mode = torch.cuda.get_sync_debug_mode() if cuda else None
+        if cuda:
+            torch.cuda.set_sync_debug_mode("warn")
+        _trace = trace
+        try:
+            yield trace
+        finally:
+            _trace = None
+            if cuda:
+                torch.cuda.set_sync_debug_mode(mode)
 
 
 @contextlib.contextmanager
 def profile(logdir: str | None = None):
     """Capture a ``torch.profiler`` trace of the enclosed block (the host,
-    and the card's kernels where CUDA is available) and write it as a
-    Chrome trace ``trace-<ns>.json`` under `logdir` (default:
-    ``xclim_tpu_torch_trace`` in the temporary directory). Yields `logdir`."""
+    and the card's kernels where CUDA is available), with the program's
+    spans on as ``xtt:`` ranges, and write it as a Chrome trace
+    ``trace-<ns>.json`` under `logdir` (default: ``xclim_tpu_torch_trace``
+    in the temporary directory). Yields `logdir`."""
     import torch
     from torch.profiler import ProfilerActivity
 
@@ -30,7 +200,7 @@ def profile(logdir: str | None = None):
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=activities) as prof:
+    with torch.profiler.profile(activities=activities) as prof, tracing():
         yield logdir
         if torch.cuda.is_available():
             torch.cuda.synchronize()
@@ -60,16 +230,18 @@ def timed(label: str = "block", sync=None):
     callable returning one; set ``holder["sync"]`` inside the block to give
     it there): ``torch.cuda.synchronize`` on CUDA data, so that
     asynchronous launches do not fake speed. The seconds are in
-    ``holder["seconds"]``."""
+    ``holder["seconds"]``. Inside :func:`tracing` the block is also the
+    span `label`."""
     t0 = time.perf_counter()
     holder = {}
-    try:
-        yield holder
-    finally:
-        out = holder.get("sync", sync)
-        if callable(out):
-            out = out()
-        if out is not None:
-            _sync(out)
-        holder["seconds"] = time.perf_counter() - t0
-        print(f"[xclim_tpu_torch] {label}: {holder['seconds']:.3f}s")
+    with span(label):
+        try:
+            yield holder
+        finally:
+            out = holder.get("sync", sync)
+            if callable(out):
+                out = out()
+            if out is not None:
+                _sync(out)
+            holder["seconds"] = time.perf_counter() - t0
+            print(f"[xclim_tpu_torch] {label}: {holder['seconds']:.3f}s")
