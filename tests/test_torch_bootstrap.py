@@ -11,6 +11,10 @@ numpy inputs.
   identical thresholds, and in-base years thresholds from the tables, which
   are bit-identical; the day counts and their means over the replacements
   are exact.
+* The recount of an in-base year reads the days of that year's periods
+  alone (for ``QS-DEC``, March to the next February); WSDI and CSDI with
+  ``resample_before_rl=False``, whose runs cross the periods' bounds, read
+  the whole series. Both routes are exact, and counted.
 * The 50th percentile takes the re-sort route, whose thresholds come from
   the sort quantile and may sit a few ulps from the reference's (ROADMAP
   Queue 3); a count could then move only for a day within those ulps of
@@ -29,10 +33,12 @@ from xclim_tpu.core.dataarray import ClimArray as JClimArray
 from xclim_tpu.core.percentiles import percentile_doy as jpercentile_doy
 from xclim_tpu.ops import bootstrap as jboot
 from xclim_tpu_torch import indices
-from xclim_tpu_torch.core.calendar import date_range
+from xclim_tpu_torch.core import bootstrapping
+from xclim_tpu_torch.core.calendar import date_range, resample_segments
 from xclim_tpu_torch.core.dataarray import ClimArray
 from xclim_tpu_torch.core.percentiles import from_reference_percentiles
 from xclim_tpu_torch.ops import bootstrap as boot
+from xclim_tpu_torch.utils.profiling import tracing
 
 Y, W, C = 6, 5, 48
 MODES = ["plain", "nans", "ties", "dead_lane", "nan_edges"]
@@ -151,7 +157,7 @@ CASES = [("tx90p", "tasmax", 90, {}), ("tn10p", "tasmin", 10, {}),
          ("tg90p", "tas", 90, {}), ("tx10p", "tasmax", 10, {})]
 
 
-@pytest.mark.parametrize("freq", ["YS", "MS"])
+@pytest.mark.parametrize("freq", ["YS", "MS", "QS-DEC"])
 @pytest.mark.parametrize("cal", ["noleap", "360_day", "standard"])
 @pytest.mark.parametrize("fn,var,per,kw", CASES, ids=[c[0] for c in CASES])
 def test_bootstrapped_index_matches_reference(fn, var, per, kw, cal, freq):
@@ -200,3 +206,107 @@ def test_bootstrap_needs_bounds_and_two_base_years():
                           climatology_bounds=["2010-01-01", "2010-12-31"])
     with pytest.raises(KeyError, match="two in-base years"):
         indices.tx90p(a, one_year, bootstrap=True)
+
+
+def _spell_across_new_year(a, b, year=2003):
+    """Put a 4-day run over 31 December of ``year`` (the base's last) into
+    both arrays: above every threshold at lat 0, below every one at lat 1,
+    with a day of the other sign either side of it. Each period holds 2 of
+    its days, fewer than the windows: it counts only where runs cross the
+    periods' bounds. (Its 2 days in the base sit above the 90th and below
+    the 10th of the 20 samples of their days' thresholds.)"""
+    t = a.time
+    i = int(np.nonzero((t.year == year) & (t.month == 12) & (t.day == 30))[0][0])
+    x = a.data.numpy().copy()
+    warm = np.array([250.0, 330.0, 330.0, 330.0, 330.0, 250.0])[:, None]
+    x[i - 1:i + 5, 0] = warm
+    x[i - 1:i + 5, 1] = 580.0 - warm
+    return a.copy(data=torch.as_tensor(x)), b.copy(data=jnp.asarray(x))
+
+
+SPELLS = [c for c in CASES if "spell" in c[0]]
+
+
+@pytest.mark.parametrize("cal", ["noleap", "standard"])
+@pytest.mark.parametrize("fn,var,per,kw", SPELLS, ids=[c[0] for c in SPELLS])
+def test_runs_across_the_periods_take_the_whole_series(fn, var, per, kw, cal):
+    a, b = _spell_across_new_year(*_pair(cal, seed=31 + len(fn), name=var))
+    jper, tper = _carried_per(b, per)
+    got = getattr(indices, fn)(a, tper, freq="YS", bootstrap=True,
+                               resample_before_rl=False, **kw)
+    exp = getattr(jindices, fn)(b, jper, freq="YS", bootstrap=True,
+                                resample_before_rl=False, **kw)
+    np.testing.assert_array_equal(got.values, np.asarray(exp.data))
+    # the run over 31 December 2003 counts here, and not period by period
+    split = getattr(indices, fn)(a, tper, freq="YS", bootstrap=True, **kw)
+    in_2003 = got.time.year == 2003
+    assert (got.values[in_2003] > split.values[in_2003]).any()
+
+
+def _recorded(monkeypatch):
+    """The time steps of the series each recount hands the index, recorded
+    by a wrapper around the index."""
+    seen = []
+    real = bootstrapping.bootstrap_func
+
+    def spy(index, **kwargs):
+        def recorded(**kw):
+            per = next(v for k, v in kw.items() if k.endswith("_per"))
+            if "_bootstrap" in per.dims:
+                da = next(v for k, v in kw.items()
+                          if isinstance(v, ClimArray) and v.time is not None)
+                seen.append(len(da.time))
+            return index(**kw)
+        return real(recorded, **kwargs)
+
+    monkeypatch.setattr(bootstrapping, "bootstrap_func", spy)
+    return seen
+
+
+def test_the_recount_reads_the_years_own_days(monkeypatch):
+    """4 in-base years (2000 a leap year) a call: tx90p and WSDI recount
+    each over its own 366 or 365 days; with ``resample_before_rl=False``
+    WSDI and CSDI recount over the whole series."""
+    a, b = _pair("standard", seed=41, name="tasmax")
+    _, t90 = _carried_per(b, 90)
+    _, t10 = _carried_per(b, 10)
+    seen = _recorded(monkeypatch)
+    with tracing() as tr:
+        indices.tx90p(a, t90, freq="YS", bootstrap=True)
+        indices.warm_spell_duration_index(a, t90, window=4, freq="YS",
+                                          bootstrap=True)
+    assert (tr.counters["bootstrap_sliced"], tr.counters["bootstrap_whole"]) \
+        == (8, 0)
+    assert seen == [366, 365, 365, 365] * 2
+    seen.clear()
+    with tracing() as tr:
+        indices.warm_spell_duration_index(a, t90, window=4, freq="YS",
+                                          bootstrap=True,
+                                          resample_before_rl=False)
+        indices.cold_spell_duration_index(a.rename("tasmin"), t10, window=3,
+                                          freq="YS", bootstrap=True,
+                                          resample_before_rl=False)
+    assert (tr.counters["bootstrap_sliced"], tr.counters["bootstrap_whole"]) \
+        == (0, 8)
+    assert seen == [len(a.time)] * 8
+
+
+@pytest.mark.parametrize("gap", [False, True])
+def test_periods_that_a_slice_would_move_take_the_whole_series(gap):
+    """``30D`` periods are anchored at the series' first day. Without the day
+    that starts 2001's first period, a slice from that period's first day
+    would anchor them a day later: that call recounts over the whole
+    series."""
+    a, b = _pair("noleap", seed=7, name="tasmax")
+    jper, tper = _carried_per(b, 90)
+    if gap:
+        starts = resample_segments(a.time, "30D").starts
+        first = starts[np.nonzero(a.time.year[starts] == 2001)[0][0]]
+        keep = np.arange(len(a.time)) != first
+        a, b = a.sel_time(mask=keep), b.sel_time(mask=keep)
+    with tracing() as tr:
+        got = indices.tx90p(a, tper, freq="30D", bootstrap=True)
+    exp = jindices.tx90p(b, jper, freq="30D", bootstrap=True)
+    np.testing.assert_array_equal(got.values, np.asarray(exp.data))
+    assert (tr.counters["bootstrap_sliced"], tr.counters["bootstrap_whole"]) \
+        == ((0, 4) if gap else (4, 0))

@@ -126,7 +126,7 @@ def test_ids_parents_roots_and_siblings():
         assert s["start_ns"] <= s["end_ns"] and s["host_syncs"] == 0
     assert a["start_ns"] <= b["start_ns"] and d["end_ns"] <= c["end_ns"] \
         <= a["end_ns"] <= e["start_ns"]
-    assert tr.counters == {"host_syncs": 0}               # no card here
+    assert tr.counters == dict.fromkeys(profiling.COUNTERS, 0)  # no card here
 
 
 def test_decorator_form_and_nesting_of_tracing():
@@ -230,6 +230,11 @@ def test_indicator_and_bootstrap_sites():
             assert year["name"] == "bootstrap.year"
             assert rec[year["parent"]]["name"] == "indicator.compute"
             assert rec[year["root"]]["name"] == "indicator.call"
+    # each recount is counted in its own span, over the year's days alone
+    for s in tr.spans:
+        recount = s["name"] == "bootstrap.recount"
+        assert (s["bootstrap_sliced"], s["bootstrap_whole"]) == (recount, 0)
+    assert tr.counters["bootstrap_sliced"] == 2 * n_base
 
 
 def test_sdba_sites():

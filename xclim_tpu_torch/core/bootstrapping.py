@@ -6,8 +6,14 @@ The reference's per-year loop of full ``percentile_doy`` recomputes
 samples are gathered once into a (doy, year, window, ...) tensor, and for
 each in-base year b the thresholds with b replaced by every other year are
 computed at once, stacked on a ``_bootstrap`` dim, like the reference. The
-index is recomputed with them and averaged over ``_bootstrap``, and year b's
-periods of the plain result are overwritten with that mean.
+index is recomputed with them over the days of year b's periods only (a
+contiguous view of the series, with the thresholds' rows of those days),
+averaged over ``_bootstrap``, and year b's periods of the plain result are
+overwritten with that mean. Every period's value then depends on its own
+days alone, as the reference hands the index each year's slice. Where a run
+may be counted across a period's bounds (``resample_before_rl=False``), or
+the output's periods are not the series' own at ``freq``, the index is
+recomputed over the whole series and year b's periods taken from it.
 
 Per-pair quantiles: tail percentiles (<= 25 % or >= 75 %: tx90p, tn10p and
 kin) come from the top-k / bottom-k candidate tables of
@@ -25,7 +31,11 @@ import math
 import numpy as np
 import torch
 
-from xclim_tpu_torch.core.calendar import max_doy, percentile_doy_table
+from xclim_tpu_torch.core.calendar import (
+    max_doy,
+    percentile_doy_table,
+    resample_segments,
+)
 from xclim_tpu_torch.core.dataarray import ClimArray
 from xclim_tpu_torch.core.percentiles import _interp_doy_axis
 from xclim_tpu_torch.ops.bootstrap import (
@@ -34,7 +44,7 @@ from xclim_tpu_torch.ops.bootstrap import (
     topk_rank_tables,
 )
 from xclim_tpu_torch.ops.quantile import nan_quantile
-from xclim_tpu_torch.utils.profiling import span
+from xclim_tpu_torch.utils.profiling import count, span
 
 __all__ = ["percentile_bootstrap", "bootstrap_func"]
 
@@ -67,6 +77,39 @@ def _find_keys(kwargs):
         raise KeyError("bootstrap requires a percentile array (name ending in _per) "
                        "and a data array argument.")
     return per_key, da_key
+
+
+def _periods_days(kwargs, time, out_time, years, n_doy) -> dict | None:
+    """For each of ``years`` with periods in the output, the steps of
+    ``time`` its periods cover, as a slice, where the index evaluated on
+    those steps alone gives the values it gives there on the whole series;
+    None where it may not, and the recount takes the whole series.
+
+    That holds where the output's periods are ``time``'s own at ``freq``
+    (the slice's too), no run is counted across their bounds (which
+    ``resample_before_rl=False`` does), and the thresholds' ``n_doy`` days
+    of year are the series' (the index would otherwise stretch them onto
+    each slice's range instead of the series').
+    """
+    freq = kwargs.get("freq")
+    doy = time.doy
+    if (freq is None or not kwargs.get("resample_before_rl", True)
+            or (doy.min(), doy.max()) != (1, n_doy)):
+        return None
+    spec = resample_segments(time, freq)
+    if spec.labels != out_time:
+        return None
+    bounds = np.append(spec.starts, len(time))
+    days = {}
+    for year in years:
+        sel = np.nonzero(out_time.year == year)[0]
+        if len(sel) == 0:
+            continue
+        steps = slice(int(bounds[sel[0]]), int(bounds[sel[-1] + 1]))
+        if resample_segments(time[steps], freq).labels != out_time[sel]:
+            return None
+        days[year] = steps
+    return days
 
 
 def bootstrap_func(compute_index_func, **kwargs) -> ClimArray:
@@ -173,6 +216,8 @@ def bootstrap_func(compute_index_func, **kwargs) -> ClimArray:
     # which output periods belong to each calendar year (the reference
     # groups the resampled output by year; bootstrapping.py:178-210)
     out_years = plain.time.year
+    days = _periods_days(kwargs, da.time, plain.time, in_base_years,
+                         len(doy_coord))
     for b_idx, b_year in enumerate(in_base_years):
         sel = np.nonzero(out_years == b_year)[0]
         if len(sel) == 0:
@@ -183,17 +228,35 @@ def bootstrap_func(compute_index_func, **kwargs) -> ClimArray:
                 if not keep_per_dim:
                     p = p[..., 0]
             with span("bootstrap.recount"):
-                per_bo = ClimArray(p, pdims, pcoords, dict(per.attrs),
-                                   per.name)
-                res_mean = compute_index_func(
-                    **{**kwargs, per_key: per_bo}).mean(dim="_bootstrap")
+                kw = dict(kwargs)
+                if days is None:
+                    count("bootstrap_whole")
+                    first = int(sel[0])     # year b's first period in the result
+                    kw[per_key] = ClimArray(p, pdims, pcoords,
+                                            dict(per.attrs), per.name)
+                else:
+                    count("bootstrap_sliced")
+                    steps = days[b_year]
+                    kw[da_key] = ClimArray(
+                        da.data.narrow(da.time_axis, steps.start,
+                                       steps.stop - steps.start),
+                        da.dims, {**da.coords, "time": da.time[steps]},
+                        dict(da.attrs), da.name)
+                    # the thresholds of the slice's days of year
+                    doy = da.time[steps].doy
+                    lo, hi = int(doy.min()), int(doy.max())
+                    kw[per_key] = ClimArray(
+                        p.narrow(1, lo - 1, hi - lo + 1), pdims,
+                        {**pcoords, "dayofyear": doy_coord[lo - 1:hi]},
+                        dict(per.attrs), per.name)
+                    first = 0
+                res_mean = compute_index_func(**kw).mean(dim="_bootstrap")
                 # year b's periods, in the plain result's dim order
-                idx = torch.as_tensor(sel, device=data.device)
-                take = res_mean.data.index_select(
-                    res_mean.dims.index("time"), idx)
+                take = res_mean.data.narrow(res_mean.dims.index("time"),
+                                            first, len(sel))
                 take = take.permute([res_mean.dims.index(d)
                                      for d in plain.dims])
-                data.index_copy_(out_tax, idx, take.to(data.dtype))
+                data.narrow(out_tax, int(sel[0]), len(sel)).copy_(take)
 
     out = plain.copy(data=data)
     out.attrs = dict(plain.attrs)

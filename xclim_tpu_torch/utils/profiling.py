@@ -12,13 +12,21 @@ compute, tables and in-base years; ``percentiles.doy``; ``sdba.train`` and
 entries ``op.*``). Outside :func:`tracing` a span costs one check of a
 module-level flag and returns its name's shared no-op. Inside it, each span
 keeps a record (name, id, parent id, the id of the outermost span it sits
-in, host start and end from ``time.perf_counter_ns()``, the host syncs made
+in, host start and end from ``time.perf_counter_ns()``, the counts made
 while it was the innermost span) and opens
 ``torch.profiler.record_function("xtt:" + name)``, so that a profiler
 running at the same time holds the span on its own clock, around the
 operations and kernels launched inside it. While tracing is on,
 ``torch.cuda.set_sync_debug_mode("warn")`` makes every synchronizing CUDA
 call warn; the warnings are counted (``host_syncs``) and not shown.
+
+Counters. Beside ``host_syncs``, the program counts with :func:`count` how
+it took a path that depends on its input: ``bootstrap_sliced`` and
+``bootstrap_whole``, the bootstrap's recounts of an in-base year over the
+days of that year's periods alone or over the whole series. Each count goes
+to the block's total and to the innermost open span's record, as a sync
+does, and is an empty ``xtt:<name>`` range on a profiler's clock, so that a
+trace holds it too.
 
 Operator use::
 
@@ -27,7 +35,7 @@ Operator use::
 
     with tracing() as tr:                # the records in memory
         atmos.tx90p(tasmax, tasmax_per=per, bootstrap=True)
-    tr.spans, tr.counters["host_syncs"]
+    tr.spans, tr.counters["host_syncs"], tr.counters["bootstrap_sliced"]
 
     with timed("tx90p", sync=lambda: out) as t:   # prints the seconds
         out = atmos.tx90p(tasmax, tasmax_per=per)
@@ -44,12 +52,14 @@ import tempfile
 import time
 import warnings
 
-__all__ = ["Trace", "profile", "span", "timed", "tracing"]
+__all__ = ["Trace", "count", "profile", "span", "timed", "tracing"]
 
 #: what a range of the program's spans is named by in a profiler trace
 PREFIX = "xtt:"
 #: the start of the warning torch gives for a synchronizing CUDA call
 SYNC_WARNING = "called a synchronizing CUDA operation"
+#: the program's counters, each kept for the block and for every span
+COUNTERS = ("host_syncs", "bootstrap_sliced", "bootstrap_whole")
 
 #: the Trace collecting while :func:`tracing` is on, else None
 _trace = None
@@ -62,20 +72,21 @@ class Trace:
 
     ``spans``: one record a span, in the order they opened: {"name", "id",
     "parent" (None at the outermost), "root" (the outermost span's id, shared
-    by the spans of one public call), "start_ns", "end_ns", "host_syncs"}.
-    ``counters``: {"host_syncs": every sync counted in the block, inside a
-    span or not}.
+    by the spans of one public call), "start_ns", "end_ns", and each of
+    :data:`COUNTERS` made while it was the innermost span}.
+    ``counters``: each of :data:`COUNTERS` over the block, inside a span or
+    not.
     """
 
     def __init__(self):
         self.spans: list[dict] = []
-        self.counters = {"host_syncs": 0}
+        self.counters = dict.fromkeys(COUNTERS, 0)
         self._open: list[dict] = []
 
-    def _count_sync(self) -> None:
-        self.counters["host_syncs"] += 1
+    def _count(self, name: str) -> None:
+        self.counters[name] += 1
         if self._open:
-            self._open[-1]["host_syncs"] += 1
+            self._open[-1][name] += 1
 
 
 def _decorate(name: str, fn):
@@ -123,7 +134,7 @@ class _Span(_Off):
             "parent": parent["id"] if parent else None,
             "root": parent["root"] if parent else sid,
             "start_ns": time.perf_counter_ns(), "end_ns": None,
-            "host_syncs": 0}
+            **dict.fromkeys(COUNTERS, 0)}
         t.spans.append(rec)
         t._open.append(rec)
         self._range = torch.profiler.record_function(PREFIX + self.name)
@@ -147,6 +158,20 @@ def span(name: str):
     return _Span(_trace, name)
 
 
+def count(name: str) -> None:
+    """Add one to the program's counter ``name`` (one of :data:`COUNTERS`)
+    inside :func:`tracing`: to the block's total and to the innermost open
+    span's record, and as an empty ``xtt:<name>`` range to a profiler
+    running then. Does nothing outside :func:`tracing`."""
+    if _trace is None:
+        return
+    import torch
+
+    _trace._count(name)
+    with torch.profiler.record_function(PREFIX + name):
+        pass
+
+
 @contextlib.contextmanager
 def tracing():
     """Collect the program's spans and host syncs for the block; yields the
@@ -168,7 +193,7 @@ def tracing():
         def showwarning(message, category, filename, lineno, file=None,
                         line=None):
             if str(message).startswith(SYNC_WARNING):
-                trace._count_sync()
+                trace._count("host_syncs")
             else:
                 shown(message, category, filename, lineno, file, line)
 
