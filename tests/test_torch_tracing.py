@@ -1,9 +1,10 @@
-"""The port's spans and host-sync counter (``utils/profiling.py``): off by
-default and invisible to a profiler; on inside ``tracing()``, with parent,
-root and sibling ids, the decorator form and a span closed by an exception;
-nested around their operations on the profiler's clock; emitted at every
-site of the indicator, bootstrap, percentile, sdba and op layers; and
-without effect on any output.
+"""The port's spans and counters (``utils/profiling.py``): off by default
+and invisible to a profiler; on inside ``tracing()``, with parent, root and
+sibling ids, the decorator form and a span closed by an exception; nested
+around their operations on the profiler's clock; emitted at every site of
+the indicator, bootstrap, percentile, sdba (DQM's scaling and detrend,
+EQM's adjust and its node passes) and op layers; and without effect on any
+output.
 
 The file imports no JAX: its ``cuda`` test runs on the card with
 
@@ -65,10 +66,9 @@ def _etccdi(bootstrap):
                                             bootstrap=bootstrap).data]
 
 
-def _qdm():
-    """QDM train on ref/hist, adjust of sim: the outputs."""
-    from xclim_tpu_torch import sdba
-
+def _sdba_inputs(trend=0.0):
+    """ref, hist and sim over 3 noleap years at 2 x 2 cells; ``trend`` K a
+    year in sim."""
     rng = np.random.default_rng(3)
     out = {}
     for name, y0 in (("ref", 1981), ("hist", 1981), ("sim", 2071)):
@@ -76,11 +76,47 @@ def _qdm():
                           calendar="noleap")
         x = (280.0 + rng.normal(0.0, 3.0, (len(time), 2, 2))).astype(
             np.float32)
+        if name == "sim":
+            x += (trend * np.arange(len(time)) / 365.0).astype(
+                np.float32)[:, None, None]
         out[name] = ClimArray(torch.as_tensor(x), ("time", "lat", "lon"),
                               {"time": time, "lat": np.arange(2),
                                "lon": np.arange(2)}, {"units": "K"}, name)
+    return out
+
+
+def _qdm():
+    """QDM train on ref/hist, adjust of sim: the outputs."""
+    from xclim_tpu_torch import sdba
+
+    out = _sdba_inputs()
     adj = sdba.QuantileDeltaMapping.train(
         out["ref"], out["hist"], group=sdba.Grouper("time.dayofyear", 31),
+        nquantiles=10, kind="+")
+    scen = adj.adjust(out["sim"])
+    return [adj.ds["af"], adj.ds["hist_q"], scen.data]
+
+
+def _dqm():
+    """DQM train on ref/hist (50 quantiles), adjust of a trended sim: the
+    outputs."""
+    from xclim_tpu_torch import sdba
+
+    out = _sdba_inputs(trend=0.03)
+    adj = sdba.DetrendedQuantileMapping.train(
+        out["ref"], out["hist"], group=sdba.Grouper("time.dayofyear", 31),
+        nquantiles=50, kind="+")
+    scen = adj.adjust(out["sim"])
+    return [adj.ds["af"], adj.ds["hist_q"], adj.ds["scaling"], scen.data]
+
+
+def _eqm():
+    """EQM train on ref/hist by month, adjust of sim: the outputs."""
+    from xclim_tpu_torch import sdba
+
+    out = _sdba_inputs()
+    adj = sdba.EmpiricalQuantileMapping.train(
+        out["ref"], out["hist"], group=sdba.Grouper("time.month"),
         nquantiles=10, kind="+")
     scen = adj.adjust(out["sim"])
     return [adj.ds["af"], adj.ds["hist_q"], scen.data]
@@ -127,6 +163,9 @@ def test_ids_parents_roots_and_siblings():
     assert a["start_ns"] <= b["start_ns"] and d["end_ns"] <= c["end_ns"] \
         <= a["end_ns"] <= e["start_ns"]
     assert tr.counters == dict.fromkeys(profiling.COUNTERS, 0)  # no card here
+    assert "eqm_node_passes" in profiling.COUNTERS
+    for s in tr.spans:
+        assert s["eqm_node_passes"] == 0
 
 
 def test_decorator_form_and_nesting_of_tracing():
@@ -253,6 +292,60 @@ def test_sdba_sites():
     assert "sdba.attrs" in names
 
 
+def test_dqm_sites_and_the_node_pass_counter():
+    with tracing() as tr:
+        _dqm()
+    rec = {s["id"]: s for s in tr.spans}
+    names = _names(tr)
+    assert names.count("sdba.train") == names.count("sdba.adjust") == 1
+    parents = {n: [rec[s["parent"]]["name"] for s in tr.spans
+                   if s["name"] == n]
+               for n in ("sdba.scaling", "sdba.detrend", "sdba.eqm")}
+    # the train's scaling and the adjust's; the fit and the retrend
+    assert parents == {"sdba.scaling": ["sdba.train", "sdba.adjust"],
+                       "sdba.detrend": ["sdba.adjust", "sdba.adjust"],
+                       "sdba.eqm": ["sdba.adjust"]}
+    # the scaling comes before the train's two quantile tables; EQM sits
+    # between the fit and the retrend
+    order = [n for n in names if n in ("sdba.scaling", "sdba.quantiles",
+                                       "sdba.detrend", "sdba.eqm")]
+    assert order == ["sdba.scaling", "sdba.quantiles", "sdba.quantiles",
+                     "sdba.scaling", "sdba.detrend", "sdba.eqm",
+                     "sdba.detrend"]
+    # one pass a node (50 quantiles and the two end nodes), all in sdba.eqm
+    assert tr.counters["eqm_node_passes"] == 52
+    (eqm,) = [s for s in tr.spans if s["name"] == "sdba.eqm"]
+    assert eqm["eqm_node_passes"] == 52
+    assert sum(s["eqm_node_passes"] for s in tr.spans) == 52
+
+
+def test_node_passes_are_ranges_inside_the_eqm_span():
+    """One empty range a pass, on the profiler's clock, inside
+    ``sdba.eqm``'s range."""
+
+    def run():
+        with tracing():
+            _dqm()
+
+    events = _kineto(run)
+    eqm = [e for e in events if e.name() == "xtt:sdba.eqm"]
+    passes = [e for e in events if e.name() == "xtt:eqm_node_passes"]
+    assert len(eqm) == 1 and len(passes) == 52
+    assert all(eqm[0].start_ns() <= e.start_ns() <= e.end_ns()
+               <= eqm[0].end_ns() for e in passes)
+
+
+def test_eqm_adjust_opens_the_eqm_span():
+    with tracing() as tr:
+        _eqm()
+    rec = {s["id"]: s for s in tr.spans}
+    (eqm,) = [s for s in tr.spans if s["name"] == "sdba.eqm"]
+    assert rec[eqm["parent"]]["name"] == "sdba.adjust"
+    assert eqm["eqm_node_passes"] == tr.counters["eqm_node_passes"] == 12
+    assert "sdba.scaling" not in _names(tr)
+    assert "sdba.detrend" not in _names(tr)
+
+
 def _op_calls():
     from xclim_tpu_torch.ops import qdmadjust, segred, spells, winquantile
     from xclim_tpu_torch.ops.quantile import nan_quantile
@@ -297,10 +390,11 @@ def test_the_axisquantile_entry_opens_its_span_before_it_refuses_the_cpu():
     assert rec["name"] == "op.axisquantile" and rec["end_ns"] is not None
 
 
-@pytest.mark.parametrize("case", ["bootstrap", "plain", "qdm"])
+@pytest.mark.parametrize("case", ["bootstrap", "plain", "qdm", "dqm", "eqm"])
 def test_outputs_are_bit_equal_with_tracing_on_and_off(case):
     fn = {"bootstrap": lambda: _etccdi(True),
-          "plain": lambda: _etccdi(False), "qdm": _qdm}[case]
+          "plain": lambda: _etccdi(False), "qdm": _qdm, "dqm": _dqm,
+          "eqm": _eqm}[case]
     off = fn()
     with tracing() as tr:
         on = fn()

@@ -97,9 +97,10 @@ def _qm_train_core_doy(xref, xhist, dtref, dthist, *, q, kind, window):
 
 
 def _dqm_train_core(xref, xhist, tref, thist, gid_hist, q, *, kind):
-    scaling = _inv_kind(_grouped_mean_tf(xref, tref),
-                        _grouped_mean_tf(xhist, thist), kind)  # (G, ...)
-    xh_sc = _apply_kind(xhist, scaling[gid_hist], kind)
+    with span("sdba.scaling"):
+        scaling = _inv_kind(_grouped_mean_tf(xref, tref),
+                            _grouped_mean_tf(xhist, thist), kind)  # (G, ...)
+        xh_sc = _apply_kind(xhist, scaling[gid_hist], kind)
     ref_q = _grouped_quantile_tf(xref, tref, q)
     hist_q = _grouped_quantile_tf(xh_sc, thist, q)
     return _inv_kind(ref_q, hist_q, kind), hist_q, scaling
@@ -110,14 +111,16 @@ def _dqm_train_core_doy(xref, xhist, dtref, dthist, gid_hist, *, q, kind,
     """DQM's day-of-year trainer: windowed means for the scaling, then the
     winquantile op on ref and on the scaled hist."""
     q = np.asarray(q, dtype=np.float32)
-    scaling = _inv_kind(windowed_doy_mean(xref, dtref, window),
-                        windowed_doy_mean(xhist, dthist, window), kind)
-    xh_sc = _apply_kind(xhist, scaling[gid_hist], kind)
+    with span("sdba.scaling"):
+        scaling = _inv_kind(windowed_doy_mean(xref, dtref, window),
+                            windowed_doy_mean(xhist, dthist, window), kind)
+        xh_sc = _apply_kind(xhist, scaling[gid_hist], kind)
     ref_q = windowed_doy_quantile(xref, dtref, window, q)
     hist_q = windowed_doy_quantile(xh_sc, dthist, window, q)
     return _inv_kind(ref_q, hist_q, kind), hist_q, scaling
 
 
+@span("sdba.eqm")
 def _eqm_adjust_body(xf, table, flat_pos, hist_q, af, *, kind, interp,
                      extrapolation):
     """EQM adjust on a time-first tensor; returns the time-first result."""
@@ -162,30 +165,37 @@ def _qdm_adjust_core_doy(xf, table, af, *, q, kind):
 
 def _dqm_adjust_core(xf, V, gid, table, flat_pos, hist_q, af, scaling, *,
                      kind, interp, extrapolation):
-    """Scale → detrend → EQM → retrend. xf time-first; V is the
-    centered/scaled Vandermonde (T, deg+1)."""
-    x_sc = _apply_kind(xf, scaling[gid], kind)
-    T = x_sc.shape[0]
-    flat = x_sc.reshape(T, -1)
-    valid = ~torch.isnan(flat)
-    f0 = torch.where(valid, flat, 0.0)
-    VtV = torch.einsum("ti,tj,tc->cij", V, V, valid.to(torch.float32))
-    Vty = torch.einsum("ti,tc->ci", V, f0)
-    eye = torch.eye(V.shape[1], dtype=V.dtype, device=V.device)
-    coef = torch.linalg.solve(VtV + 1e-8 * eye[None], Vty[..., None])[..., 0]
-    trend = torch.einsum("ti,ci->tc", V, coef).reshape(x_sc.shape)
-    # per-cell re-centering (a global scalar saturates the quantile lookup
-    # off-table on spatially heterogeneous grids)
-    tmean = torch.nanmean(trend, dim=0, keepdim=True)
-    if kind == "+":
-        detrended = x_sc - trend + tmean
-    else:
-        detrended = x_sc / torch.where(trend == 0, torch.nan, trend) * tmean
+    """Scale → detrend → EQM → retrend, in the spans ``sdba.scaling``,
+    ``sdba.detrend`` (the fit, its solve, the re-centred trend; again for
+    the retrend) and ``sdba.eqm``. xf time-first; V is the centered/scaled
+    Vandermonde (T, deg+1)."""
+    with span("sdba.scaling"):
+        x_sc = _apply_kind(xf, scaling[gid], kind)
+    with span("sdba.detrend"):
+        T = x_sc.shape[0]
+        flat = x_sc.reshape(T, -1)
+        valid = ~torch.isnan(flat)
+        f0 = torch.where(valid, flat, 0.0)
+        VtV = torch.einsum("ti,tj,tc->cij", V, V, valid.to(torch.float32))
+        Vty = torch.einsum("ti,tc->ci", V, f0)
+        eye = torch.eye(V.shape[1], dtype=V.dtype, device=V.device)
+        coef = torch.linalg.solve(VtV + 1e-8 * eye[None],
+                                  Vty[..., None])[..., 0]
+        trend = torch.einsum("ti,ci->tc", V, coef).reshape(x_sc.shape)
+        # per-cell re-centering (a global scalar saturates the quantile
+        # lookup off-table on spatially heterogeneous grids)
+        tmean = torch.nanmean(trend, dim=0, keepdim=True)
+        if kind == "+":
+            detrended = x_sc - trend + tmean
+        else:
+            detrended = x_sc / torch.where(trend == 0, torch.nan,
+                                           trend) * tmean
     out = _eqm_adjust_body(detrended, table, flat_pos, hist_q, af, kind=kind,
                            interp=interp, extrapolation=extrapolation)
-    if kind == "+":
-        return out + (trend - tmean)
-    return out * trend / tmean
+    with span("sdba.detrend"):
+        if kind == "+":
+            return out + (trend - tmean)
+        return out * trend / tmean
 
 
 class TrainAdjust:

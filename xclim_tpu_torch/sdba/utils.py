@@ -15,7 +15,7 @@ import torch
 
 from xclim_tpu_torch.ops import winquantile
 from xclim_tpu_torch.ops.quantile import nan_quantile
-from xclim_tpu_torch.utils.profiling import span
+from xclim_tpu_torch.utils.profiling import count, span
 
 __all__ = ["equally_spaced_nodes", "grouped_quantile", "interp_on_quantiles",
            "grouped_rank",
@@ -116,7 +116,8 @@ def interp_on_quantiles(x: torch.Tensor, xq: torch.Tensor, yq: torch.Tensor,
     x: (..., ms, C); xq, yq: (..., nq, C) sorted along -2. Constant
     extrapolation clamps to the edge values (xsdba default
     ``extrapolation='constant'``). The bracketing index is a comparison
-    count over the nodes (NaN nodes compare False, i.e. count as greater).
+    count over the nodes (NaN nodes compare False, i.e. count as greater),
+    one pass over ``x`` a node, each counted as ``eqm_node_passes``.
     """
     nq = xq.shape[-2]
     # the narrowest count that holds nq: the loop reads and writes it once
@@ -125,6 +126,7 @@ def interp_on_quantiles(x: torch.Tensor, xq: torch.Tensor, yq: torch.Tensor,
                       dtype=torch.int16 if nq < 2**15 else torch.int64)
     for k in range(nq):
         cnt += xq[..., k:k + 1, :] <= x
+        count("eqm_node_passes")
     hi = torch.clamp(cnt, 1, nq - 1).to(torch.int64)
     lo = hi - 1
     x0 = _take_nodes(xq, lo)

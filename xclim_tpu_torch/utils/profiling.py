@@ -8,8 +8,9 @@ wall-clock timing that waits for the card.
 Spans. The program opens :func:`span` at its stages (``indicator.call`` and
 its checks, compute, units, missing and attrs; the bootstrap's plain
 compute, tables and in-base years; ``percentiles.doy``; ``sdba.train`` and
-``sdba.adjust`` with their units, tables, quantiles and attrs; the op
-entries ``op.*``). Outside :func:`tracing` a span costs one check of a
+``sdba.adjust`` with their units, tables, quantiles and attrs, DQM's
+scaling and detrend, and the EQM adjust of EQM and DQM; the op entries
+``op.*``). Outside :func:`tracing` a span costs one check of a
 module-level flag and returns its name's shared no-op. Inside it, each span
 keeps a record (name, id, parent id, the id of the outermost span it sits
 in, host start and end from ``time.perf_counter_ns()``, the counts made
@@ -23,10 +24,13 @@ call warn; the warnings are counted (``host_syncs``) and not shown.
 Counters. Beside ``host_syncs``, the program counts with :func:`count` how
 it took a path that depends on its input: ``bootstrap_sliced`` and
 ``bootstrap_whole``, the bootstrap's recounts of an in-base year over the
-days of that year's periods alone or over the whole series. Each count goes
-to the block's total and to the innermost open span's record, as a sync
-does, and is an empty ``xtt:<name>`` range on a profiler's clock, so that a
-trace holds it too.
+days of that year's periods alone or over the whole series; and
+``eqm_node_passes``, the passes over the gathered values that the
+bracketing among the quantile nodes makes (``interp_on_quantiles`` in
+``sdba/utils.py``: one a node, 52 an EQM or DQM adjust at 50 quantiles).
+Each count goes to the block's total and to the innermost open span's
+record, as a sync does, and is an empty ``xtt:<name>`` range on a
+profiler's clock, so that a trace holds it too.
 
 Operator use::
 
@@ -59,7 +63,8 @@ PREFIX = "xtt:"
 #: the start of the warning torch gives for a synchronizing CUDA call
 SYNC_WARNING = "called a synchronizing CUDA operation"
 #: the program's counters, each kept for the block and for every span
-COUNTERS = ("host_syncs", "bootstrap_sliced", "bootstrap_whole")
+COUNTERS = ("host_syncs", "bootstrap_sliced", "bootstrap_whole",
+            "eqm_node_passes")
 
 #: the Trace collecting while :func:`tracing` is on, else None
 _trace = None
