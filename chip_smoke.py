@@ -42,9 +42,11 @@ Builds the hand-written CUDA kernels from ``xclim_tpu_torch/csrc`` (into
    ``percentile_doy(tasmax, 5, 90)``, ``atmos.tx90p(..., bootstrap=True)``
    and ``atmos.warm_spell_duration_index(..., bootstrap=True)``, checks
    their launch counts and values, times them, and holds segred (tx90p's
-   exceedance sums, plain and 29 replacements x 4096 cells) and spells
-   (WSDI's condition, 29 replacements x 4096 cells) against their twins at
-   the bootstrap's own inputs;
+   exceedance sums, plain and 29 replacements x 4096 cells), spells
+   (WSDI's condition, 29 replacements x 4096 cells) and the bootstrap
+   kernel (one in-base year's 29 replaced-year thresholds at 365 doys x
+   4096 cells, K 23, bit for bit) against their twins at the bootstrap's
+   own inputs;
 9. runs the same calls on the first cells with CPU tensors and on the card
    and compares the outputs;
 10. drives the ensembles slice at bench's "ensembles 192x448" size (30
@@ -225,6 +227,9 @@ KERNELS = {"winquantile": ("winquantile",
            "spells": ("spells", "xclim_tpu/ops/pallas/spells.py:131"),
            "axisquantile": ("axisquantile",
                             "xclim_tpu/ops/pallas/axisquantile.py:112,211"),
+           # no Pallas kernel: the reference's plain-jnp year-replaced
+           # quantile of the bootstrap
+           "bootstrap": ("bootstrap", "xclim_tpu/ops/bootstrap.py:192"),
            # the winquantile kernel built with its stage entry: the card
            # profile that replaces the TPU kernel's profiling variants
            "winquantile_stages": ("winquantile_stages",
@@ -498,6 +503,7 @@ def _qdm(series):
 def _ops():
     from xclim_tpu_torch.ops import (
         axisquantile,
+        bootstrap,
         qdmadjust,
         segred,
         spells,
@@ -505,7 +511,8 @@ def _ops():
     )
 
     return {"winquantile": winquantile, "qdmadjust": qdmadjust,
-            "segred": segred, "spells": spells, "axisquantile": axisquantile}
+            "segred": segred, "spells": spells, "axisquantile": axisquantile,
+            "bootstrap": bootstrap}
 
 
 #: counters besides launches and twin_calls: key -> (op, attribute)
@@ -514,7 +521,9 @@ EXTRA_COUNTS = {"winquantile_stages": ("winquantile", "stage_launches"),
                 "qdmadjust_af_shared": ("qdmadjust", "af_shared_launches"),
                 "qdmadjust_af_global": ("qdmadjust", "af_global_launches"),
                 "axisquantile_staged": ("axisquantile", "staged_launches"),
-                "axisquantile_direct": ("axisquantile", "direct_launches")}
+                "axisquantile_direct": ("axisquantile", "direct_launches"),
+                "bootstrap_shared": ("bootstrap", "shared_launches"),
+                "bootstrap_global": ("bootstrap", "global_launches")}
 
 
 def _counts():
@@ -1347,6 +1356,8 @@ def phase_percentiles(device, card, record):
     # result and one per in-base year (all 30: the 29 replacements ride on
     # the batch), plus the missing-value count; WSDI: one spells launch for
     # the plain result and one per in-base year, plus the same segred count.
+    # Both: one bootstrap launch per in-base year at q 0.9 (its 29
+    # replacements in one launch, the table in shared memory: K 23, w 5).
     _reset_counts()
     per = percentile_doy(tasmax, window=5, per=90)
     torch.cuda.synchronize()
@@ -1361,8 +1372,9 @@ def phase_percentiles(device, card, record):
     torch.cuda.synchronize()
     c_ws = _counts()
     zero = {k: 0 for k in c_per}
-    want_tx = dict(zero, segred=PCT_YEARS + 2)
-    want_ws = dict(zero, segred=1, spells=PCT_YEARS + 1)
+    boot = dict(bootstrap=PCT_YEARS, bootstrap_shared=PCT_YEARS)
+    want_tx = dict(zero, segred=PCT_YEARS + 2, **boot)
+    want_ws = dict(zero, segred=1, spells=PCT_YEARS + 1, **boot)
     _log(f"[percentiles] launch counts at {cells} cells x {PCT_YEARS} y: "
          f"percentile_doy {json.dumps(c_per)}; tx90p+bootstrap "
          f"{json.dumps(c_tx)}; WSDI+bootstrap {json.dumps(c_ws)}")
@@ -1371,6 +1383,10 @@ def phase_percentiles(device, card, record):
                              f"expected {want_tx} and {want_ws}")
     record["spells"]["launches"] = c_ws["spells"]
     record["segred"]["launches"] = c_tx["segred"]
+    record["bootstrap"]["launches"] = c_tx["bootstrap"]
+    record["bootstrap"]["paths"].update(
+        {"tx90p shared": c_tx["bootstrap_shared"],
+         "wsdi shared": c_ws["bootstrap_shared"]})
     summary = _check_pct(per, tx, wsdi, PCT_SIDE, device)
     _log(f"[percentiles] values: {json.dumps(summary)}")
     del tx, wsdi
@@ -1460,8 +1476,80 @@ def phase_percentiles(device, card, record):
          f"condition, {nbytes / 1e9:.3f} GB) on {card}: max_abs_err={err} "
          f"kernel_ms={ms:.4f} twin_ms={pms:.4f}; {nbytes / ms / 1e6:.1f} GB/s; "
          f"bound_ms={record['spells']['bound_ms']:.4f}")
-    del got
+    del got, cond, args, kwargs
+    _bootstrap_at_the_cell(tasmax, per, card, record)
     return tasmax
+
+
+def _bootstrap_at_the_cell(tasmax, per, card, record):
+    """The bootstrap kernel against its twin at tx90p's own inputs: the
+    first in-base year's call (365 doys, 30 years, w 5, 4096 cells, q the
+    float32 0.9 of the thresholds' attributes, so K 23), bit for bit. The twin runs on the same card on the other years'
+    copy, as the bootstrap called it before the kernel. Times: the kernel
+    back to back, after a write of 256 MB that leaves nothing of its
+    inputs in L2, and the twin."""
+    import torch
+
+    from xclim_tpu_torch.core import bootstrapping
+    from xclim_tpu_torch.indicators import atmos
+    from xclim_tpu_torch.ops import bootstrap
+
+    (args, kwargs), = _capture(
+        bootstrapping, "merge_rank_replaced_year_quantile", 1,
+        lambda: atmos.tx90p(tasmax, tasmax_per=per, freq="YS",
+                            bootstrap=True))
+    topv, topyear, botv, botyear, nvalid, _, _, b, q = args
+    D = kwargs["samples"]
+    n_doy, ny, w, C = D.shape
+    others = torch.as_tensor([o for o in range(ny) if o != b],
+                             device=D.device)
+    A_b = D[:, b].movedim(-1, -2)
+    A_o = D.index_select(1, others).permute(1, 0, 3, 2)
+
+    def kernel():
+        return bootstrap.merge_rank_replaced_year_quantile(*args, **kwargs)
+
+    def twin():
+        return bootstrap.merge_rank_replaced_year_quantile_plain(
+            topv, topyear, botv, botyear, nvalid, A_b, A_o, b, q,
+            alpha=kwargs["alpha"], beta=kwargs["beta"])
+
+    before = _counts()
+    got = kernel()
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in _counts().items()
+             if k.startswith("bootstrap") and v != before[k]}
+    if moved != {"bootstrap": 1, "bootstrap_shared": 1}:
+        raise AssertionError(f"the bootstrap call missed its kernel: {moved}")
+    ref = twin()
+    err = _compare(f"bootstrap {tuple(got.shape)} at tx90p's samples", got,
+                   ref, rtol=0.0, atol=0.0)
+    if not torch.equal(torch.nan_to_num(got), torch.nan_to_num(ref)):
+        raise AssertionError("bootstrap: the kernel's bits differ from the "
+                             "twin's")
+    del got, ref
+    ms = _cuda_ms(kernel, 20)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=D.device)
+    flush_ms = _cuda_ms(flush.zero_, 20)
+    cold_ms = _cuda_ms(lambda: (flush.zero_(), kernel()), 20) - flush_ms
+    del flush
+    pms = _cuda_ms(twin, 2)
+    # bytes: the samples, one table with its year tags, the valid counts
+    # read once, the (29, n_doy, C) result written once; operations: the
+    # sorting network (w rounds of w/2 compare-exchanges, 2 each) and the
+    # two merge-path reads (w + 1 splits, 2 each) per lane and replacement
+    tab = topv if q >= 0.5 else botv
+    nbytes = (D.numel() + 2 * tab.numel() + nvalid.numel()
+              + (ny - 1) * n_doy * C) * 4
+    bound = _bound(nbytes, (ny - 1) * n_doy * C * (w * w + 4 * (w + 1)))
+    record["bootstrap"].update(
+        max_abs_err=max(record["bootstrap"]["max_abs_err"], err), ms=ms,
+        ms_after_l2_flush=cold_ms, plain_ms=pms, **bound)
+    _log(f"[kernel vs twin] bootstrap {tuple(D.shape)} K {tab.shape[-1]} q "
+         f"{q!r} year {b} (tx90p's samples, {nbytes / 1e9:.3f} GB) on {card}: "
+         f"bit-equal, kernel_ms={ms:.4f} (after an L2 flush {cold_ms:.4f}) "
+         f"twin_ms={pms:.4f} bound_ms={bound['bound_ms']:.4f} "
+         f"({bound['bound_by']})")
 
 
 def phase_percentiles_cpu_vs_card(tasmax):
@@ -1481,7 +1569,9 @@ def phase_percentiles_cpu_vs_card(tasmax):
     d = {k: after[k] - before[k] for k in after}
     if (d["spells_twin"] != PCT_YEARS + 1 or d["spells"] != PCT_YEARS + 1
             or d["segred_twin"] != PCT_YEARS + 3
-            or d["segred"] != PCT_YEARS + 3):
+            or d["segred"] != PCT_YEARS + 3
+            or d["bootstrap_twin"] != 2 * PCT_YEARS
+            or d["bootstrap"] != 2 * PCT_YEARS):
         raise AssertionError(f"CPU run must use the twins, the card the "
                              f"kernels: {d}")
     errs = [_compare(f"{name} cpu vs card", g.data, c.data, atol=0.0)

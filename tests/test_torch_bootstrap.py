@@ -310,3 +310,140 @@ def test_periods_that_a_slice_would_move_take_the_whole_series(gap):
     np.testing.assert_array_equal(got.values, np.asarray(exp.data))
     assert (tr.counters["bootstrap_sliced"], tr.counters["bootstrap_whole"]) \
         == ((0, 4) if gap else (4, 0))
+
+
+# ------------------------------------------------- the entry's two forms
+
+
+def _sample_tensor(mode, seed, n_doy=2, w=W):
+    """(n_doy, Y, w, C) in-base samples: one doy of ``_samples`` each."""
+    return torch.as_tensor(np.stack([_samples(mode, seed + d, w=w)
+                                     for d in range(n_doy)]))
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("q", [0.9, 0.1, 0.75, 0.25])
+def test_keyword_form_equals_the_positional_form(q, mode):
+    """``samples=`` (the sample tensor, year b skipped) gives the positional
+    form's bits for A_b = year b and A_o = the other years in order, and a
+    CPU call of either form runs the twin."""
+    D = _sample_tensor(mode, seed=int(q * 100) + len(mode))
+    n_doy = D.shape[0]
+    K = boot.topk_capacity(Y * W, W, q)
+    tabs = boot.topk_rank_tables(D.reshape(n_doy, Y * W, C),
+                                 np.arange(Y).repeat(W), K)
+    for b in range(Y):
+        counts = (boot.twin_calls, boot.launches)
+        got = boot.merge_rank_replaced_year_quantile(*tabs, None, None, b, q,
+                                                     samples=D)
+        others = [o for o in range(Y) if o != b]
+        A_b = D[:, b].movedim(-1, -2)
+        A_o = torch.stack([D[:, o].movedim(-1, -2) for o in others])
+        exp = boot.merge_rank_replaced_year_quantile(*tabs, A_b, A_o, b, q)
+        assert (boot.twin_calls, boot.launches) == (counts[0] + 2, counts[1])
+        assert got.shape == (Y - 1, n_doy, C)
+        assert torch.equal(torch.isnan(got), torch.isnan(exp))
+        assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(exp))
+
+
+def _entry_args(**over):
+    D = _sample_tensor("plain", seed=3)
+    tabs = boot.topk_rank_tables(D.reshape(2, Y * W, C),
+                                 np.arange(Y).repeat(W), 12)
+    args = dict(zip(["topv", "topyear", "botv", "botyear", "nvalid"], tabs),
+                A_b=None, A_o=None, b=1, q=0.9, samples=D)
+    args.update(over)
+    return args
+
+
+REFUSED = [
+    ("integer values", TypeError,
+     lambda a: dict(samples=a["samples"].to(torch.int32))),
+    ("float year tags", TypeError,
+     lambda a: dict(topyear=a["topyear"].float())),
+    ("bool valid counts", TypeError, lambda a: dict(nvalid=a["nvalid"] > 0)),
+    ("both forms", ValueError,
+     lambda a: dict(A_b=a["samples"][:, 0].movedim(-1, -2))),
+    ("tables of another shape", ValueError,
+     lambda a: dict(topv=a["topv"][..., :-1])),
+    ("samples of another cell count", ValueError,
+     lambda a: dict(samples=a["samples"][..., :-1])),
+    ("samples without a doy axis", ValueError,
+     lambda a: dict(samples=a["samples"][0])),
+    ("a year past the samples", ValueError, lambda a: dict(b=Y)),
+    ("q past 1", ValueError, lambda a: dict(q=1.5)),
+    ("inputs on two devices", ValueError,
+     lambda a: dict(samples=a["samples"].to("meta"))),
+    ("a device without the kernel", ValueError,
+     lambda a: {k: v.to("meta") for k, v in a.items()
+                if isinstance(v, torch.Tensor)}),
+    ("positional windows that differ", ValueError,
+     lambda a: dict(samples=None, A_b=torch.zeros(2, C, W),
+                    A_o=torch.zeros(3, 2, C, W + 1))),
+    ("positional shapes that do not broadcast", ValueError,
+     lambda a: dict(samples=None, A_b=torch.zeros(3, C, W),
+                    A_o=torch.zeros(3, 2, C, W))),
+]
+
+
+@pytest.mark.parametrize("what,err,change", REFUSED,
+                         ids=[r[0] for r in REFUSED])
+def test_the_entry_refuses_before_any_work(what, err, change):
+    args = _entry_args()
+    args.update(change(args))
+    counts = (boot.twin_calls, boot.launches)
+    with tracing() as tr:
+        with pytest.raises(err):
+            boot.merge_rank_replaced_year_quantile(
+                args.pop("topv"), args.pop("topyear"), args.pop("botv"),
+                args.pop("botyear"), args.pop("nvalid"), args.pop("A_b"),
+                args.pop("A_o"), args.pop("b"), args.pop("q"), **args)
+    assert (boot.twin_calls, boot.launches) == counts
+    assert [s["name"] for s in tr.spans] == ["op.bootstrap"]
+
+
+def test_a_cpu_bootstrap_counts_the_twin_once_a_base_year():
+    """tx90p with the bootstrap on CPU tensors: one twin call an in-base
+    year (4) and percentile, no launch, and the span each time."""
+    a, b = _pair("noleap", seed=51, name="tasmax")
+    _, tper = _carried_per(b, 90)
+    counts = (boot.twin_calls, boot.launches)
+    with tracing() as tr:
+        indices.tx90p(a, tper, freq="YS", bootstrap=True)
+    assert (boot.twin_calls, boot.launches) == (counts[0] + 4, counts[1])
+    assert sum(s["name"] == "op.bootstrap" for s in tr.spans) == 4
+
+
+def test_a_float64_series_bootstraps_on_the_twin_as_before(monkeypatch):
+    """tx90p with the bootstrap on a float64 CPU series: the entry hands the
+    float64 samples to the twin, which computes in float64, with the bits
+    of the twin called on the other years' copy (the call it replaced)."""
+    a, b = _pair("noleap", seed=52, name="tasmax")
+    a = a.copy(data=a.data.double())
+    _, tper = _carried_per(b, 90)
+    entry = bootstrapping.merge_rank_replaced_year_quantile
+    seen = []
+
+    def spy(*args, **kwargs):
+        out = entry(*args, **kwargs)
+        seen.append((kwargs["samples"].dtype, out.dtype))
+        return out
+
+    monkeypatch.setattr(bootstrapping, "merge_rank_replaced_year_quantile",
+                        spy)
+    got = indices.tx90p(a, tper, freq="YS", bootstrap=True)
+    assert seen == [(torch.float64, torch.float64)] * 4
+
+    def copied(topv, topyear, botv, botyear, nvalid, A_b, A_o, b, q,
+               alpha, beta, samples):
+        Dt = samples.permute(0, 3, 1, 2)            # (n_doy, C, nyears, w)
+        others = torch.as_tensor([o for o in range(Dt.shape[2]) if o != b])
+        return boot.merge_rank_replaced_year_quantile_plain(
+            topv, topyear, botv, botyear, nvalid, Dt[:, :, b],
+            Dt.index_select(2, others).movedim(2, 0), b, q, alpha=alpha,
+            beta=beta)
+
+    monkeypatch.setattr(bootstrapping, "merge_rank_replaced_year_quantile",
+                        copied)
+    exp = indices.tx90p(a, tper, freq="YS", bootstrap=True)
+    np.testing.assert_array_equal(got.values, exp.values)

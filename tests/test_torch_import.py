@@ -61,6 +61,19 @@ def test_kernels_are_cuda_sources_for_sm90a(name):
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
+def test_bootstrap_kernel_is_a_cuda_source_that_names_its_twin():
+    """The bootstrap's kernel replaces no Pallas kernel: its note names the
+    reference's plain-jnp functions and the port's twin instead."""
+    from xclim_tpu_torch.ops import _build
+
+    text = (PKG / "csrc" / "bootstrap.cu").read_text()
+    assert "__global__" in text
+    assert "Replaces: no Pallas kernel" in text
+    assert "merge_rank_replaced_year_quantile_plain" in text
+    assert 'extern "C" int xtt_bootstrap(' in text
+    assert _build.source("bootstrap") == PKG / "csrc" / "bootstrap.cu"
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     from xclim_tpu_torch.ops import _build
 

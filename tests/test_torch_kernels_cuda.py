@@ -12,6 +12,7 @@ import torch
 from xclim_tpu_torch.core.calendar import date_range, resample_segments
 from xclim_tpu_torch.ops import (
     axisquantile,
+    bootstrap,
     qdmadjust,
     segred,
     spells,
@@ -895,3 +896,170 @@ def test_index_breadth_on_the_card(cuda):
     for arr in (hourly, filled):
         check_chill_portions(arr)
         check_chill_portions(arr.to("cpu"))
+
+
+# ------------------------------------------------------------- bootstrap
+
+BOOT_MODES = ["plain", "nans", "ties", "dead_lane", "nan_edges"]
+
+
+def _boot_samples(n_doy, Y, w, C, mode, seed):
+    """(n_doy, Y, w, C) in-base samples in the modes of
+    tests/test_torch_bootstrap.py."""
+    rng = np.random.default_rng(seed)
+    D = rng.normal(285.0, 5.0, (n_doy, Y, w, C)).astype(np.float32)
+    if mode == "nans":
+        D[rng.random(D.shape) < 0.2] = np.nan
+    elif mode == "ties":
+        D = np.round(D)
+    elif mode == "dead_lane":
+        D[..., 0] = np.nan
+        D[:, 1:, :, 1] = np.nan              # one valid year
+    elif mode == "nan_edges":
+        D[0, 0, :2] = np.nan                 # the window before the start
+        D[-1, -1, 3:] = np.nan               # ... and after the end
+    return D
+
+
+def _boot_check(cuda, n_doy, Y, w, C, mode, q, years=None, seed=0):
+    """The kernel (both forms) against the twin on CPU copies, value for
+    value, for the removed years ``years`` (default all); returns the
+    counters' moves."""
+    D = torch.as_tensor(_boot_samples(n_doy, Y, w, C, mode, seed),
+                        device=cuda)
+    K = bootstrap.topk_capacity(Y * w, w, q)
+    tabs = bootstrap.topk_rank_tables(D.reshape(n_doy, Y * w, C),
+                                      np.arange(Y).repeat(w), K)
+    ctabs = [t.cpu() for t in tabs]
+    names = ("launches", "shared_launches", "global_launches", "twin_calls")
+    before = [getattr(bootstrap, n) for n in names]
+    for b in range(Y) if years is None else years:
+        got = bootstrap.merge_rank_replaced_year_quantile(
+            *tabs, None, None, b, q, samples=D)
+        A_b = D[:, b].movedim(-1, -2)
+        A_o = torch.stack([D[:, o].movedim(-1, -2) for o in range(Y)
+                           if o != b])
+        got_p = bootstrap.merge_rank_replaced_year_quantile(*tabs, A_b, A_o,
+                                                            b, q)
+        torch.cuda.synchronize()
+        exp = bootstrap.merge_rank_replaced_year_quantile_plain(
+            *ctabs, A_b.cpu(), A_o.cpu(), b, q)
+        _value_equal(got, exp)
+        _value_equal(got_p, exp)
+    return dict(zip(names, (getattr(bootstrap, n) - v
+                            for n, v in zip(names, before)))), K
+
+
+@pytest.mark.parametrize("mode", BOOT_MODES)
+@pytest.mark.parametrize("q", [0.9, 0.1, 0.75, 0.25])
+def test_bootstrap_kernel_matches_twin(cuda, q, mode):
+    moved, K = _boot_check(cuda, 3, 6, 5, 200, mode, q,
+                           seed=int(q * 100) + len(mode))
+    assert bootstrap.table_in_shared(K, 5)
+    assert moved == {"launches": 12, "shared_launches": 12,
+                     "global_launches": 0, "twin_calls": 0}
+
+
+# w 17 is past the registers of the shared-memory instance: global scratch
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 5, 7, 17])
+@pytest.mark.parametrize("q", [0.9, 0.1, 0.75, 0.25])
+def test_bootstrap_kernel_windows(cuda, q, w):
+    moved, K = _boot_check(cuda, 2, 6, w, 75, "nans", q, seed=w)
+    shared = bootstrap.table_in_shared(K, w)
+    assert shared == (w <= bootstrap.MAX_REGISTER_W)
+    assert moved == {"launches": 12, "shared_launches": 12 * shared,
+                     "global_launches": 12 * (not shared), "twin_calls": 0}
+
+
+# 30 years at w 31 make a table past shared memory (K 127 at q 0.9)
+@pytest.mark.parametrize("Y,w", [(2, 5), (6, 5), (30, 5), (30, 31)])
+@pytest.mark.parametrize("q", [0.9, 0.1, 0.75, 0.25])
+def test_bootstrap_kernel_years(cuda, q, Y, w):
+    moved, K = _boot_check(cuda, 2, Y, w, 130, "nan_edges", q,
+                           years=sorted({0, Y // 2, Y - 1}), seed=Y + w)
+    shared = bootstrap.table_in_shared(K, w)
+    n = len({0, Y // 2, Y - 1}) * 2
+    assert moved == {"launches": n, "shared_launches": n * shared,
+                     "global_launches": n * (not shared), "twin_calls": 0}
+    if (Y, w) == (30, 31):
+        assert K > bootstrap.MAX_SHARED_K and not shared
+
+
+def test_bootstrap_kernel_at_the_cells_shape(cuda):
+    """365 doys, 30 years, w 5, 4096 cells, q the float32 0.9 that the
+    thresholds' attributes hold (K 23): against the twin on the card (its
+    ops on CPU copies are those the small cases hold)."""
+    n_doy, Y, w, C, q = 365, 30, 5, 4096, float(np.float32(0.9))
+    D = torch.as_tensor(_boot_samples(n_doy, Y, w, C, "nan_edges", 7),
+                        device=cuda)
+    K = bootstrap.topk_capacity(Y * w, w, q)
+    assert K == 23
+    tabs = bootstrap.topk_rank_tables(D.reshape(n_doy, Y * w, C),
+                                      np.arange(Y).repeat(w), K)
+    for b in (0, 17, 29):
+        got = bootstrap.merge_rank_replaced_year_quantile(
+            *tabs, None, None, b, q, samples=D)
+        others = torch.as_tensor([o for o in range(Y) if o != b],
+                                 device=cuda)
+        exp = bootstrap.merge_rank_replaced_year_quantile_plain(
+            *tabs, D[:, b].movedim(-1, -2),
+            D.index_select(1, others).permute(1, 0, 3, 2), b, q)
+        _value_equal(got, exp)
+
+
+def test_bootstrap_launch_failure_raises(cuda, monkeypatch):
+    """A launch the kernel refuses (the shared-memory instance, handed no
+    scratch, asked for a 127-slot table and a 31-day window) raises, and no
+    twin serves the call."""
+    D = torch.as_tensor(_boot_samples(1, 30, 31, 8, "plain", 3), device=cuda)
+    K = bootstrap.topk_capacity(30 * 31, 31, 0.9)
+    tabs = bootstrap.topk_rank_tables(D.reshape(1, 30 * 31, 8),
+                                      np.arange(30).repeat(31), K)
+    monkeypatch.setattr(bootstrap, "table_in_shared", lambda K, w: True)
+    counts = (bootstrap.launches, bootstrap.twin_calls)
+    with pytest.raises(RuntimeError, match="bootstrap kernel launch failed"):
+        bootstrap.merge_rank_replaced_year_quantile(*tabs, None, None, 0, 0.9,
+                                                    samples=D)
+    assert (bootstrap.launches, bootstrap.twin_calls) == counts
+
+
+def test_bootstrap_kernel_refuses_float64(cuda):
+    """The kernel reads float32: float64 values on the card raise before
+    any launch (the twin takes them on the CPU)."""
+    D = torch.as_tensor(_boot_samples(2, 6, 5, 8, "plain", 4),
+                        device=cuda).double()
+    tabs = bootstrap.topk_rank_tables(D.reshape(2, 30, 8),
+                                      np.arange(6).repeat(5), 12)
+    counts = (bootstrap.launches, bootstrap.twin_calls)
+    with pytest.raises(TypeError, match="float32 on the card"):
+        bootstrap.merge_rank_replaced_year_quantile(*tabs, None, None, 0, 0.9,
+                                                    samples=D)
+    assert (bootstrap.launches, bootstrap.twin_calls) == counts
+
+
+def test_bootstrapped_indices_launch_once_a_base_year(cuda):
+    """tx90p and WSDI with the bootstrap on the card: one launch an in-base
+    year and percentile (4 base years), no twin, and the CPU run's values."""
+    from xclim_tpu_torch.core.percentiles import percentile_doy
+    from xclim_tpu_torch.indicators import atmos
+
+    tx_cpu = _temps("cpu", "noleap", 21, 289.0)
+    # no holes: the indicators' missing-value check would mask every year
+    tx_cpu = tx_cpu.copy(data=torch.nan_to_num(tx_cpu.data, nan=289.0))
+    # the same thresholds on both devices
+    per_cpu = percentile_doy(tx_cpu, 5, 90)
+
+    def run(device):
+        tx, per = tx_cpu.to(device), per_cpu.to(device)
+        return (atmos.tx90p(tx, tasmax_per=per, freq="YS", bootstrap=True),
+                atmos.warm_spell_duration_index(tx, tasmax_per=per, window=3,
+                                                freq="YS", bootstrap=True))
+
+    counts = (bootstrap.launches, bootstrap.twin_calls)
+    got = run(cuda)
+    torch.cuda.synchronize()
+    assert (bootstrap.launches, bootstrap.twin_calls) == (counts[0] + 8,
+                                                          counts[1])
+    for g, e in zip(got, run("cpu")):
+        assert not torch.isnan(e.data).all()
+        _value_equal(g.data, e.data)

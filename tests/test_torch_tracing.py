@@ -347,7 +347,8 @@ def test_eqm_adjust_opens_the_eqm_span():
 
 
 def _op_calls():
-    from xclim_tpu_torch.ops import qdmadjust, segred, spells, winquantile
+    from xclim_tpu_torch.ops import (bootstrap, qdmadjust, segred, spells,
+                                     winquantile)
     from xclim_tpu_torch.ops.quantile import nan_quantile
 
     rng = np.random.default_rng(1)
@@ -356,7 +357,12 @@ def _op_calls():
     af = torch.as_tensor(rng.normal(size=(20, 5, 4)).astype(np.float32))
     x2 = torch.as_tensor(rng.normal(size=(60, 4)).astype(np.float32))
     table = torch.arange(60).reshape(20, 3)
+    D = torch.as_tensor(rng.normal(size=(2, 4, 3, 4)).astype(np.float32))
+    tabs = bootstrap.topk_rank_tables(D.reshape(2, 12, 4),
+                                      np.arange(4).repeat(3), 6)
     return {
+        "op.bootstrap": lambda: bootstrap.merge_rank_replaced_year_quantile(
+            *tabs, None, None, 1, 0.9, samples=D),
         "op.winquantile": lambda: winquantile.doy_window_quantiles(xg, q, 3),
         "op.qdmadjust": lambda: (qdmadjust.qdm_adjust_doy(xg, af, q),
                                  qdmadjust.qdm_adjust_series(x2, table, af,

@@ -17,9 +17,12 @@ recomputed over the whole series and year b's periods taken from it.
 
 Per-pair quantiles: tail percentiles (<= 25 % or >= 75 %: tx90p, tn10p and
 kin) come from the top-k / bottom-k candidate tables of
-:mod:`xclim_tpu_torch.ops.bootstrap` without any re-sort; other percentiles
-re-sort the year-replaced (replacement, doy, year * window, ...) block with
-:func:`~xclim_tpu_torch.ops.quantile.nan_quantile`.
+:mod:`xclim_tpu_torch.ops.bootstrap` without any re-sort: one call of
+``merge_rank_replaced_year_quantile`` an in-base year and percentile, handed
+the sample tensor itself, which on the card is one launch of the kernel
+``csrc/bootstrap.cu`` for all 29 replacements (its plain twin on the CPU).
+Other percentiles re-sort the year-replaced (replacement, doy, year *
+window, ...) block with :func:`~xclim_tpu_torch.ops.quantile.nan_quantile`.
 """
 
 from __future__ import annotations
@@ -173,23 +176,25 @@ def bootstrap_func(compute_index_func, **kwargs) -> ClimArray:
             year_id = np.arange(nyears).repeat(window)
             K = max(topk_capacity(N, window, float(qv)) for qv in qs_np)
             tabs = topk_rank_tables(D.reshape(n_doy, N, C), year_id, K)
-            Dt = D.reshape(n_doy, nyears, window, C).permute(0, 3, 1, 2)
+            Dc = D.reshape(n_doy, nyears, window, C)
 
     def per_for_replacement(b_idx: int) -> torch.Tensor:
         """(O, doy, ..., Q) percentiles with year b replaced by each other year."""
-        others = torch.as_tensor([o for o in range(nyears) if o != b_idx],
-                                 device=D.device)
-        O = len(others)
+        O = nyears - 1
         if use_topk:
-            A_b = Dt[:, :, b_idx]                                   # (n_doy, C, w)
-            A_o = Dt.index_select(2, others).movedim(2, 0)          # (O, n_doy, C, w)
-            # the (n_doy, C, k) tables broadcast over O: no copy
+            # year b removed, each other year of Dc added in turn, read in
+            # place (on the card by the kernel of ops/bootstrap.py)
             ps = [merge_rank_replaced_year_quantile(
-                *tabs, A_b, A_o, b_idx, float(qv), alpha=alpha, beta=beta)
-                for qv in qs_np]                                    # each (O, n_doy, C)
-            p = torch.stack(ps, dim=-1).reshape(
+                *tabs, None, None, b_idx, float(qv), alpha=alpha, beta=beta,
+                samples=Dc) for qv in qs_np]                        # each (O, n_doy, C)
+            # one percentile (tx90p, WSDI) takes a view: a stack would
+            # copy each launch's (O, n_doy, C) result once more
+            p = (torch.stack(ps, dim=-1) if len(ps) > 1
+                 else ps[0].unsqueeze(-1)).reshape(
                 (O, n_doy) + space_shape + (len(qs_np),))
         else:
+            others = torch.as_tensor([o for o in range(nyears) if o != b_idx],
+                                     device=D.device)
             Do = D.index_select(1, others).movedim(1, 0)    # (O, n_doy, window, ...)
             onehot = (torch.arange(nyears, device=D.device) == b_idx).reshape(
                 (1, 1, nyears, 1) + (1,) * (D.ndim - 3))
