@@ -3,41 +3,30 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels from ``xclim_tpu_torch/csrc`` (into
-``xclim_tpu_torch/_build/``, one nvcc per source, all at once), then:
+Builds every target of ``xclim_tpu_torch.ops._build.TARGETS`` (into
+``xclim_tpu_torch/_build/``, one nvcc per target, all at once), then runs
+the port at the sizes users run (the kernels against their twins at small
+shapes are the card tests', ``tests/test_torch_kernels_cuda.py``):
 
 1. prints each kernel's build time, the card's name and power limit;
-2. holds each kernel against its plain PyTorch twin on the card at 1024
-   cells, with fully valid, partly missing and all-missing lanes
-   (winquantile value-equal at windows 5, 31 and 61, 30 and 60 years, a
-   sparse doy 366, tied values, and 300 years at window 31, whose windows
-   take the kernel's global-scratch instance; qdmadjust over 1-64 year
-   slots, 2-500 nodes and series tables of two calendars; segred: every
-   op, MS/YS/QS-DEC, noleap and 360_day, and an all-NaN month);
-3. drives the sdba QDM slice at the repo's "QDM 16k" size (128 x 128 cells,
+2. drives the sdba QDM slice at the repo's "QDM 16k" size (128 x 128 cells,
    30 noleap years, day-of-year window 31, 50 quantiles) through
    ``QuantileDeltaMapping.train(...).adjust(...)``, checks that it went
    through the kernels (launch counts) and that the result is right, times
    it, runs EQM once, times each kernel against its twin at the slice's
    shapes, and runs winquantile's stage profile there (each stage's
    result held against its plain expression);
-4. runs the same public call on the first 256 cells with CPU tensors (the
+3. runs the same public call on the first 256 cells with CPU tensors (the
    twins) and on the card (the kernels) and compares the outputs;
-5. drives the indicator slice ``atmos.tg_mean(tas, freq="MS")`` at the
+4. drives the indicator slice ``atmos.tg_mean(tas, freq="MS")`` at the
    repo's "tg_mean 512" size (3650 noleap days x 512 x 512 cells, 3.83 GB
    of float32) with NaN holes, checks its launch counts, values, NaN
    pattern and attributes, times the indicator and the bare index, runs
    ``atmos.tx_max(..., freq="YS")`` once, and times segred against its
    twin at the slice's shape;
-6. runs tg_mean on the first 1024 cells with CPU tensors and on the card
+5. runs tg_mean on the first 1024 cells with CPU tensors and on the card
    and compares the outputs;
-7. holds the spells kernel against its twin at (10950, 1024) for every op,
-   windows 1, 3 and 6, MS/YS/QS-DEC, noleap and 360_day, float and bool
-   input, with fully valid, partly missing and all-missing lanes and planted
-   runs (one across a year boundary, one of exactly the window), then YS
-   and one segment over the whole series at 1024 and 1000 cells: all four
-   counts bit-equal;
-8. drives the percentile slice at the repo's "tx90p bootstrap 4096" size
+6. drives the percentile slice at the repo's "tx90p bootstrap 4096" size
    (64 x 64 cells, 30 noleap years from 1981-01-01, an AR(1) tasmax):
    ``percentile_doy(tasmax, 5, 90)``, ``atmos.tx90p(..., bootstrap=True)``
    and ``atmos.warm_spell_duration_index(..., bootstrap=True)``, checks
@@ -47,18 +36,18 @@ Builds the hand-written CUDA kernels from ``xclim_tpu_torch/csrc`` (into
    kernel (one in-base year's 29 replaced-year thresholds at 365 doys x
    4096 cells, K 23, bit for bit) against their twins at the bootstrap's
    own inputs;
-9. runs the same calls on the first cells with CPU tensors and on the card
+7. runs the same calls on the first cells with CPU tensors and on the card
    and compares the outputs;
-10. drives the ensembles slice at bench's "ensembles 192x448" size (30
-    members x 365 noleap days x 192 x 448 cells, 3.77 GB of float32) with
-    planted NaN cells: ``create_ensemble``, ``ensemble_percentiles(ens,
-    [10, 50, 90])`` and ``robustness_fractions(fut, hist, test="ttest")``,
-    checks their launch counts and values, times them, holds the
-    axisquantile kernel against its twin at the call's own input and at a
-    few small shapes, and times ``torch.nanquantile`` on the same input;
-11. runs the same two calls on the first 1024 cells with CPU tensors and on
-    the card and compares the outputs;
-12. drives config 2 at bench's "spells" sizes (448 x 448 and 100 x 100
+8. drives the ensembles slice at bench's "ensembles 192x448" size (30
+   members x 365 noleap days x 192 x 448 cells, 3.77 GB of float32) with
+   planted NaN cells: ``create_ensemble``, ``ensemble_percentiles(ens,
+   [10, 50, 90])`` and ``robustness_fractions(fut, hist, test="ttest")``,
+   checks their launch counts and values, times them, holds the
+   axisquantile kernel against its twin at the call's own input, and
+   times ``torch.nanquantile`` on the same input;
+9. runs the same two calls on the first 1024 cells with CPU tensors and on
+   the card and compares the outputs;
+10. drives config 2 at bench's "spells" sizes (448 x 448 and 100 x 100
     cells x 3650 noleap days, tasmax N(290, 8) and tasmin N(280, 8) K):
     ``atmos.tx_days_above(tasmax, thresh="25 degC", freq="YS")``,
     ``atmos.heat_wave_frequency(tasmin, tasmax, ...)`` and the bare
@@ -67,19 +56,19 @@ Builds the hand-written CUDA kernels from ``xclim_tpu_torch/csrc`` (into
     threshold_count's two routes (spells; compare + segred) side by side,
     holds spells against its twin at the heat-wave condition and profiles
     the pair;
-13. runs config 2 and its neighbours (hot spells, frost days, seasons,
+11. runs config 2 and its neighbours (hot spells, frost days, seasons,
     degree days, find_events) on a 32 x 32 crop with CPU tensors and on
     the card and compares the outputs;
-14. drives DQM at config 4's width (``DetrendedQuantileMapping.train(ref,
+12. drives DQM at config 4's width (``DetrendedQuantileMapping.train(ref,
     hist, group=Grouper("time.dayofyear", 31), nquantiles=50,
     kind="+").adjust(sim)``, 128 x 128 cells, 30 noleap years, QDM's series
     with +0.03 K a year added to sim), checks that the train launched
     winquantile twice and no twin, that scen is finite where sim is and
     keeps each cell's trend, holds winquantile against its twin at the
     scaled hist, times train and adjust and profiles the adjust;
-15. runs DQM on a 32 x 32 crop with CPU tensors and on the card and
+13. runs DQM on a 32 x 32 crop with CPU tensors and on the card and
     compares af, hist_q, scaling and scen;
-16. runs the rest of sdba once each at the sizes users run and holds each
+14. runs the rest of sdba once each at the sizes users run and holds each
     against its CPU run on a crop: Scaling and LOCI (time.month) on a
     precipitation series with dry days and ExtremeValues on a jittered QDM
     doy first pass, at 16384 cells; properties (mean, quantile, acf,
@@ -87,7 +76,7 @@ Builds the hand-written CUDA kernels from ``xclim_tpu_torch/csrc`` (into
     DQM's scen; ``stats.fit(annual maxima, "genextreme")`` by the batched
     BFGS over 16384 cells; ``npdf_transform`` (3 x 10950 days, 20
     rotations); OTC and dOTC (+ and *) at 2048 points x 3 variables;
-17. drives bench.py's fused 10-indicator chain (bench.py:542-600: TG_MEAN,
+15. drives bench.py's fused 10-indicator chain (bench.py:542-600: TG_MEAN,
     TX_DAYS_ABOVE, FROST_DAYS, ICE_DAYS, the three degree days,
     HEAT_WAVE_INDEX, CDD and PRCPTOT through the registry and
     ``climjit_chain``) at its two rows, 320 x 320 and 100 x 100 cells x
@@ -95,9 +84,9 @@ Builds the hand-written CUDA kernels from ``xclim_tpu_torch/csrc`` (into
     per-year expressions, indicator-cell-days/s, TG_MEAN alone and the
     marginal ms per indicator, peak memory, a profile, and segred and
     spells against their twins at the chain's inputs;
-18. runs the chain on a 32 x 32 crop with CPU tensors and on the card and
+16. runs the chain on a 32 x 32 crop with CPU tensors and on the card and
     compares the outputs;
-19. runs each new index module once at a size users run, against its CPU
+17. runs each new index module once at a size users run, against its CPU
     run on a crop: SPI-3/SPEI-3, rain_season, dryness_index, the ANUCLIM
     quarters, aridity, the antecedent precipitation index, every PET
     method, UTCI with MRT, the agroclimatic temperature indicators and the
@@ -106,7 +95,7 @@ Builds the hand-written CUDA kernels from ``xclim_tpu_torch/csrc`` (into
     (the chill portions held to a float64 replay on a 256-cell crop); the
     jet stream on 30 years x 64 latitudes. Each call's time is the median
     of 3 after a warm-up;
-20. drives the fire-weather slice at 16384 cells x 30 noleap years
+18. drives the fire-weather slice at 16384 cells x 30 noleap years
     (tas, pr with 45-55 % dry days, hurs, sfcWind; tasmax = tas + 6 K):
     ``atmos.cffwis`` always on (the median of 3), with the WF93 season and
     overwintering and with a dry start (one timed call each),
@@ -123,18 +112,18 @@ Builds the hand-written CUDA kernels from ``xclim_tpu_torch/csrc`` (into
     CFFWIS run, DC holds to the CPU run; KBDI holds to the CPU run, DF and
     FFDI to the CPU on the card's own KBDI and DF, the fire season is
     equal;
-21. runs every land (snow, streamflow), seaIce and generic indicator once
+19. runs every land (snow, streamflow), seaIce and generic indicator once
     at a size users run (the snow and generic ones at 128 x 128 cells x 30
     years, streamflow at 4096 stations, sea-ice extent and area on 180 x
     360 cells x 30 years): seconds, segred and spells launches (no twin on
     the card), and the outputs against the CPU run on a crop;
-22. runs the calendar's array operations at 16384 cells x 60 years
+20. runs the calendar's array operations at 16384 cells x 60 years
     (``convert_calendar`` noleap -> 360_day and back and standard ->
     noleap, ``stack_periods(window=30, stride=10)`` and
     ``unstack_periods``, ``mask_between_doys``, ``select_time`` by season,
     month and doy bounds), each the median of 3 after a warm-up and equal
     to the CPU run on a 256-cell crop;
-23. runs each of the 131 indicators of the YAML modules icclim, anuclim
+21. runs each of the 131 indicators of the YAML modules icclim, anuclim
     and cf at 128 x 128 cells x 30 noleap years with every variable they
     read (tas, tasmax, tasmin, pr, snd, hurs, psl, sfcWind, wsgsmax, sund;
     0.72 GB each) and the percentile inputs from ``percentile_doy`` over
@@ -143,7 +132,7 @@ Builds the hand-written CUDA kernels from ``xclim_tpu_torch/csrc`` (into
     that only renames a core indicator equal to it, and the five entries
     that refuse such inputs in the JAX package refusing them on both
     devices alike;
-24. writes a classic NetCDF file of tas, tasmax, tasmin and pr at 16384
+22. writes a classic NetCDF file of tas, tasmax, tasmin and pr at 16384
     cells x 10950 days (2.87 GB, scipy, a temporary directory), reads it
     with the native reader (counted in ``xclim_tpu_torch.io.netcdf.opens``;
     values equal to what was written), moves it to the card and runs the
@@ -154,7 +143,7 @@ Builds the hand-written CUDA kernels from ``xclim_tpu_torch/csrc`` (into
     more from the file, and click's ``main`` where click is installed
     (the write needs h5py; each of PyYAML, click and h5py is printed as
     installed or missing);
-25. at the same size, ``data_flags`` for tas, tasmax, tasmin and pr and
+23. at the same size, ``data_flags`` for tas, tasmax, tasmin and pr and
     ``ecad_compliant`` (each flag on a crop equal to the CPU run),
     ``spatial_analogs`` of one cell's 30 annual samples x 3 indicators
     against the 16384 cells with each metric (the crop held to the CPU's
@@ -162,12 +151,15 @@ Builds the hand-written CUDA kernels from ``xclim_tpu_torch/csrc`` (into
     mesh equal to the plain call, ``utils.profiling.profile``'s trace (in
     a fresh process) and ``timed``'s synced seconds.
 
-Each phase prints its wall seconds (``[wall]``).
+Each phase prints its wall seconds (``[wall]``). Its launch counts
+(``_counts``) hold ``launches`` and ``twin_calls`` of the op module of
+every build target, ``bootstrap`` included.
 
-Each kernel's record carries its bound (``bound_ms``: the larger of its
-bytes over 3.35 TB/s and its operations over 67 TFLOP/s, the H100 SXM's
-published peaks, computed from this run's inputs) and, where one PyTorch
-call computes the same function, that call's time (``library_ms``).
+Each kernel's record carries its bound (``bound_ms``, from
+``perfbench/roofline.py``: the larger of its bytes over 3.35 TB/s and its
+operations over 67 TFLOP/s, the H100 SXM's published peaks, computed from
+this run's inputs) and, where one PyTorch call computes the same
+function, that call's time (``library_ms``).
 
 Every phase raises on failure. The last two lines are a JSON object with
 one entry per kernel and the result line
@@ -216,38 +208,8 @@ ENS_VALUES = [10, 50, 90]
 P_RTOL = 1e-3       # p-values: lgamma, exp and log round differently
 P_ATOL = 1e-6       # on the CPU and the card (tests/test_torch_ensembles.py)
 P_NEAR_ONE = 3e-3   # p >= 0.5: x = df / (df + t^2) rounds to 1 - k ulp
-HBM_BYTES_S = 3.35e12   # H100 SXM: device memory rate
-F32_OPS_S = 67e12       # H100 SXM: float32 rate outside the tensor cores
-#: record name -> (build target of xclim_tpu_torch/ops/_build.py, the TPU
-#: kernel it replaces)
-KERNELS = {"winquantile": ("winquantile",
-                           "xclim_tpu/ops/pallas/winquantile.py:344"),
-           "qdmadjust": ("qdmadjust", "xclim_tpu/ops/pallas/qdmadjust.py:158"),
-           "segred": ("segred", "xclim_tpu/ops/pallas/segred.py:176,195"),
-           "spells": ("spells", "xclim_tpu/ops/pallas/spells.py:131"),
-           "axisquantile": ("axisquantile",
-                            "xclim_tpu/ops/pallas/axisquantile.py:112,211"),
-           # no Pallas kernel: the reference's plain-jnp year-replaced
-           # quantile of the bootstrap
-           "bootstrap": ("bootstrap", "xclim_tpu/ops/bootstrap.py:192"),
-           # the winquantile kernel built with its stage entry: the card
-           # profile that replaces the TPU kernel's profiling variants
-           "winquantile_stages": ("winquantile_stages",
-                                  "tools/prof_winquantile.py:255")}
-
-
 def _log(*args):
     print(*args, flush=True)
-
-
-def _bound(nbytes: float, ops: float) -> dict:
-    """The least time the card could take: bytes moved (each input read
-    once, each output written once) over the memory rate, or operations
-    over the float32 rate, whichever is larger."""
-    by_bytes = nbytes / HBM_BYTES_S * 1e3
-    by_ops = ops / F32_OPS_S * 1e3
-    return {"bound_ms": max(by_bytes, by_ops),
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
 def _sort_compares(n):
@@ -336,101 +298,6 @@ def _wq_input(gen, shape, kind, device):
     return torch.round(x * 2.0) / 2.0 if kind == "tied" else x
 
 
-def phase_kernels_small(gen, device, q, record):
-    import torch
-
-    from xclim_tpu_torch.ops import qdmadjust, winquantile
-
-    # each winquantile case value-equal to the twin
-    for shape, window, kind in WQ_CASES:
-        x = _wq_input(gen, shape, kind, device)
-        got = winquantile.doy_window_quantiles(x, q, window)
-        torch.cuda.synchronize()
-        ref = winquantile.doy_window_quantiles_plain(x, q, window)
-        err = _compare(f"winquantile{shape} w{window} {kind}", got, ref,
-                       rtol=0.0, atol=0.0)
-        ms = _cuda_ms(
-            lambda: winquantile.doy_window_quantiles(x, q, window), 5)
-        pms = _cuda_ms(
-            lambda: winquantile.doy_window_quantiles_plain(x, q, window), 2)
-        record["winquantile"]["max_abs_err"] = max(
-            record["winquantile"]["max_abs_err"], err)
-        _log(f"[kernel vs twin] winquantile {shape} window={window} {kind} "
-             f"({winquantile.doy_chunks(shape[0], shape[2], window, shape[1])}"
-             f" doy chunks): max_abs_err={err} (value-equal) "
-             f"kernel_ms={ms:.3f} twin_ms={pms:.3f}")
-    # past shared memory (w31 x 300 years = 9300 samples): the kernel's
-    # global-scratch instance, value-equal to the twin
-    x = _lanes(gen, 365, 300, 64, device)
-    before = (winquantile.launches, winquantile.global_launches)
-    got = winquantile.doy_window_quantiles(x, q, WINDOW)
-    torch.cuda.synchronize()
-    if (winquantile.launches, winquantile.global_launches) != (
-            before[0] + 1, before[1] + 1):
-        raise AssertionError("winquantile past shared memory missed the "
-                             "global-scratch instance")
-    err = _compare("winquantile (365, 300, 64) w31", got,
-                   winquantile.doy_window_quantiles_plain(x, q, WINDOW),
-                   rtol=0.0, atol=0.0)
-    record["winquantile"]["max_abs_err"] = max(
-        record["winquantile"]["max_abs_err"], err)
-    ms = _cuda_ms(lambda: winquantile.doy_window_quantiles(x, q, WINDOW), 3)
-    pms = _cuda_ms(
-        lambda: winquantile.doy_window_quantiles_plain(x, q, WINDOW), 1)
-    _log(f"[kernel vs twin] winquantile (365, 300, 64) window={WINDOW}, past "
-         f"shared memory (global scratch, "
-         f"{winquantile.doy_chunks(365, 64, WINDOW, 300)} doy chunks): "
-         f"max_abs_err={err} (value-equal) kernel_ms={ms:.3f} "
-         f"twin_ms={pms:.3f}")
-    # qdmadjust's doy entry at every register width and both factor routes,
-    # value-equal to the twin
-    routes = [0, 0]
-    times = {}
-    for label, args in _qdm_cases(gen, device):
-        before = qdmadjust.af_shared_launches
-        got = qdmadjust.qdm_adjust_doy(*args)
-        torch.cuda.synchronize()
-        routes[qdmadjust.af_shared_launches == before] += 1
-        ref = qdmadjust.qdm_adjust_doy_plain(*args)
-        err = _compare(f"qdmadjust {label}", got, ref, rtol=0.0, atol=0.0)
-        record["qdmadjust"]["max_abs_err"] = max(
-            record["qdmadjust"]["max_abs_err"], err)
-        times[label] = round(_cuda_ms(lambda: qdmadjust.qdm_adjust_doy(*args),
-                                      5), 4)
-    if routes != [10, 5]:
-        raise AssertionError(f"qdmadjust cases missed a factor route: "
-                             f"{routes} (shared, global)")
-    _log(f"[kernel vs twin] qdmadjust at (366, Y, {SMALL_CELLS}), a sparse "
-         f"doy 366, Y 1/7/30/33/64 x 2/52/500 nodes: value-equal; launches "
-         f"by factor route (shared, global) {routes}; kernel_ms "
-         f"{json.dumps(times)}")
-    # the series entry through the adjust tables of a standard calendar (doy
-    # 366 in the leap years) and a 360_day one, value-equal to its twin
-    from xclim_tpu_torch.core.calendar import date_range
-    from xclim_tpu_torch.sdba import Grouper
-
-    for cal in ("standard", "360_day"):
-        t = date_range("1981-01-01", periods=YEARS * 365, calendar=cal)
-        table = Grouper("time.dayofyear").device_adjust_table(t, device)[0]
-        xf = _lanes(gen, len(t), 1, SMALL_CELLS, device)[:, 0]
-        for kind in ("+", "*"):
-            af = torch.sort(torch.randn((table.shape[0], len(q), SMALL_CELLS),
-                                        generator=gen, device=device),
-                            dim=1).values
-            if kind == "*":
-                af = 1.0 + 0.01 * af
-            got = qdmadjust.qdm_adjust_series(xf, table, af, q, kind)
-            torch.cuda.synchronize()
-            ref = qdmadjust.qdm_adjust_series_plain(xf, table, af, q, kind)
-            err = _compare(f"qdmadjust series {cal} {kind}", got, ref,
-                           rtol=0.0, atol=0.0)
-            record["qdmadjust"]["max_abs_err"] = max(
-                record["qdmadjust"]["max_abs_err"], err)
-        _log(f"[kernel vs twin] qdmadjust series ({len(t)}, {SMALL_CELLS}) "
-             f"{cal} ({tuple(table.shape)} table), kinds + and *: "
-             f"value-equal")
-
-
 #: qdmadjust's doy entry at (366, Y, SMALL_CELLS): Y over the four register
 #: widths, 2 and 52 nodes (factor tile in shared memory) and 500 (factors
 #: from global memory), kind "+" or "*" by the parity of Y + nq
@@ -501,18 +368,14 @@ def _qdm(series):
 
 
 def _ops():
-    from xclim_tpu_torch.ops import (
-        axisquantile,
-        bootstrap,
-        qdmadjust,
-        segred,
-        spells,
-        winquantile,
-    )
+    """The op module of each build target that has one (the variants
+    build a source again and have none)."""
+    import importlib
 
-    return {"winquantile": winquantile, "qdmadjust": qdmadjust,
-            "segred": segred, "spells": spells, "axisquantile": axisquantile,
-            "bootstrap": bootstrap}
+    from xclim_tpu_torch.ops import _build
+
+    return {t: importlib.import_module(f"xclim_tpu_torch.ops.{t}")
+            for t in _build.TARGETS if t not in _build.VARIANTS}
 
 
 #: counters besides launches and twin_calls: key -> (op, attribute)
@@ -568,6 +431,7 @@ def _count_calls(targets, run):
 def phase_slice(device, card, record):
     import torch
 
+    from perfbench import roofline
     from xclim_tpu_torch.ops import qdmadjust, winquantile
     from xclim_tpu_torch.sdba import (
         EmpiricalQuantileMapping,
@@ -695,7 +559,7 @@ def phase_slice(device, card, record):
     nodes = n_doy * len(q) * C
     record["winquantile"].update(
         max_abs_err=max(record["winquantile"]["max_abs_err"], err), ms=ms,
-        plain_ms=pms, **_bound((xd.numel() + nodes) * 4, 4 * nodes))
+        plain_ms=pms, **roofline.bound((xd.numel() + nodes) * 4, 4 * nodes))
     _log(f"[kernel vs twin] winquantile {tuple(xd.shape)} window={WINDOW} "
          f"(slice shape, {winquantile.doy_chunks(n_doy, C, WINDOW, Y)} doy "
          f"chunks) on {card}: max_abs_err={err} (value-equal) "
@@ -759,8 +623,8 @@ def phase_slice(device, card, record):
     record["qdmadjust"].update(
         ms=ms["qdm_adjust_series"], plain_ms=pms["qdm_adjust_series"],
         entries_ms=ms, entries_plain_ms=pms,
-        **_bound((2 * xf2.numel() + af.numel() + adj_table.numel()) * 4,
-                 float((nv * nv).sum())))
+        **roofline.bound((2 * xf2.numel() + af.numel()
+                          + adj_table.numel()) * 4, float((nv * nv).sum())))
     _log(f"[kernel vs twin] qdmadjust at the slice: series {tuple(xf2.shape)}"
          f" through a {tuple(adj_table.shape)} table, and doy slices "
          f"{tuple(sd.shape)}: value-equal; kernel_ms "
@@ -797,61 +661,6 @@ def phase_cpu_vs_card(full):
     e3 = _compare("QDM output cpu vs card", out_g.data, out_c.data)
     _log(f"[cpu twins vs card kernels] QDM {CPU_CELLS} cells: hist_q "
          f"max_abs_err={e1} af max_abs_err={e2} output max_abs_err={e3}")
-
-
-def _segred_lanes(gen, T, C, device):
-    """(T, C) K-scale series: lanes c % 4 == 0 fully valid, 1 partly missing
-    (15 %), 2 all missing, 3 valid but for an all-NaN February 2000."""
-    import torch
-
-    x = torch.randn((T, C), generator=gen, device=device) * 5.0 + 285.0
-    lane = torch.arange(C, device=device) % 4
-    holes = torch.rand((T, C), generator=gen, device=device) < 0.15
-    day = torch.arange(T, device=device)[:, None]
-    x = torch.where(holes & (lane == 1), torch.nan, x)
-    x = torch.where(lane == 2, torch.nan, x)
-    return torch.where((day >= 31) & (day < 59) & (lane == 3), torch.nan, x)
-
-
-def phase_segred_small(gen, device, record):
-    """segred against its twin at (3650, 1024) for every op: counts, min and
-    max bit-equal, sums, means, std and var within 1e-6 relative."""
-    import torch
-
-    from xclim_tpu_torch.core.calendar import date_range, resample_segments
-    from xclim_tpu_torch.ops import segred
-
-    for cal in ("noleap", "360_day"):
-        t = date_range("2000-01-01", periods=TG_DAYS, calendar=cal)
-        x = _segred_lanes(gen, TG_DAYS, SMALL_CELLS, device)
-        for freq in ("MS", "YS", "QS-DEC"):
-            spec = resample_segments(t, freq)
-            errs = {}
-            for op in sorted(segred.SUPPORTED_OPS):
-                got = segred.segment_reduce_onepass(x, spec.starts,
-                                                    spec.counts, op)
-                torch.cuda.synchronize()
-                ref = segred.segment_reduce_onepass_plain(x, spec.starts,
-                                                          spec.counts, op)
-                if got.dtype != ref.dtype:
-                    raise AssertionError(f"segred {op}: {got.dtype} vs "
-                                         f"{ref.dtype}")
-                exact = op in ("count", "min", "max")
-                errs[op] = _compare(
-                    f"segred {op} {freq} {cal}", got, ref,
-                    rtol=0.0 if exact else RTOL, atol=0.0)
-            record["segred"]["max_abs_err"] = max(
-                record["segred"]["max_abs_err"], *errs.values())
-            _log(f"[kernel vs twin] segred ({TG_DAYS}, {SMALL_CELLS}) {freq} "
-                 f"{cal}: max_abs_err {json.dumps(errs)} (count/min/max "
-                 f"bit-equal, the rest within rtol {RTOL})")
-        spec = resample_segments(t, "MS")
-        ms = _cuda_ms(lambda: segred.segment_reduce_onepass(
-            x, spec.starts, spec.counts, "mean"), 20)
-        pms = _cuda_ms(lambda: segred.segment_reduce_onepass_plain(
-            x, spec.starts, spec.counts, "mean"), 3)
-        _log(f"[kernel vs twin] segred mean MS ({TG_DAYS}, {SMALL_CELLS}) "
-             f"{cal}: kernel_ms={ms:.4f} twin_ms={pms:.4f}")
 
 
 #: NaN holes of the tg_mean slice: (lat, lon, first day, end day)
@@ -1084,78 +893,6 @@ def _spell_lanes(gen, T, C, device):
     return torch.where(lane == 3, planted[:, None], x)
 
 
-def phase_spells_small(gen, device, record):
-    """spells against its twin at (10950, 1024): every op, windows 1, 3, 6,
-    MS/YS/QS-DEC, noleap and 360_day, float and bool input; the four
-    counts must be bit-equal."""
-    import torch
-
-    from xclim_tpu_torch.core.calendar import date_range, resample_segments
-    from xclim_tpu_torch.ops import spells
-
-    cases = 0
-    for cal in ("noleap", "360_day"):
-        t = date_range("1981-01-01", periods=SPELL_DAYS, calendar=cal)
-        x = _spell_lanes(gen, SPELL_DAYS, SMALL_CELLS, device)
-        for freq in ("MS", "YS", "QS-DEC"):
-            spec = resample_segments(t, freq)
-            for window in (1, 3, 6):
-                inputs = [(op, 293.0 if op in (">", ">=") else 287.0)
-                          for op in sorted(spells.OPS)] + [(None, None)]
-                for op, thresh in inputs:
-                    arg = x if op is not None else x > 293.0
-                    got = spells.spell_stats(arg, spec.starts, spec.counts,
-                                             window, op, thresh)
-                    torch.cuda.synchronize()
-                    ref = spells.spell_stats_plain(arg, spec.starts,
-                                                   spec.counts, window, op,
-                                                   thresh)
-                    for g, r, name in zip(got, ref, ("cnt", "wrc", "wre",
-                                                      "lng")):
-                        _compare(f"spells {name} {cal} {freq} w{window} "
-                                 f"op={op}", g, r, rtol=0.0, atol=0.0)
-                    cases += 1
-        # the planted lane: the run across the year boundary is cut in two
-        # by YS (3 + 7 days), the 6-day run counts once at window 6
-        ys = resample_segments(t, "YS")
-        cnt, wrc, wre, lng = spells.spell_stats(x[:, 3:4], ys.starts,
-                                                ys.counts, 6, ">", 293.0)
-        want = [[3.0, 0.0, 0.0, 3.0], [13.0, 13.0, 2.0, 7.0]]
-        got = [[float(v[y, 0]) for v in (cnt, wrc, wre, lng)] for y in (0, 1)]
-        if cal == "noleap" and got != want:
-            raise AssertionError(f"planted runs: {got} != {want}")
-    spec = resample_segments(date_range("1981-01-01", periods=SPELL_DAYS,
-                                        calendar="noleap"), "YS")
-    ms = _cuda_ms(lambda: spells.spell_stats(x, spec.starts, spec.counts, 6,
-                                             ">", 293.0), 20)
-    pms = _cuda_ms(lambda: spells.spell_stats_plain(
-        x, spec.starts, spec.counts, 6, ">", 293.0), 3)
-    # bound: the float32 series read once, four (nseg, C) results written
-    # once
-    bound = _bound((x.numel() + 4 * len(spec.starts) * x.shape[1]) * 4,
-                   4 * x.numel())
-    _log(f"[kernel vs twin] spells ({SPELL_DAYS}, {SMALL_CELLS}): {cases} "
-         f"cases bit-equal (4 ops + bool, windows 1/3/6, MS/YS/QS-DEC, "
-         f"noleap/360_day); YS w6 float kernel_ms={ms:.4f} twin_ms={pms:.4f} "
-         f"bound_ms={bound['bound_ms']:.4f} ({bound['bound_by']})")
-
-    # one segment over the whole series (cut into parts in time and
-    # joined) and 1000 cells (one cell a thread for a condition, not 4)
-    times = {}
-    for label, arg, segs, op, thresh in _spell_cases(gen, device):
-        got = spells.spell_stats(arg, *segs, 6, op, thresh)
-        torch.cuda.synchronize()
-        ref = spells.spell_stats_plain(arg, *segs, 6, op, thresh)
-        for g, r, name in zip(got, ref, ("cnt", "wrc", "wre", "lng")):
-            _compare(f"spells {name} {label}", g, r, rtol=0.0, atol=0.0)
-        times[label] = _cuda_ms(
-            lambda: spells.spell_stats(arg, *segs, 6, op, thresh), 20)
-    _log(f"[kernel vs twin] spells ({SPELL_DAYS}, C) w6, YS and one segment "
-         f"over the whole series, 1024 and 1000 cells, float and bool: "
-         f"bit-equal; kernel_ms "
-         f"{json.dumps({k: round(v, 4) for k, v in times.items()})}")
-
-
 def _spell_cases(gen, device):
     """(label, input, (starts, counts), op, thresh) of spells at
     (SPELL_DAYS, C): YS and one segment over the whole series, 1024 and
@@ -1343,6 +1080,7 @@ def phase_percentiles(device, card, record):
     import numpy as np
     import torch
 
+    from perfbench import roofline
     from xclim_tpu_torch.core.percentiles import percentile_doy
     from xclim_tpu_torch.indicators import atmos
     from xclim_tpu_torch.ops import segred, spells
@@ -1441,7 +1179,7 @@ def phase_percentiles(device, card, record):
                        10)
         record["segred"]["max_abs_err"] = max(record["segred"]["max_abs_err"],
                                               err)
-        bound = _bound((x2.numel() + len(counts) * x2.shape[1]) * 4,
+        bound = roofline.bound((x2.numel() + len(counts) * x2.shape[1]) * 4,
                        x2.numel())
         record["segred"].update(ms=ms, plain_ms=pms, library_ms=lms, **bound)
         _log(f"[kernel vs twin] segred {op} {tuple(x2.shape)} (tx90p's "
@@ -1471,7 +1209,7 @@ def phase_percentiles(device, card, record):
     outs = 4 * len(args[0]) * cond.numel() // cond.shape[0] * 4
     record["spells"].update(
         max_abs_err=max(record["spells"]["max_abs_err"], err), ms=ms,
-        plain_ms=pms, **_bound(nbytes + outs, 4 * cond.numel()))
+        plain_ms=pms, **roofline.bound(nbytes + outs, 4 * cond.numel()))
     _log(f"[kernel vs twin] spells bool {tuple(cond.shape)} (the bootstrap's "
          f"condition, {nbytes / 1e9:.3f} GB) on {card}: max_abs_err={err} "
          f"kernel_ms={ms:.4f} twin_ms={pms:.4f}; {nbytes / ms / 1e6:.1f} GB/s; "
@@ -1490,6 +1228,7 @@ def _bootstrap_at_the_cell(tasmax, per, card, record):
     inputs in L2, and the twin."""
     import torch
 
+    from perfbench import roofline
     from xclim_tpu_torch.core import bootstrapping
     from xclim_tpu_torch.indicators import atmos
     from xclim_tpu_torch.ops import bootstrap
@@ -1541,7 +1280,8 @@ def _bootstrap_at_the_cell(tasmax, per, card, record):
     tab = topv if q >= 0.5 else botv
     nbytes = (D.numel() + 2 * tab.numel() + nvalid.numel()
               + (ny - 1) * n_doy * C) * 4
-    bound = _bound(nbytes, (ny - 1) * n_doy * C * (w * w + 4 * (w + 1)))
+    bound = roofline.bound(nbytes,
+                           (ny - 1) * n_doy * C * (w * w + 4 * (w + 1)))
     record["bootstrap"].update(
         max_abs_err=max(record["bootstrap"]["max_abs_err"], err), ms=ms,
         ms_after_l2_flush=cold_ms, plain_ms=pms, **bound)
@@ -1580,57 +1320,6 @@ def phase_percentiles_cpu_vs_card(tasmax):
     _log(f"[cpu twins vs card kernels] percentile_doy, tx90p and WSDI with "
          f"the bootstrap on {PCT_CPU_CELLS} cells x {PCT_YEARS} y: max_abs_err "
          f"{errs} (CPU side {cpu_s:.1f} s)")
-
-
-def phase_axisquantile_small(gen, device, record):
-    """axisquantile against its twin at small shapes: M = 2, 13, 30 and 64
-    samples at (alpha, beta) = (1/3, 1/3), on the leading, a middle and the
-    last axis (post = 1), with 20 % holes, an all-missing and a
-    single-valid column: value-equal."""
-    import torch
-
-    from xclim_tpu_torch.ops import axisquantile
-
-    q = [0.0, 0.01, 0.1, 0.5, 0.9, 0.99, 1.0]
-    ab = (1.0 / 3.0, 1.0 / 3.0)
-    for M in (2, 13, 30, 64):
-        for axis in (0, 1, 2):
-            shape = [64, 37]
-            shape.insert(axis, M)
-            x = torch.randn(shape, generator=gen, device=device) * 5.0 + 285.0
-            holes = torch.rand(shape, generator=gen, device=device) < 0.2
-            x = torch.where(holes, torch.nan, x)
-            xm = x.movedim(axis, 0)
-            xm[:, 0, 0] = torch.nan
-            xm[1:, 0, 1] = torch.nan
-            got = axisquantile.axis_quantile_small(x, q, axis, *ab)
-            torch.cuda.synchronize()
-            ref = axisquantile.axis_quantile_small_plain(x, q, axis, *ab)
-            _compare(f"axisquantile M={M} axis={axis}", got, ref, rtol=0.0,
-                     atol=0.0)
-    _log("[kernel vs twin] axisquantile at M = 2, 13, 30, 64 x axis 0, 1, 2 "
-         "(post = 1), (alpha, beta) = (1/3, 1/3), 7 nodes: value-equal")
-    # both load routes: the shared-memory ring (post a multiple of 4) and
-    # each thread's own loads (post 1, 3, 5, 4099 and an unaligned start)
-    routes = [0, 0]
-    times = {}
-    for label, x, axis in _axq_cases(gen, device):
-        before = axisquantile.staged_launches
-        got = axisquantile.axis_quantile_small(x, AXQ_NODES, axis)
-        torch.cuda.synchronize()
-        routes[axisquantile.staged_launches == before] += 1
-        ref = axisquantile.axis_quantile_small_plain(x, AXQ_NODES, axis)
-        err = _compare(f"axisquantile {label}", got, ref, rtol=0.0, atol=0.0)
-        record["axisquantile"]["max_abs_err"] = max(
-            record["axisquantile"]["max_abs_err"], err)
-        times[label] = round(_cuda_ms(
-            lambda: axisquantile.axis_quantile_small(x, AXQ_NODES, axis), 5), 4)
-    if routes != [2 * len(AXQ_MS), 6 * len(AXQ_MS)]:
-        raise AssertionError(f"axisquantile routes (staged, direct) {routes}")
-    _log(f"[kernel vs twin] axisquantile over M = {AXQ_MS} x post 1, 3, 5, "
-         f"4099, 4, unaligned (direct loads), 256, 4100 (shared-memory ring): "
-         f"value-equal; launches by route (staged, direct) {routes}; "
-         f"kernel_ms {json.dumps(times)}")
 
 
 #: axisquantile's route cases: samples on axis 1 of (pre, M, post) with
@@ -1805,6 +1494,7 @@ def phase_ensembles(device, card, record):
     robustness_fractions over 30 members x 365 days x 192 x 448 cells."""
     import torch
 
+    from perfbench import roofline
     from xclim_tpu_torch.ensembles import (
         ensemble_percentiles,
         robustness_fractions,
@@ -1894,7 +1584,7 @@ def phase_ensembles(device, card, record):
     cols = x.numel() // x.shape[0]
     # bound: x read once, the nodes written once; operations: a comparison
     # sort of each column's valid members, ~8 per node for the selection
-    bound = _bound((x.numel() + len(q) * cols) * 4,
+    bound = roofline.bound((x.numel() + len(q) * cols) * 4,
                    _sort_compares((~torch.isnan(x)).sum(dim=0))
                    + 8 * len(q) * cols)
     record["axisquantile"].update(
@@ -2073,6 +1763,7 @@ def phase_spells_indices(device, card, record):
     the heat-wave condition against its twin; a profile of the pair."""
     import torch
 
+    from perfbench import roofline
     from xclim_tpu_torch.core.units import convert_units_to, str2pint
     from xclim_tpu_torch.ops import segred, spells
 
@@ -2158,14 +1849,14 @@ def phase_spells_indices(device, card, record):
         out_bytes = spec.nseg * x2.shape[1] * 4
         traffic = {"spells": nbytes + 4 * out_bytes,
                    "segred": nbytes + 2 * x2.numel() + 2 * nbytes + out_bytes}
-        fbound = _bound(nbytes + out_bytes, x2.numel())
+        fbound = roofline.bound(nbytes + out_bytes, x2.numel())
         for route, ms in times.items():
             _log(f"[spells_indices] threshold_count route {route} at "
                  f"({SP_DAYS}, {cells}) YS '>' on {card}: runs "
                  f"{[round(v, 4) for v in ms]} ms; moves "
                  f"{traffic[route] / 1e9:.3f} GB "
-                 f"({traffic[route] / HBM_BYTES_S * 1e3:.4f} ms at 3.35 "
-                 f"TB/s); the count's own bound {fbound['bound_ms']:.4f} ms "
+                 f"({traffic[route] / roofline.HBM_BYTES_S * 1e3:.4f} ms at "
+                 f"3.35 TB/s); the count's own bound {fbound['bound_ms']:.4f} ms "
                  f"({fbound['bound_by']})")
         other = {"spells": "segred", "segred": "spells"}
         faster = [r for r in times if max(times[r]) < min(times[other[r]])]
@@ -2186,7 +1877,7 @@ def phase_spells_indices(device, card, record):
                                                  spec.counts, 3), 10)
         pms = _cuda_ms(lambda: spells.spell_stats_plain(
             cond, spec.starts, spec.counts, 3), 2)
-        hb = _bound(cond.numel() + 4 * out_bytes, cond.numel())
+        hb = roofline.bound(cond.numel() + 4 * out_bytes, cond.numel())
         record["spells"]["max_abs_err"] = max(record["spells"]["max_abs_err"],
                                               err)
         _log(f"[kernel vs twin] spells at heat_wave_frequency's bool "
@@ -2972,6 +2663,7 @@ def phase_chain(device, card, record):
     twins at the chain's own inputs."""
     import torch
 
+    from perfbench import roofline
     from xclim_tpu_torch import climjit_chain
     from xclim_tpu_torch.core.indicator import registry
     from xclim_tpu_torch.ops import segred, spells
@@ -3079,7 +2771,7 @@ def phase_chain(device, card, record):
                 record["segred"]["max_abs_err"], err)
             ms = _cuda_ms(lambda: kern(*args), 10)
             pms = _cuda_ms(lambda: twin(*args), 2)
-            b = _bound(args[0].numel() * 4
+            b = roofline.bound(args[0].numel() * 4
                        + len(args[1]) * args[0].shape[1] * 8,
                        args[0].numel())
             _log(f"[kernel vs twin] {label} {tuple(args[0].shape)} on "
@@ -3104,7 +2796,7 @@ def phase_chain(device, card, record):
                 cond, ys.starts, ys.counts, window), 10)
             pms = _cuda_ms(lambda: spells.spell_stats_plain(
                 cond, ys.starts, ys.counts, window), 2)
-            b = _bound(cond.numel() + 4 * ys.nseg * cond.shape[1] * 4,
+            b = roofline.bound(cond.numel() + 4 * ys.nseg * cond.shape[1] * 4,
                        cond.numel())
             _log(f"[kernel vs twin] spells at {label} {tuple(cond.shape)} YS "
                  f"window {window} on {card}: max_abs_err={err} "
@@ -4818,8 +4510,6 @@ def main() -> int:
               "kernels need an NVIDIA GPU", file=sys.stderr)
         return 2
     import xclim_tpu_torch
-    from xclim_tpu_torch.ops import _build
-    from xclim_tpu_torch.sdba.utils import equally_spaced_nodes
 
     start = time.perf_counter()
     device = torch.device("cuda", 0)
@@ -4838,36 +4528,32 @@ def main() -> int:
                          "ms": kernel_times(device)}))
         return 0
 
+    # the build targets: read here, so that --kernel-times also runs
+    # against a checkout older than _build.TARGETS
+    from xclim_tpu_torch.ops import _build
+
     record = {}
-    targets = sorted({target for target, _ in KERNELS.values()})
-    _build.build(targets)
-    for target in targets:
+    _build.build(_build.TARGETS)
+    for target in _build.TARGETS:
         _build.load(target)
         info = _build.build_info[target]
         _log(f"[build] {target}: {info['seconds']:.2f} s")
         for line in info["log"].splitlines():
             if ("ptxas" in line and "Used" in line) or "spill" in line:
                 _log(f"[build]   {line.strip()}")
-    for name, (target, replaces) in KERNELS.items():
-        record[name] = {
-            "name": name, "route": "cuda",
+        record[target] = {
+            "name": target, "route": "cuda",
             "source": "xclim_tpu_torch/csrc/" + _build.source(target).name,
-            "replaces": replaces,
             "launches": 0, "max_abs_err": 0.0, "ms": None, "plain_ms": None,
             "bound_ms": None, "bound_by": None, "library_ms": None,
             "paths": {}}
 
-    q = equally_spaced_nodes(NQ).astype("float32")
-    gen = torch.Generator(device=device)
-    gen.manual_seed(SEED)
     def run(phase, *args):
         t0 = time.perf_counter()
         out = phase(*args)
         _log(f"[wall] {phase.__name__}: {time.perf_counter() - t0:.1f} s")
         return out
 
-    run(phase_kernels_small, gen, device, q, record)
-    run(phase_segred_small, gen, device, record)
     series = run(phase_slice, device, card, record)
     run(phase_cpu_vs_card, series)
     del series
@@ -4876,12 +4562,10 @@ def main() -> int:
     run(phase_tg_mean_cpu_vs_card, tas)
     del tas
     torch.cuda.empty_cache()
-    run(phase_spells_small, gen, device, record)
     tasmax = run(phase_percentiles, device, card, record)
     run(phase_percentiles_cpu_vs_card, tasmax)
     del tasmax
     torch.cuda.empty_cache()
-    run(phase_axisquantile_small, gen, device, record)
     ens = run(phase_ensembles, device, card, record)
     run(phase_ensembles_cpu_vs_card, ens)
     del ens

@@ -1,16 +1,23 @@
 """The PyTorch port stands alone: it imports without JAX, no source file of
-it imports JAX or Triton, and its kernels are CUDA sources built for
-sm_90a."""
+it imports JAX or Triton, its ops import nothing above them and leave
+binding and launching kernels to ``ops/_build.py``, and its kernels are
+CUDA sources built for sm_90a."""
 
 import ast
 import pathlib
+import re
 import subprocess
 import sys
 
 import pytest
 
+from xclim_tpu_torch.ops import _build
+
 PKG = pathlib.Path(__file__).resolve().parent.parent / "xclim_tpu_torch"
 SOURCES = sorted(PKG.rglob("*.py"))
+OPS = sorted((PKG / "ops").glob("*.py"))
+#: the layers above ops: an op module imports none of them
+ABOVE_OPS = ("core.dataarray", "sdba", "indices", "indicators", "ensembles")
 MODULES = sorted(
     ".".join(p.relative_to(PKG.parent).with_suffix("").parts).removesuffix(
         ".__init__") for p in SOURCES)
@@ -24,6 +31,23 @@ def _imported_roots(path: pathlib.Path) -> set[str]:
         elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
             roots.add(node.module.split(".")[0])
     return roots
+
+
+def _imported_modules(path: pathlib.Path) -> set[str]:
+    """Every module an import statement of ``path`` names, at any depth,
+    with each ``from m import n`` also as ``m.n``."""
+    found = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            found.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = node.module or ""
+            if node.level:
+                pkg = "xclim_tpu_torch.ops".split(".")[:3 - node.level]
+                base = ".".join(pkg + ([base] if base else []))
+            found.add(base)
+            found.update(f"{base}.{a.name}" for a in node.names)
+    return found
 
 
 def test_import_with_jax_poisoned():
@@ -49,34 +73,56 @@ def test_no_jax_or_triton_import(path):
     assert not roots & {"jax", "jaxlib", "triton", "xclim_tpu"}, roots
 
 
-@pytest.mark.parametrize("name", ["winquantile", "qdmadjust", "segred",
-                                  "spells", "axisquantile"])
-def test_kernels_are_cuda_sources_for_sm90a(name):
-    from xclim_tpu_torch.ops import _build
+@pytest.mark.parametrize("path", OPS, ids=lambda p: p.name)
+def test_ops_import_nothing_above_them(path):
+    above = [m for m in _imported_modules(path)
+             for layer in ABOVE_OPS
+             if m == f"xclim_tpu_torch.{layer}"
+             or m.startswith(f"xclim_tpu_torch.{layer}.")]
+    assert not above, above
 
+
+@pytest.mark.parametrize("path", [p for p in OPS if p.name != "_build.py"],
+                         ids=lambda p: p.name)
+def test_only_the_build_module_binds_and_launches_kernels(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    assert "ctypes" not in _imported_roots(path)
+    assert not [n for n in ast.walk(tree)
+                if isinstance(n, ast.Attribute) and n.attr == "current_stream"
+                or isinstance(n, ast.Name) and n.id == "current_stream"]
+
+
+@pytest.mark.parametrize("name", sorted({_build.source(t).stem
+                                         for t in _build.TARGETS}))
+def test_kernels_are_cuda_sources_for_sm90a(name):
+    """Each source under csrc/ is a CUDA kernel with a C entry of its name,
+    and its note names the reference it replaces: a Pallas kernel of the
+    same name, or, with no Pallas kernel, the reference's plain-jnp module
+    and the port's twin."""
     src = PKG / "csrc" / f"{name}.cu"
     text = src.read_text()
+    assert _build.source(name) == src
     assert "__global__" in text
-    assert "Replaces: xclim_tpu/ops/pallas/" in text
+    assert f'extern "C" int xtt_{name}' in text
+    note = text[text.index("// Replaces: "):].split("\n//\n")[0]
+    refs = re.findall(r"xclim_tpu/ops/[\w/]+\.py", note)
+    assert refs and all((PKG.parent / r).exists() for r in refs), note
+    if note.startswith("// Replaces: no Pallas kernel"):
+        assert refs[0] == f"xclim_tpu/ops/{name}.py"
+        assert f"xclim_tpu_torch/ops/{name}.py" in note
+        assert re.search(r"\w+_plain\b", note)
+    else:
+        assert refs[0] == f"xclim_tpu/ops/pallas/{name}.py"
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
-def test_bootstrap_kernel_is_a_cuda_source_that_names_its_twin():
-    """The bootstrap's kernel replaces no Pallas kernel: its note names the
-    reference's plain-jnp functions and the port's twin instead."""
-    from xclim_tpu_torch.ops import _build
-
-    text = (PKG / "csrc" / "bootstrap.cu").read_text()
-    assert "__global__" in text
-    assert "Replaces: no Pallas kernel" in text
-    assert "merge_rank_replaced_year_quantile_plain" in text
-    assert 'extern "C" int xtt_bootstrap(' in text
-    assert _build.source("bootstrap") == PKG / "csrc" / "bootstrap.cu"
+def test_targets_build_every_source():
+    assert {_build.source(t) for t in _build.TARGETS} == set(
+        (PKG / "csrc").glob("*.cu"))
+    assert set(_build.VARIANTS) <= set(_build.TARGETS)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
-    from xclim_tpu_torch.ops import _build
-
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(_build, "_OUT", tmp_path / "build")
@@ -88,8 +134,6 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 def test_stage_profile_is_a_separate_build():
     # the shipped winquantile library leaves the profiling stages out; the
     # winquantile_stages target compiles the same source with them
-    from xclim_tpu_torch.ops import _build
-
     src = _build.source("winquantile_stages")
     assert src == _build.source("winquantile") == PKG / "csrc" / "winquantile.cu"
     assert _build._so_path("winquantile_stages") != _build._so_path(

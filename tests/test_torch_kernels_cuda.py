@@ -88,7 +88,8 @@ def test_winquantile_kernel_matches_twin(cuda, n_doy, Y, C, window, alpha,
 # with slides and with every doy its own chunk, and 9000 years at window 3
 # (slides over presorted slices, 4 doy chunks) and window 1
 @pytest.mark.parametrize("n_doy,Y,C,window", [
-    (365, 300, 4, 31), (30, 300, 3, 31), (6, 9000, 300, 3), (4, 9000, 2, 1)])
+    (365, 300, 4, 31), (30, 300, 3, 31), (6, 9000, 300, 3), (4, 9000, 2, 1),
+    (365, 300, 64, 31)])
 def test_winquantile_past_shared_memory_takes_global_scratch(cuda, n_doy, Y,
                                                              C, window):
     assert not winquantile.window_in_shared(window, Y)
@@ -231,6 +232,23 @@ def test_winquantile_sliding_cases_value_equal(cuda, monkeypatch, n_doy, Y,
         monkeypatch.setattr(winquantile, "TARGET_BLOCKS_SMEM", target[plan])
     x = torch.as_tensor(_cases(n_doy, Y, 67, seed=n_doy * Y + window,
                                kind=kind), device=cuda)
+    before = winquantile.launches
+    got = winquantile.doy_window_quantiles(x, Q, window)
+    torch.cuda.synchronize()
+    assert winquantile.launches == before + 1
+    _value_equal(got, winquantile.doy_window_quantiles_plain(x, Q, window))
+
+
+# at 1024 cells the plans cut the doy axis into few chunks for many cell
+# groups: 32 chunks of 128 groups (w5 and w31 over 30 years), 4 of 256
+# (the shared-memory sort: w61 x 30 and w31 x 60 years)
+@pytest.mark.parametrize("n_doy,Y,window,kind", [
+    (365, 30, 31, "normal"), (366, 30, 5, "sparse366"),
+    (365, 30, 61, "normal"), (365, 60, 31, "normal"), (365, 30, 31, "ties")])
+def test_winquantile_many_cell_groups_value_equal(cuda, n_doy, Y, window,
+                                                   kind):
+    x = torch.as_tensor(_cases(n_doy, Y, 1024, seed=Y + window, kind=kind),
+                        device=cuda)
     before = winquantile.launches
     got = winquantile.doy_window_quantiles(x, Q, window)
     torch.cuda.synchronize()
@@ -483,6 +501,42 @@ def test_spells_kernel_matches_twin(cuda, op, window, freq, cal):
     assert spells.launches == before + 1
     _spells_equal(got, spells.spell_stats_plain(x, spec.starts, spec.counts,
                                                 window, op, thresh))
+
+
+@pytest.mark.parametrize("cal", ["noleap", "360_day"])
+@pytest.mark.parametrize("freq", ["MS", "YS", "QS-DEC"])
+@pytest.mark.parametrize("window", [1, 3, 6])
+def test_spells_kernel_bool_condition_matches_twin(cuda, window, freq, cal):
+    T = 1095 if cal == "noleap" else 1080
+    spec = resample_segments(date_range("2000-01-01", periods=T, calendar=cal),
+                             freq)
+    x = torch.as_tensor(_spell_series(T, 1030, seed=T + window), device=cuda)
+    cond = x > 293.0
+    before = spells.launches
+    got = spells.spell_stats(cond, spec.starts, spec.counts, window)
+    torch.cuda.synchronize()
+    assert spells.launches == before + 1
+    _spells_equal(got, spells.spell_stats_plain(cond, spec.starts,
+                                                spec.counts, window))
+
+
+@pytest.mark.parametrize("cond", [False, True])
+def test_spells_kernel_planted_runs(cuda, cond):
+    """Runs of known length at YS and window 6: one across the first year
+    boundary (362-371: 3 days, then 7), one of exactly the window
+    (500-505), one of 3 days (800-802) and one day (1000)."""
+    T = 1095
+    x = torch.full((T, 5), 250.0, device=cuda)
+    for a, b in ((362, 372), (500, 506), (800, 803), (1000, 1001)):
+        x[a:b] = 400.0
+    ys = resample_segments(date_range("1981-01-01", periods=T,
+                                      calendar="noleap"), "YS")
+    arg, op, thresh = (x > 293.0, None, None) if cond else (x, ">", 293.0)
+    got = spells.spell_stats(arg, ys.starts, ys.counts, 6, op, thresh)
+    want = [[3.0, 0.0, 0.0, 3.0], [13.0, 13.0, 2.0, 7.0], [4.0, 0.0, 0.0, 3.0]]
+    for v, w in zip(got, np.asarray(want, np.float32).T):
+        np.testing.assert_array_equal(v.cpu().numpy(),
+                                      np.repeat(w[:, None], 5, axis=1))
 
 
 @pytest.mark.parametrize("window", [1, 6])
@@ -922,9 +976,8 @@ def _boot_samples(n_doy, Y, w, C, mode, seed):
 
 
 def _boot_check(cuda, n_doy, Y, w, C, mode, q, years=None, seed=0):
-    """The kernel (both forms) against the twin on CPU copies, value for
-    value, for the removed years ``years`` (default all); returns the
-    counters' moves."""
+    """The kernel against the twin on CPU copies, value for value, for the
+    removed years ``years`` (default all); returns the counters' moves."""
     D = torch.as_tensor(_boot_samples(n_doy, Y, w, C, mode, seed),
                         device=cuda)
     K = bootstrap.topk_capacity(Y * w, w, q)
@@ -939,13 +992,10 @@ def _boot_check(cuda, n_doy, Y, w, C, mode, q, years=None, seed=0):
         A_b = D[:, b].movedim(-1, -2)
         A_o = torch.stack([D[:, o].movedim(-1, -2) for o in range(Y)
                            if o != b])
-        got_p = bootstrap.merge_rank_replaced_year_quantile(*tabs, A_b, A_o,
-                                                            b, q)
         torch.cuda.synchronize()
         exp = bootstrap.merge_rank_replaced_year_quantile_plain(
             *ctabs, A_b.cpu(), A_o.cpu(), b, q)
         _value_equal(got, exp)
-        _value_equal(got_p, exp)
     return dict(zip(names, (getattr(bootstrap, n) - v
                             for n, v in zip(names, before)))), K
 
@@ -956,7 +1006,7 @@ def test_bootstrap_kernel_matches_twin(cuda, q, mode):
     moved, K = _boot_check(cuda, 3, 6, 5, 200, mode, q,
                            seed=int(q * 100) + len(mode))
     assert bootstrap.table_in_shared(K, 5)
-    assert moved == {"launches": 12, "shared_launches": 12,
+    assert moved == {"launches": 6, "shared_launches": 6,
                      "global_launches": 0, "twin_calls": 0}
 
 
@@ -967,8 +1017,8 @@ def test_bootstrap_kernel_windows(cuda, q, w):
     moved, K = _boot_check(cuda, 2, 6, w, 75, "nans", q, seed=w)
     shared = bootstrap.table_in_shared(K, w)
     assert shared == (w <= bootstrap.MAX_REGISTER_W)
-    assert moved == {"launches": 12, "shared_launches": 12 * shared,
-                     "global_launches": 12 * (not shared), "twin_calls": 0}
+    assert moved == {"launches": 6, "shared_launches": 6 * shared,
+                     "global_launches": 6 * (not shared), "twin_calls": 0}
 
 
 # 30 years at w 31 make a table past shared memory (K 127 at q 0.9)
@@ -978,7 +1028,7 @@ def test_bootstrap_kernel_years(cuda, q, Y, w):
     moved, K = _boot_check(cuda, 2, Y, w, 130, "nan_edges", q,
                            years=sorted({0, Y // 2, Y - 1}), seed=Y + w)
     shared = bootstrap.table_in_shared(K, w)
-    n = len({0, Y // 2, Y - 1}) * 2
+    n = len({0, Y // 2, Y - 1})
     assert moved == {"launches": n, "shared_launches": n * shared,
                      "global_launches": n * (not shared), "twin_calls": 0}
     if (Y, w) == (30, 31):
@@ -1020,6 +1070,20 @@ def test_bootstrap_launch_failure_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="bootstrap kernel launch failed"):
         bootstrap.merge_rank_replaced_year_quantile(*tabs, None, None, 0, 0.9,
                                                     samples=D)
+    assert (bootstrap.launches, bootstrap.twin_calls) == counts
+
+
+def test_bootstrap_positional_form_on_the_card_raises(cuda):
+    """The kernel takes the samples= form only: the positional form on the
+    card raises, naming samples=, with no launch and no twin call."""
+    D = torch.as_tensor(_boot_samples(2, 6, 5, 8, "plain", 5), device=cuda)
+    tabs = bootstrap.topk_rank_tables(D.reshape(2, 30, 8),
+                                      np.arange(6).repeat(5), 12)
+    A_b = D[:, 0].movedim(-1, -2)
+    A_o = torch.stack([D[:, o].movedim(-1, -2) for o in range(1, 6)])
+    counts = (bootstrap.launches, bootstrap.twin_calls)
+    with pytest.raises(ValueError, match="samples="):
+        bootstrap.merge_rank_replaced_year_quantile(*tabs, A_b, A_o, 0, 0.9)
     assert (bootstrap.launches, bootstrap.twin_calls) == counts
 
 

@@ -162,8 +162,9 @@ def test_ids_parents_roots_and_siblings():
         assert s["start_ns"] <= s["end_ns"] and s["host_syncs"] == 0
     assert a["start_ns"] <= b["start_ns"] and d["end_ns"] <= c["end_ns"] \
         <= a["end_ns"] <= e["start_ns"]
-    assert tr.counters == dict.fromkeys(profiling.COUNTERS, 0)  # no card here
-    assert "eqm_node_passes" in profiling.COUNTERS
+    assert tr.counters == {"host_syncs": 0}            # no card here
+    # a counter never counted reads 0, in the block and in every span
+    assert tr.counters["eqm_node_passes"] == 0
     for s in tr.spans:
         assert s["eqm_node_passes"] == 0
 

@@ -39,7 +39,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from xclim_tpu_torch.ops import _build, axisquantile  # noqa: E402
+from xclim_tpu_torch.ops import _build  # noqa: E402
 from xclim_tpu_torch.ops.quantile import _node_constants  # noqa: E402
 
 SPLIT_SRC = r"""
@@ -141,7 +141,8 @@ def split_times(x: torch.Tensor, q) -> dict:
     nodes = torch.as_tensor(np.concatenate([qv, coff]), device=x.device)
     M, post = x.shape[0], x[0].numel()
     out = torch.empty((len(qv), post), dtype=torch.float32, device=x.device)
-    split, shipped = _split_function(), axisquantile._function()
+    split = _split_function()
+    shipped = _build.function("axisquantile", "xtt_axisquantile", "pppiiqqip")
     stream = torch.cuda.current_stream(x.device).cuda_stream
 
     def run(fn, flag):

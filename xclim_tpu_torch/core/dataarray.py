@@ -19,6 +19,7 @@ from xclim_tpu_torch.core.calendar import (
     resample_segments,
     select_time_mask,
 )
+from xclim_tpu_torch.ops.quantile import _nanmedian, _nanstd, _nanvar
 
 __all__ = ["ClimArray", "ClimDataset", "full_like", "where", "concat",
            "broadcast_arrays"]
@@ -56,32 +57,6 @@ def _all_nan_to_nan(out, x, axis):
     ok = ~torch.isnan(x)
     has = ok.any() if axis is None else ok.any(dim=axis)
     return torch.where(has, out, torch.nan)
-
-
-def _nanvar(x, axis=None):
-    """Population variance (ddof=0) of the valid values, as ``jnp.nanvar``."""
-    dims = axis if axis is not None else tuple(range(x.ndim))
-    mu = torch.nanmean(x, dim=dims, keepdim=True)
-    return torch.nanmean((x - mu) ** 2, dim=dims)
-
-
-def _nanstd(x, axis=None):
-    return torch.sqrt(_nanvar(x, axis))
-
-
-def _nanmedian(x, axis=None):
-    """Mean of the two middle values, as ``jnp.nanmedian`` (torch's own
-    ``nanmedian`` returns the lower one)."""
-    from xclim_tpu_torch.ops.quantile import nan_quantile
-
-    if axis is None:
-        return nan_quantile(x.reshape(-1), [0.5], axis=0)[0]
-    if isinstance(axis, tuple):
-        keep = [d for d in range(x.ndim) if d not in axis]
-        x = x.permute(keep + list(axis)).reshape(
-            [x.shape[d] for d in keep] + [-1])
-        axis = -1
-    return nan_quantile(x, [0.5], axis=axis)[0]
 
 
 def _nansum(x, axis=None):

@@ -17,6 +17,7 @@ from xclim_tpu_torch.core.dataarray import ClimArray, ClimDataset
 from xclim_tpu_torch.core.units import convert_units_to, declare_units, str2pint
 from xclim_tpu_torch.indices.generic import binary_ops
 from xclim_tpu_torch.indices.run_length import suspicious_run
+from xclim_tpu_torch.ops.quantile import _nanstd
 
 __all__ = [
     "DataQualityException",
@@ -158,7 +159,6 @@ def outside_n_standard_deviations_of_climatology(da: ClimArray, *, n: int,
                                                  window: int = 5) -> ClimArray:
     """|x − doy-climatology mean| > n·σ (xclim:core/dataflags.py:466)."""
     from xclim_tpu_torch.core.percentiles import doy_quantile_gather, resample_doy
-    from xclim_tpu_torch.core.dataarray import _nanstd
 
     g, doys, _ = doy_quantile_gather(da, window)
     mu = torch.nanmean(g, dim=1)

@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from xclim_tpu_torch.core.dataarray import ClimArray, _nanmedian
+from xclim_tpu_torch.core.dataarray import ClimArray
 from xclim_tpu_torch.core.missing import at_least_n_valid
 from xclim_tpu_torch.core.units import (
     convert_units_to,
@@ -23,6 +23,7 @@ from xclim_tpu_torch.core.units import (
 from xclim_tpu_torch.indices import generic
 from xclim_tpu_torch.indices.generic import threshold_count
 from xclim_tpu_torch.indices.stats import standardized_index
+from xclim_tpu_torch.ops.quantile import _nanmedian
 from xclim_tpu_torch.ops.segments import (
     rolling_reduce,
     segment_argminmax,

@@ -16,7 +16,8 @@ import math
 import numpy as np
 import torch
 
-from xclim_tpu_torch.core.dataarray import ClimArray, _nanmin, _nanstd, _nanvar
+from xclim_tpu_torch.core.dataarray import ClimArray, _nanmin
+from xclim_tpu_torch.ops.quantile import _nanstd, _nanvar
 
 __all__ = [
     "DIST_PARAMS",

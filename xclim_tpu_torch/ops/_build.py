@@ -9,12 +9,20 @@ raises with the compiler's output: there is no fallback.
 
 A build target is a source's name, or a name in :data:`VARIANTS`, which
 compiles a source with extra flags (``winquantile_stages``: the winquantile
-kernel with its profiling stages, which the shipped library leaves out).
+kernel with its profiling stages, which the shipped library leaves out);
+:data:`TARGETS` lists them all.
+
+Every launch of a kernel goes through :func:`launch`: the entry is bound
+once (:func:`function`), called inside ``torch.cuda.device`` with the
+device's current stream as its last argument, and a nonzero return (a CUDA
+error code) raises. :func:`device_copy` puts host constants on the device
+once per value set.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -22,7 +30,10 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["build", "load", "build_info", "source", "VARIANTS"]
+import torch
+
+__all__ = ["build", "load", "build_info", "source", "function", "launch",
+           "device_copy", "TARGETS", "VARIANTS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _SRC = _PKG / "csrc"
@@ -33,6 +44,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: build target -> (source name under csrc/, extra nvcc flags)
 VARIANTS = {"winquantile_stages": ("winquantile",
                                    ("-DXTT_WINQUANTILE_STAGES",))}
+#: every build target: the sources under csrc/ and the variants
+TARGETS = tuple(sorted([p.stem for p in _SRC.glob("*.cu")] + list(VARIANTS)))
+#: argument and return codes of function(): a pointer, an int, a long
+#: long, a float
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong,
+           "f": ctypes.c_float}
 
 _libs: dict[str, ctypes.CDLL] = {}
 #: per kernel: {"seconds": build time (0.0 when loaded from a previous
@@ -115,3 +132,37 @@ def load(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(_so_path(name)))
     _libs[name] = lib
     return lib
+
+
+@functools.cache
+def function(target: str, symbol: str, argtypes: str, restype: str = "i"):
+    """The entry ``symbol`` of build target ``target``'s library, bound
+    once to the C signature given as codes of ``_CTYPES`` (``argtypes``
+    one code an argument, ``restype`` the return's)."""
+    fn = getattr(load(target), symbol)
+    fn.argtypes = [_CTYPES[c] for c in argtypes]
+    fn.restype = _CTYPES[restype]
+    return fn
+
+
+def launch(target: str, symbol: str, argtypes: str, device: torch.device,
+           *args) -> None:
+    """Launch the kernel entry ``symbol`` of build target ``target`` on
+    ``device``: ``symbol(*args, stream)`` with the device's current
+    stream, ``argtypes`` the codes of ``args``. Raises RuntimeError naming
+    the kernel's source if the entry returns a CUDA error."""
+    fn = function(target, symbol, argtypes + "p")
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{source(target).stem} kernel launch failed: "
+                           f"CUDA error {err}")
+
+
+@functools.lru_cache(maxsize=256)
+def device_copy(data: bytes, dtype: torch.dtype,
+                device: torch.device) -> torch.Tensor:
+    """The host bytes ``data`` as a 1-D ``dtype`` tensor on ``device``,
+    copied once per value: a copy from host memory on every call would
+    wait for the device each time."""
+    return torch.frombuffer(bytearray(data), dtype=dtype).to(device)

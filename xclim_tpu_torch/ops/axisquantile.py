@@ -23,9 +23,6 @@ plain PyTorch twin: the sort formulation, on any device.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import numpy as np
 import torch
 
@@ -49,13 +46,6 @@ twin_calls = 0
 MAX_AXIS = 64
 #: columns of one tile of the shared-memory route
 TILE = 256
-
-
-@functools.lru_cache(maxsize=64)
-def _device_nodes(nodes: bytes, device: torch.device) -> torch.Tensor:
-    """The node constants on the device, copied once per set (a copy from
-    host memory would wait for the device on every call)."""
-    return torch.frombuffer(bytearray(nodes), dtype=torch.float32).to(device)
 
 
 def _q_host(q) -> np.ndarray:
@@ -98,32 +88,19 @@ def axis_quantile_small(x: torch.Tensor, q, axis: int = 0,
         out = torch.empty((nq, pre * post), dtype=torch.float32, device=x.device)
         if out.numel() == 0:
             return out.reshape((nq,) + rest)
-        nodes = _device_nodes(np.concatenate([qv, coff]).tobytes(), x.device)
+        nodes = _build.device_copy(np.concatenate([qv, coff]).tobytes(),
+                                   torch.float32, x.device)
         staged = staged_route(post, xc.data_ptr())
-        fn = _function()
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = fn(xc.data_ptr(), out.data_ptr(), nodes.data_ptr(), M, nq, pre,
-                     post, int(staged), stream)
-        if err != 0:
-            raise RuntimeError(f"axisquantile kernel launch failed: CUDA error "
-                               f"{err}")
+        # x, out, nodes, M, nq, pre, post, staged
+        _build.launch("axisquantile", "xtt_axisquantile", "pppiiqqi", x.device,
+                      xc.data_ptr(), out.data_ptr(), nodes.data_ptr(), M, nq,
+                      pre, post, int(staged))
         launches += 1
         if staged:
             staged_launches += 1
         else:
             direct_launches += 1
         return out.reshape((nq,) + rest)
-
-
-@functools.cache
-def _function():
-    fn = _build.load("axisquantile").xtt_axisquantile
-    # x, out, nodes, M, nq, pre, post, staged, stream
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-                   + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def axis_quantile_small_plain(x: torch.Tensor, q, axis: int = 0,

@@ -12,8 +12,9 @@ On a CUDA tensor :func:`merge_rank_replaced_year_quantile` launches the
 hand-written kernel ``csrc/bootstrap.cu`` (a thread per (doy, cell) lane:
 its table minus year b compacted once, then every replacement's samples
 sorted in registers and both order statistics read by the merge path) and
-raises if the launch fails. Given the in-base sample tensor as
-``samples=``, the kernel reads the other years in place. Where the table
+raises if the launch fails. It takes the in-base sample tensor as
+``samples=`` and reads the other years in place; the positional form
+(``A_b``, ``A_o``) is the twin's alone. Where the table
 (more than :data:`MAX_SHARED_K` slots) or the window (more than
 :data:`MAX_REGISTER_W` samples) outgrows the shared-memory instance, the
 same kernel keeps them in global scratch; the two instances are counted
@@ -33,8 +34,6 @@ are excluded from every count.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import math
 import operator
 
@@ -153,10 +152,7 @@ def merge_rank_replaced_year_quantile(topv, topyear, botv, botyear, nvalid,
     topv/topyear/botv/botyear (..., C, K), nvalid (..., C) from
     :func:`topk_rank_tables`: floating values (float32 on the card, which
     the kernel reads; the twin takes any float dtype) and integer year
-    tags. A_b, A_o: (..., C, w) removed/added samples of the same kind,
-    lanes-last, all broadcasting as in the twin (a leading replacement axis
-    on ``A_o``). b: the removed year's tag. Returns the broadcast shape, in
-    the values' dtype.
+    tags. b: the removed year's tag.
 
     With ``samples`` (the in-base sample tensor (n_doy, nyears, w, C), any
     strides) and ``A_b = A_o = None``: year b of ``samples``
@@ -165,8 +161,14 @@ def merge_rank_replaced_year_quantile(topv, topyear, botv, botyear, nvalid,
     C), the positional form's bits for ``A_b = samples[:, b]`` and ``A_o``
     the other years in order; the kernel reads them in place.
 
+    On the CPU only, the positional form: A_b, A_o (..., C, w)
+    removed/added samples of the same kind, lanes-last, all broadcasting
+    as in the twin (a leading replacement axis on ``A_o``). Returns the
+    broadcast shape, in the values' dtype.
+
     Raises TypeError or ValueError before any work on wrong dtypes, shapes,
-    devices or arguments, and RuntimeError if the launch fails.
+    devices or arguments (the positional form on the card among them),
+    and RuntimeError if the launch fails.
     """
     global twin_calls
     with span("op.bootstrap"):
@@ -182,13 +184,14 @@ def merge_rank_replaced_year_quantile(topv, topyear, botv, botyear, nvalid,
                 alpha=alpha, beta=beta)
         if topv.device.type != "cuda":
             raise ValueError(f"no bootstrap kernel for device {topv.device}")
+        if samples is None:
+            raise ValueError("the kernel takes the in-base samples as "
+                             "samples=; the positional A_b, A_o form is "
+                             "the CPU twin's")
         top = q >= 0.5
         tab, tyear = (topv, topyear) if top else (botv, botyear)
-        if samples is not None:
-            return _launch_years(tab, tyear, nvalid, samples, b, top, q,
-                                 alpha, beta)
-        return _launch_positional(tab, tyear, nvalid, A_b, A_o, b, top, q,
-                                  alpha, beta)
+        return _launch_years(tab, tyear, nvalid, samples, b, top, q, alpha,
+                             beta)
 
 
 def _check(topv, topyear, botv, botyear, nvalid, A_b, A_o, b, q, samples):
@@ -260,52 +263,13 @@ def _replacements(samples, b):
 
 
 def _launch_years(tab, tyear, nvalid, samples, b, top, q, alpha, beta):
+    global launches, shared_launches, global_launches
     n_doy, ny, w, C = samples.shape
     out = torch.empty((ny - 1, n_doy, C), dtype=torch.float32,
                       device=samples.device)
-    sd, sy, ss, sc = samples.stride()
-    _launch(tab, tyear, nvalid, samples.select(1, b), (sd, ss, sc), samples,
-            (sy, sd, ss, sc), out, n_doy * C, C, w, ny - 1, b, b, top, q,
-            alpha, beta)
-    return out
-
-
-def _launch_positional(tab, tyear, nvalid, A_b, A_o, b, top, q, alpha,
-                       beta):
-    # the per-lane shape, without the leading ones over which the lanes'
-    # inputs all broadcast: the replacements' axes come before it
-    lane_shape = torch.broadcast_shapes(tab.shape[:-1], nvalid.shape,
-                                        A_b.shape[:-1])
-    while lane_shape and lane_shape[0] == 1:
-        lane_shape = lane_shape[1:]
-    shape = torch.broadcast_shapes(lane_shape, A_o.shape[:-1])
-    rep_shape, lane_shape = (shape[:len(shape) - len(lane_shape)],
-                             shape[len(shape) - len(lane_shape):])
-    L, O = math.prod(lane_shape), math.prod(rep_shape)
-    K, w = tab.shape[-1], A_b.shape[-1]
-
-    def per_lane(t, last):
-        # drop the leading ones the lane shape went without
-        t = t.reshape(t.shape[max(0, t.ndim - len(lane_shape) - len(last)):])
-        return t.expand(lane_shape + last).reshape((L,) + last)
-
-    tab, tyear = per_lane(tab, (K,)), per_lane(tyear, (K,))
-    nvalid = per_lane(nvalid, ())
-    ab = per_lane(A_b, (w,))
-    ao = A_o.expand(shape + (w,)).reshape(O, L, w)
-    out = torch.empty((O, L), dtype=torch.float32, device=ao.device)
-    # C = 1: lane d = lane, its samples at d * stride
-    _launch(tab, tyear, nvalid, ab, (ab.stride(0), ab.stride(1), 0), ao,
-            (ao.stride(0), ao.stride(1), ao.stride(2), 0), out, L, 1, w, O,
-            O, b, top, q, alpha, beta)
-    return out.reshape(shape)
-
-
-def _launch(tab, tyear, nvalid, ab, ab_strides, ao, ao_strides, out, lanes,
-            C, w, O, skip, b, top, q, alpha, beta):
-    global launches, shared_launches, global_launches
+    lanes, O = n_doy * C, ny - 1
     if lanes == 0 or O == 0:
-        return
+        return out
     K = tab.shape[-1]
     tab = tab.contiguous()
     tyear = tyear.to(torch.int32).contiguous()
@@ -317,30 +281,22 @@ def _launch(tab, tyear, nvalid, ab, ab_strides, ao, ao_strides, out, lanes,
         ((K + w) * lanes,), dtype=torch.float32, device=out.device)
     qf = np.float32(q)
     cq = np.float32(q * (1 - alpha - beta) + alpha)
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        err = _function()(
-            tab.data_ptr(), tyear.data_ptr(), nvalid.data_ptr(),
-            ab.data_ptr(), ao.data_ptr(), out.data_ptr(),
-            0 if scratch is None else scratch.data_ptr(), lanes, C, K, w, O,
-            skip, b, int(top), qf, cq, *ab_strides, *ao_strides, stream)
-    if err != 0:
-        raise RuntimeError(f"bootstrap kernel launch failed: CUDA error {err}")
+    sd, sy, ss, sc = samples.stride()
+    # year b is removed (skip b) and every other year of samples added;
+    # the removed samples' strides (doy, window, cell), then the added
+    # ones' (year, doy, window, cell)
+    _build.launch("bootstrap", "xtt_bootstrap", "pppppppqiiiiiiiffqqqqqqq",
+                  out.device, tab.data_ptr(), tyear.data_ptr(),
+                  nvalid.data_ptr(), samples.select(1, b).data_ptr(),
+                  samples.data_ptr(), out.data_ptr(),
+                  0 if scratch is None else scratch.data_ptr(), lanes, C, K,
+                  w, O, b, b, int(top), qf, cq, sd, ss, sc, sy, sd, ss, sc)
     launches += 1
     if shared:
         shared_launches += 1
     else:
         global_launches += 1
-
-
-@functools.cache
-def _function():
-    fn = _build.load("bootstrap").xtt_bootstrap
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong]
-                   + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
-                   + [ctypes.c_longlong] * 7 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    return out
 
 
 def merge_rank_replaced_year_quantile_plain(topv, topyear, botv, botyear,

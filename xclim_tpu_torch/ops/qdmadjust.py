@@ -21,16 +21,16 @@ in shared memory when it fits (:func:`af_in_shared`: up to 95 nodes, or
 both routes are the kernel, counted apart in ``af_shared_launches`` and
 ``af_global_launches``. On a CPU tensor each
 runs its plain PyTorch twin: :func:`qdm_adjust_doy_plain`
-(:func:`~xclim_tpu_torch.sdba.utils.grouped_rank` plus
-:func:`~xclim_tpu_torch.sdba.utils.interp_hat_nodes`), and
-:func:`qdm_adjust_series_plain` (the gather, that, and the scatter).
+(:func:`grouped_rank` plus :func:`interp_hat_nodes`), and
+:func:`qdm_adjust_series_plain` (:func:`gather_groups`, that, and the
+scatter). sdba's adjustments use those three helpers too
+(``xclim_tpu_torch.sdba.utils`` exports them).
 
 ``launches`` and ``twin_calls`` count the calls each path served.
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
@@ -41,7 +41,7 @@ from xclim_tpu_torch.utils.profiling import span
 
 __all__ = ["qdm_adjust_doy", "qdm_adjust_doy_plain", "qdm_adjust_series",
            "qdm_adjust_series_plain", "af_in_shared", "bracket_table",
-           "MAX_Y"]
+           "gather_groups", "grouped_rank", "interp_hat_nodes", "MAX_Y"]
 
 #: calls of qdm_adjust_doy and qdm_adjust_series that ran on the card
 launches = 0
@@ -184,13 +184,10 @@ def _launch(x, rows, af, q, kind, out, n_doy, Y, C):
     a = af.contiguous()
     brk = _device_brackets(q.tobytes(), Y, x.device)
     shared = af_in_shared(len(q), Y)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _function()(x.data_ptr(), 0 if rows is None else rows.data_ptr(),
-                          a.data_ptr(), brk.data_ptr(), out.data_ptr(), n_doy,
-                          Y, C, len(q), int(kind == "*"), int(shared), stream)
-    if err != 0:
-        raise RuntimeError(f"qdmadjust kernel launch failed: CUDA error {err}")
+    _build.launch("qdmadjust", "xtt_qdmadjust", "pppppiiiiii", x.device,
+                  x.data_ptr(), 0 if rows is None else rows.data_ptr(),
+                  a.data_ptr(), brk.data_ptr(), out.data_ptr(), n_doy, Y, C,
+                  len(q), int(kind == "*"), int(shared))
     launches += 1
     if shared:
         af_shared_launches += 1
@@ -200,27 +197,14 @@ def _launch(x, rows, af, q, kind, out, n_doy, Y, C):
 
 @functools.lru_cache(maxsize=64)
 def _device_brackets(q: bytes, Y: int, device: torch.device) -> torch.Tensor:
-    """bracket_table on the device, built and copied once per node set and
-    Y: a copy from host memory on every call would wait for the device
-    each time."""
+    """bracket_table on the device, built once per node set and Y."""
     table = bracket_table(np.frombuffer(q, dtype=np.float32), Y)
-    return torch.from_numpy(table).to(device)
-
-
-@functools.cache
-def _function():
-    fn = _build.load("qdmadjust").xtt_qdmadjust
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.device_copy(table.tobytes(), torch.int32, device)
 
 
 def qdm_adjust_doy_plain(xd: torch.Tensor, af: torch.Tensor, q,
                          kind: str = "+") -> torch.Tensor:
     """Plain PyTorch twin: grouped_rank + interp_hat_nodes, on xd's device."""
-    from xclim_tpu_torch.sdba.utils import grouped_rank, interp_hat_nodes
-
     nvalid = (~torch.isnan(xd)).sum(dim=1)
     tau = grouped_rank(xd, nvalid)
     af_v = interp_hat_nodes(tau, q, af)
@@ -233,10 +217,92 @@ def qdm_adjust_series_plain(xf2: torch.Tensor, table: torch.Tensor,
     """Plain PyTorch twin of :func:`qdm_adjust_series`, on xf2's device:
     the group gather, :func:`qdm_adjust_doy_plain`, and the scatter of each
     result to its own time step."""
-    from xclim_tpu_torch.sdba.utils import gather_groups
-
     res = qdm_adjust_doy_plain(gather_groups(xf2, table), af, q, kind)
     ok = table >= 0
     out = torch.empty_like(xf2)
     out[table[ok]] = res[ok]
     return out
+
+
+def gather_groups(xf: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Group-gather a time-first tensor with an integer table, NaN-padding
+    the -1 slots. xf: (T, ...); table: (G, ms) → (G, ms, ...)."""
+    g = xf[table.clamp(min=0)]
+    ok = (table >= 0).reshape(tuple(table.shape) + (1,) * (g.ndim - 2))
+    return torch.where(ok, g, torch.nan)
+
+
+def grouped_rank(sim_g: torch.Tensor, nvalid: torch.Tensor) -> torch.Tensor:
+    """Empirical pct rank of each sample within its group (xsdba.utils.rank).
+
+    sim_g: (G, ms, C) group-gathered values (NaN padded). Returns same-shape
+    ranks in (0, 1]: rank = #(group ≤ v) / n_valid (max rank 1.0).
+
+    Two formulations sharing the same tie semantics (upper count):
+
+    * small groups (ms <= 128, the windowless adjust tables): a
+      compare-count #(group <= v), accumulated one group member at a time;
+    * large groups: one stable sort yields the permutation; the tie-run
+      upper bound comes from a flipped cummin over the run ends; a scatter
+      through the permutation un-sorts the counts.
+    """
+    ms = sim_g.shape[-2]
+    n = torch.clamp(nvalid.unsqueeze(-2), min=1).to(torch.float32)
+    if ms <= 128:
+        cnt = torch.zeros(sim_g.shape, dtype=torch.int32, device=sim_g.device)
+        for j in range(ms):
+            cnt += sim_g[..., j:j + 1, :] <= sim_g
+        return cnt.to(torch.float32) / n
+    # NaNs sort last and never equal anything → their counts are inert
+    S, perm = torch.sort(sim_g, dim=-2, stable=True)
+    nxt_same = torch.cat([S[..., 1:, :] == S[..., :-1, :],
+                          torch.zeros_like(S[..., :1, :], dtype=torch.bool)],
+                         dim=-2)
+    # #(group ≤ S[j]) = end of j's tie run + 1: the nearest run end at or
+    # after j, by a reverse cummin over the run-end positions
+    pos = torch.arange(1, ms + 1, dtype=torch.int64,
+                       device=sim_g.device)[:, None]
+    base = torch.where(nxt_same, torch.iinfo(torch.int64).max, pos)
+    u = torch.flip(torch.cummin(torch.flip(base, dims=(-2,)), dim=-2).values,
+                   dims=(-2,))
+    cnt = torch.empty_like(u).scatter_(-2, perm, u)
+    return cnt.to(torch.float32) / n
+
+
+def _take_nodes(nodes: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """nodes (..., nq, C) at per-element node index idx (..., ms, C)."""
+    shape = torch.broadcast_shapes(tuple(nodes.shape[:-2]),
+                                   tuple(idx.shape[:-2]))
+    nodes = nodes.expand(shape + tuple(nodes.shape[-2:]))
+    idx = idx.expand(shape + tuple(idx.shape[-2:]))
+    return nodes.gather(-2, idx)
+
+
+def interp_hat_nodes(tau: torch.Tensor, q, yq: torch.Tensor) -> torch.Tensor:
+    """y(tau) by piecewise-linear interpolation on the SHARED sorted 1-D node
+    vector ``q`` (not necessarily uniform):
+
+        y = Σ_k φ_k(tau) · yq[k],   φ_k the hat on [q_{k-1}, q_k, q_{k+1}]
+
+    tau: (G, ms, C); q: (nq,) strictly increasing; yq: (G, nq, C).
+    Constant extrapolation (clamp into [q₀, q_{nq−1}]). The bracketing node
+    is a comparison count over q; the two bracketing nodes and factors are
+    gathered.
+    """
+    q = torch.as_tensor(q, dtype=torch.float32, device=tau.device)
+    nq = q.shape[0]
+    tc = torch.minimum(torch.maximum(tau, q[0]), q[-1])
+    cnt = torch.zeros(tau.shape, dtype=torch.int64, device=tau.device)
+    for k in range(nq):
+        cnt += q[k] <= tc
+    hi = torch.clamp(cnt, 1, nq - 1)
+    lo = hi - 1
+    x0 = q[lo]
+    x1 = q[hi]
+    y0 = _take_nodes(yq, lo)
+    y1 = _take_nodes(yq, hi)
+    denom = x1 - x0
+    w = (tc - x0) / torch.where(denom == 0, 1.0, denom)
+    w = torch.clamp(w, 0.0, 1.0)
+    out = y0 + w * (y1 - y0)
+    return torch.where(torch.isnan(tau), torch.nan, out)

@@ -96,6 +96,30 @@ def nan_quantile_plain(x: torch.Tensor, q, axis: int = -1, alpha: float = 1.0,
     return out.movedim(-1, 0)
 
 
+def _nanvar(x, axis=None):
+    """Population variance (ddof=0) of the valid values, as ``jnp.nanvar``."""
+    dims = axis if axis is not None else tuple(range(x.ndim))
+    mu = torch.nanmean(x, dim=dims, keepdim=True)
+    return torch.nanmean((x - mu) ** 2, dim=dims)
+
+
+def _nanstd(x, axis=None):
+    return torch.sqrt(_nanvar(x, axis))
+
+
+def _nanmedian(x, axis=None):
+    """Mean of the two middle values, as ``jnp.nanmedian`` (torch's own
+    ``nanmedian`` returns the lower one)."""
+    if axis is None:
+        return nan_quantile(x.reshape(-1), [0.5], axis=0)[0]
+    if isinstance(axis, tuple):
+        keep = [d for d in range(x.ndim) if d not in axis]
+        x = x.permute(keep + list(axis)).reshape(
+            [x.shape[d] for d in keep] + [-1])
+        axis = -1
+    return nan_quantile(x, [0.5], axis=axis)[0]
+
+
 def nan_percentile(x, percentiles, axis: int = -1, alpha: float = 1.0,
                    beta: float = 1.0):
     """Percentile variant (0-100), quantile axis moved to the END

@@ -39,9 +39,8 @@ import numpy as np
 import torch
 
 from xclim_tpu_torch.core.calendar import SegmentSpec
-from xclim_tpu_torch.core.dataarray import _nanmedian, _nanstd
 from xclim_tpu_torch.ops import spells
-from xclim_tpu_torch.ops.quantile import nan_quantile
+from xclim_tpu_torch.ops.quantile import _nanmedian, _nanstd, nan_quantile
 from xclim_tpu_torch.ops.segments import (
     _segments_contiguous,
     build_gather_table,

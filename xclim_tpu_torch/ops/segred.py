@@ -17,9 +17,6 @@ with the NaN rules of the reference's ``segment_reduce`` (skipna=True):
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import numpy as np
 import torch
 
@@ -45,14 +42,6 @@ SUPPORTED_OPS = {
 #: op codes of csrc/segred.cu
 _OP_CODES = {"count": 0, "sum": 1, "mean": 2, "min": 3, "max": 4, "var": 5,
              "std": 6}
-
-
-@functools.lru_cache(maxsize=64)
-def _device_bounds(starts: bytes, counts: bytes, device: torch.device):
-    """The bounds as int32 tensors on the device, copied once per spec (a
-    copy from host memory would wait for the device on every call)."""
-    return (torch.frombuffer(bytearray(starts), dtype=torch.int32).to(device),
-            torch.frombuffer(bytearray(counts), dtype=torch.int32).to(device))
 
 
 def _check(x2: torch.Tensor, starts, counts, op: str):
@@ -95,29 +84,18 @@ def segment_reduce_onepass(x2: torch.Tensor, starts, counts,
         x = x2.contiguous()
         C = x.shape[1]
         nseg = len(starts)
-        st, ct = _device_bounds(starts.astype(np.int32).tobytes(),
-                                counts.astype(np.int32).tobytes(), x.device)
+        st, ct = (_build.device_copy(a.astype(np.int32).tobytes(),
+                                     torch.int32, x.device)
+                  for a in (starts, counts))
         dtype = torch.int32 if op == "count" else torch.float32
         out = torch.empty((nseg, C), dtype=dtype, device=x.device)
         if out.numel() == 0:
             return out
-        fn = _function()
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = fn(x.data_ptr(), st.data_ptr(), ct.data_ptr(), out.data_ptr(),
-                     nseg, C, _OP_CODES[op], stream)
-        if err != 0:
-            raise RuntimeError(f"segred kernel launch failed: CUDA error {err}")
+        _build.launch("segred", "xtt_segred", "ppppiii", x.device,
+                      x.data_ptr(), st.data_ptr(), ct.data_ptr(),
+                      out.data_ptr(), nseg, C, _OP_CODES[op])
         launches += 1
         return out
-
-
-def _function():
-    lib = _build.load("segred")
-    fn = lib.xtt_segred
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def segment_reduce_onepass_plain(x2: torch.Tensor, starts, counts,

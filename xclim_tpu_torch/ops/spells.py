@@ -29,14 +29,12 @@ calls the twin served.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import numpy as np
 import torch
 
 from xclim_tpu_torch.ops import _build
-from xclim_tpu_torch.ops.segred import _device_bounds
 from xclim_tpu_torch.utils.profiling import span
 
 __all__ = ["OPS", "spell_stats", "spell_stats_plain", "time_parts"]
@@ -138,21 +136,18 @@ def spell_stats(x: torch.Tensor, starts, counts, window: int, op=None,
                 for _ in range(4)]
         if B * nseg * C == 0:
             return tuple(restore(o.zero_()) for o in outs)
-        st, ct = _device_bounds(starts.astype(np.int32).tobytes(),
-                                counts.astype(np.int32).tobytes(), v.device)
+        st, ct = (_build.device_copy(a.astype(np.int32).tobytes(),
+                                     torch.int32, v.device)
+                  for a in (starts, counts))
         code = _MASK if op is None else OPS[op]
         nparts = time_parts(B, nseg, C, counts)
         scratch = torch.empty((6 * B * nseg * nparts * C if nparts > 1 else 0,),
                               dtype=torch.int32, device=v.device)
-        fn = _function()
-        with torch.cuda.device(v.device):
-            stream = torch.cuda.current_stream(v.device).cuda_stream
-            err = fn(v.data_ptr(), code, float(thresh or 0.0), int(window),
-                     st.data_ptr(), ct.data_ptr(), *(o.data_ptr() for o in outs),
-                     B, T, nseg, C, nparts,
-                     scratch.data_ptr() if nparts > 1 else None, stream)
-        if err != 0:
-            raise RuntimeError(f"spells kernel launch failed: CUDA error {err}")
+        _build.launch("spells", "xtt_spells_parts", "pifippppppqiiiip",
+                      v.device, v.data_ptr(), code, float(thresh or 0.0),
+                      int(window), st.data_ptr(), ct.data_ptr(),
+                      *(o.data_ptr() for o in outs), B, T, nseg, C, nparts,
+                      scratch.data_ptr() if nparts > 1 else None)
         launches += 1
         return tuple(restore(o) for o in outs)
 
@@ -166,18 +161,6 @@ def time_parts(B: int, nseg: int, C: int, counts) -> int:
         return 1
     longest = int(np.max(counts)) if len(counts) else 0
     return max(1, min(-(-SPLIT_THREADS // rows), longest // SPLIT_DAYS))
-
-
-def _function():
-    lib = _build.load("spells")
-    fn = lib.xtt_spells_parts
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int]
-                   + [ctypes.c_void_p] * 6
-                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                      ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def spell_stats_plain(x: torch.Tensor, starts, counts, window: int, op=None,

@@ -41,9 +41,6 @@ card.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from xclim_tpu_torch.ops import _build
@@ -169,7 +166,8 @@ def _launch(xg, q, window, alpha, beta, stage):
     qv, coff = _node_constants(q, alpha, beta)
     nq = len(qv)
     x = xg.contiguous()
-    qv_d, co_d = _device_nodes(qv.tobytes(), coff.tobytes(), x.device)
+    qv_d, co_d = (_build.device_copy(a.tobytes(), torch.float32, x.device)
+                  for a in (qv, coff))
     shape = (n_doy, nq, C) if stage in (None, 2) else (n_doy, C)
     out = torch.empty(shape, dtype=torch.float32, device=x.device)
     if out.numel() == 0:
@@ -181,56 +179,19 @@ def _launch(xg, q, window, alpha, beta, stage):
     presorted = torch.empty((0,) if full_sort else (n_doy, C, Y),
                             dtype=torch.float32, device=x.device)
     # windows past MAX_P2 keep their sorted rows in global scratch
-    scratch_n = _scratch_function()(n_doy, Y, C, window, nchunk)
+    scratch_n = _build.function("winquantile", "xtt_winquantile_scratch",
+                                "iiiii", "q")(n_doy, Y, C, window, nchunk)
     scratch = torch.empty((scratch_n,), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        args = (x.data_ptr(), presorted.data_ptr(), scratch.data_ptr(),
-                out.data_ptr(), qv_d.data_ptr(), co_d.data_ptr(), n_doy, Y,
-                C, window, nq, nchunk, scratch_n)
-        if stage is None:
-            err = _function()(*args, stream)
-        else:
-            err = _stage_function()(*args, stage, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"winquantile kernel launch failed: CUDA error {err}")
+    args = (x.data_ptr(), presorted.data_ptr(), scratch.data_ptr(),
+            out.data_ptr(), qv_d.data_ptr(), co_d.data_ptr(), n_doy, Y, C,
+            window, nq, nchunk, scratch_n)
+    if stage is None:
+        _build.launch("winquantile", "xtt_winquantile", "ppppppiiiiiiq",
+                      x.device, *args)
+    else:
+        _build.launch("winquantile_stages", "xtt_winquantile_stages",
+                      "ppppppiiiiiiqi", x.device, *args, stage)
     return out
-
-
-@functools.lru_cache(maxsize=64)
-def _device_nodes(qv: bytes, coff: bytes, device: torch.device):
-    """The node constants on the device, copied once per node set: a copy
-    from host memory on every call would wait for the device each time."""
-    return (torch.frombuffer(bytearray(qv), dtype=torch.float32).to(device),
-            torch.frombuffer(bytearray(coff), dtype=torch.float32).to(device))
-
-
-_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_longlong]
-
-
-@functools.cache
-def _scratch_function():
-    fn = _build.load("winquantile").xtt_winquantile_scratch
-    fn.argtypes = [ctypes.c_int] * 5
-    fn.restype = ctypes.c_longlong
-    return fn
-
-
-@functools.cache
-def _function():
-    fn = _build.load("winquantile").xtt_winquantile
-    fn.argtypes = _ARGS + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.cache
-def _stage_function():
-    fn = _build.load("winquantile_stages").xtt_winquantile_stages
-    fn.argtypes = _ARGS + [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def _window_rows(n_doy: int, window: int, device) -> torch.Tensor:

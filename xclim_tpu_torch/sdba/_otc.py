@@ -13,7 +13,8 @@ from __future__ import annotations
 
 import torch
 
-from xclim_tpu_torch.core.dataarray import ClimArray, _nanmedian, _nanstd
+from xclim_tpu_torch.core.dataarray import ClimArray
+from xclim_tpu_torch.ops.quantile import _nanmedian, _nanstd
 from xclim_tpu_torch.sdba.utils import generator_or_default
 
 __all__ = ["OTC", "dOTC", "optimal_transport_plan"]

@@ -14,8 +14,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from xclim_tpu_torch.core.dataarray import ClimArray, _nanstd, _nanvar
+from xclim_tpu_torch.core.dataarray import ClimArray
 from xclim_tpu_torch.core.units import convert_units_to, str2pint
+from xclim_tpu_torch.ops.quantile import _nanstd, _nanvar
 from xclim_tpu_torch.sdba.grouping import Grouper
 from xclim_tpu_torch.sdba.utils import gather_groups
 

@@ -14,6 +14,12 @@ import numpy as np
 import torch
 
 from xclim_tpu_torch.ops import winquantile
+from xclim_tpu_torch.ops.qdmadjust import (
+    _take_nodes,
+    gather_groups,
+    grouped_rank,
+    interp_hat_nodes,
+)
 from xclim_tpu_torch.ops.quantile import nan_quantile
 from xclim_tpu_torch.utils.profiling import count, span
 
@@ -55,14 +61,6 @@ def grouped_quantile(da, grouper, q, alpha: float = 1.0,
     out = nan_quantile(g, np.asarray(q, dtype=np.float32), axis=1,
                        alpha=alpha, beta=beta)            # (nq, G, ...)
     return out.movedim(0, 1)
-
-
-def gather_groups(xf: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """Group-gather a time-first tensor with an integer table, NaN-padding
-    the -1 slots. xf: (T, ...); table: (G, ms) → (G, ms, ...)."""
-    g = xf[table.clamp(min=0)]
-    ok = (table >= 0).reshape(tuple(table.shape) + (1,) * (g.ndim - 2))
-    return torch.where(ok, g, torch.nan)
 
 
 def gather_doy_slices(xf: torch.Tensor, doy_table: torch.Tensor) -> torch.Tensor:
@@ -140,79 +138,3 @@ def interp_on_quantiles(x: torch.Tensor, xq: torch.Tensor, yq: torch.Tensor,
         w = torch.clamp(w, 0.0, 1.0)
     y = y0 + w * (y1 - y0)
     return torch.where(torch.isnan(x), torch.nan, y)
-
-
-def _take_nodes(nodes: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """nodes (..., nq, C) at per-element node index idx (..., ms, C)."""
-    shape = torch.broadcast_shapes(tuple(nodes.shape[:-2]),
-                                   tuple(idx.shape[:-2]))
-    nodes = nodes.expand(shape + tuple(nodes.shape[-2:]))
-    idx = idx.expand(shape + tuple(idx.shape[-2:]))
-    return nodes.gather(-2, idx)
-
-
-def grouped_rank(sim_g: torch.Tensor, nvalid: torch.Tensor) -> torch.Tensor:
-    """Empirical pct rank of each sample within its group (xsdba.utils.rank).
-
-    sim_g: (G, ms, C) group-gathered values (NaN padded). Returns same-shape
-    ranks in (0, 1]: rank = #(group ≤ v) / n_valid (max rank 1.0).
-
-    Two formulations sharing the same tie semantics (upper count):
-
-    * small groups (ms <= 128, the windowless adjust tables): a
-      compare-count #(group <= v), accumulated one group member at a time;
-    * large groups: one stable sort yields the permutation; the tie-run
-      upper bound comes from a flipped cummin over the run ends; a scatter
-      through the permutation un-sorts the counts.
-    """
-    ms = sim_g.shape[-2]
-    n = torch.clamp(nvalid.unsqueeze(-2), min=1).to(torch.float32)
-    if ms <= 128:
-        cnt = torch.zeros(sim_g.shape, dtype=torch.int32, device=sim_g.device)
-        for j in range(ms):
-            cnt += sim_g[..., j:j + 1, :] <= sim_g
-        return cnt.to(torch.float32) / n
-    # NaNs sort last and never equal anything → their counts are inert
-    S, perm = torch.sort(sim_g, dim=-2, stable=True)
-    nxt_same = torch.cat([S[..., 1:, :] == S[..., :-1, :],
-                          torch.zeros_like(S[..., :1, :], dtype=torch.bool)],
-                         dim=-2)
-    # #(group ≤ S[j]) = end of j's tie run + 1: the nearest run end at or
-    # after j, by a reverse cummin over the run-end positions
-    pos = torch.arange(1, ms + 1, dtype=torch.int64,
-                       device=sim_g.device)[:, None]
-    base = torch.where(nxt_same, torch.iinfo(torch.int64).max, pos)
-    u = torch.flip(torch.cummin(torch.flip(base, dims=(-2,)), dim=-2).values,
-                   dims=(-2,))
-    cnt = torch.empty_like(u).scatter_(-2, perm, u)
-    return cnt.to(torch.float32) / n
-
-
-def interp_hat_nodes(tau: torch.Tensor, q, yq: torch.Tensor) -> torch.Tensor:
-    """y(tau) by piecewise-linear interpolation on the SHARED sorted 1-D node
-    vector ``q`` (not necessarily uniform):
-
-        y = Σ_k φ_k(tau) · yq[k],   φ_k the hat on [q_{k-1}, q_k, q_{k+1}]
-
-    tau: (G, ms, C); q: (nq,) strictly increasing; yq: (G, nq, C).
-    Constant extrapolation (clamp into [q₀, q_{nq−1}]). The bracketing node
-    is a comparison count over q; the two bracketing nodes and factors are
-    gathered.
-    """
-    q = torch.as_tensor(q, dtype=torch.float32, device=tau.device)
-    nq = q.shape[0]
-    tc = torch.minimum(torch.maximum(tau, q[0]), q[-1])
-    cnt = torch.zeros(tau.shape, dtype=torch.int64, device=tau.device)
-    for k in range(nq):
-        cnt += q[k] <= tc
-    hi = torch.clamp(cnt, 1, nq - 1)
-    lo = hi - 1
-    x0 = q[lo]
-    x1 = q[hi]
-    y0 = _take_nodes(yq, lo)
-    y1 = _take_nodes(yq, hi)
-    denom = x1 - x0
-    w = (tc - x0) / torch.where(denom == 0, 1.0, denom)
-    w = torch.clamp(w, 0.0, 1.0)
-    out = y0 + w * (y1 - y0)
-    return torch.where(torch.isnan(tau), torch.nan, out)

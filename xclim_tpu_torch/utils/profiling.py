@@ -21,16 +21,12 @@ operations and kernels launched inside it. While tracing is on,
 ``torch.cuda.set_sync_debug_mode("warn")`` makes every synchronizing CUDA
 call warn; the warnings are counted (``host_syncs``) and not shown.
 
-Counters. Beside ``host_syncs``, the program counts with :func:`count` how
-it took a path that depends on its input: ``bootstrap_sliced`` and
-``bootstrap_whole``, the bootstrap's recounts of an in-base year over the
-days of that year's periods alone or over the whole series; and
-``eqm_node_passes``, the passes over the gathered values that the
-bracketing among the quantile nodes makes (``interp_on_quantiles`` in
-``sdba/utils.py``: one a node, 52 an EQM or DQM adjust at 50 quantiles).
-Each count goes to the block's total and to the innermost open span's
-record, as a sync does, and is an empty ``xtt:<name>`` range on a
-profiler's clock, so that a trace holds it too.
+Counters. Beside ``host_syncs``, the program counts with :func:`count`,
+under any name, how it took a path that depends on its input (the
+callers name their own counters). Each count goes to the block's total
+and to the innermost open span's record, as a sync does, and is an empty
+``xtt:<name>`` range on a profiler's clock, so that a trace holds it too.
+A counter never counted reads 0.
 
 Operator use::
 
@@ -49,6 +45,7 @@ Spans, and the sync counter, assume one host thread calls the program.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import os
@@ -62,9 +59,6 @@ __all__ = ["Trace", "count", "profile", "span", "timed", "tracing"]
 PREFIX = "xtt:"
 #: the start of the warning torch gives for a synchronizing CUDA call
 SYNC_WARNING = "called a synchronizing CUDA operation"
-#: the program's counters, each kept for the block and for every span
-COUNTERS = ("host_syncs", "bootstrap_sliced", "bootstrap_whole",
-            "eqm_node_passes")
 
 #: the Trace collecting while :func:`tracing` is on, else None
 _trace = None
@@ -77,21 +71,27 @@ class Trace:
 
     ``spans``: one record a span, in the order they opened: {"name", "id",
     "parent" (None at the outermost), "root" (the outermost span's id, shared
-    by the spans of one public call), "start_ns", "end_ns", and each of
-    :data:`COUNTERS` made while it was the innermost span}.
-    ``counters``: each of :data:`COUNTERS` over the block, inside a span or
-    not.
+    by the spans of one public call), "start_ns", "end_ns", "host_syncs",
+    and each counter counted while it was the innermost span}.
+    ``counters``: each counter over the block, inside a span or not. Both
+    read 0 for a counter never counted.
     """
 
     def __init__(self):
         self.spans: list[dict] = []
-        self.counters = dict.fromkeys(COUNTERS, 0)
+        self.counters = _counts()
         self._open: list[dict] = []
 
     def _count(self, name: str) -> None:
         self.counters[name] += 1
         if self._open:
             self._open[-1][name] += 1
+
+
+def _counts(**fields) -> collections.defaultdict:
+    """``fields`` and counters that read 0 until counted, ``host_syncs``
+    always present."""
+    return collections.defaultdict(int, host_syncs=0, **fields)
 
 
 def _decorate(name: str, fn):
@@ -134,12 +134,11 @@ class _Span(_Off):
         t = self.trace
         parent = t._open[-1] if t._open else None
         sid = len(t.spans) + 1
-        self.record = rec = {
-            "name": self.name, "id": sid,
-            "parent": parent["id"] if parent else None,
-            "root": parent["root"] if parent else sid,
-            "start_ns": time.perf_counter_ns(), "end_ns": None,
-            **dict.fromkeys(COUNTERS, 0)}
+        self.record = rec = _counts(
+            name=self.name, id=sid,
+            parent=parent["id"] if parent else None,
+            root=parent["root"] if parent else sid,
+            start_ns=time.perf_counter_ns(), end_ns=None)
         t.spans.append(rec)
         t._open.append(rec)
         self._range = torch.profiler.record_function(PREFIX + self.name)
@@ -164,7 +163,7 @@ def span(name: str):
 
 
 def count(name: str) -> None:
-    """Add one to the program's counter ``name`` (one of :data:`COUNTERS`)
+    """Add one to the program's counter ``name`` (any name)
     inside :func:`tracing`: to the block's total and to the innermost open
     span's record, and as an empty ``xtt:<name>`` range to a profiler
     running then. Does nothing outside :func:`tracing`."""
