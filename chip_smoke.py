@@ -63,9 +63,11 @@ shapes are the card tests', ``tests/test_torch_kernels_cuda.py``):
     hist, group=Grouper("time.dayofyear", 31), nquantiles=50,
     kind="+").adjust(sim)``, 128 x 128 cells, 30 noleap years, QDM's series
     with +0.03 K a year added to sim), checks that the train launched
-    winquantile twice and no twin, that scen is finite where sim is and
-    keeps each cell's trend, holds winquantile against its twin at the
-    scaled hist, times train and adjust and profiles the adjust;
+    winquantile twice and the adjust eqmadjust once, and no twin, that scen
+    is finite where sim is and keeps each cell's trend, holds winquantile
+    against its twin at the scaled hist and eqmadjust against its twin at
+    sim and the trained state (timed), times train and adjust and profiles
+    the adjust;
 13. runs DQM on a 32 x 32 crop with CPU tensors and on the card and
     compares af, hist_q, scaling and scen;
 14. runs the rest of sdba once each at the sizes users run and holds each
@@ -386,7 +388,9 @@ EXTRA_COUNTS = {"winquantile_stages": ("winquantile", "stage_launches"),
                 "axisquantile_staged": ("axisquantile", "staged_launches"),
                 "axisquantile_direct": ("axisquantile", "direct_launches"),
                 "bootstrap_shared": ("bootstrap", "shared_launches"),
-                "bootstrap_global": ("bootstrap", "global_launches")}
+                "bootstrap_global": ("bootstrap", "global_launches"),
+                "eqmadjust_shared": ("eqmadjust", "shared_launches"),
+                "eqmadjust_global": ("eqmadjust", "global_launches")}
 
 
 def _counts():
@@ -530,6 +534,10 @@ def phase_slice(device, card, record):
     if (after["winquantile"] - before["winquantile"] != 2
             or after["winquantile_twin"] != before["winquantile_twin"]):
         raise AssertionError(f"EQM train missed the kernel: {before} -> {after}")
+    if (after["eqmadjust"] - before["eqmadjust"] != 1
+            or after["eqmadjust_twin"] != before["eqmadjust_twin"]):
+        raise AssertionError(f"EQM adjust missed the kernel: {before} -> "
+                             f"{after}")
     if not bool(torch.isfinite(eout.data).all()):
         raise AssertionError("non-finite EQM output")
     _log(f"[slice] EQM train+adjust {cells} cells: {eqm_s:.4f} s (one run), "
@@ -2047,10 +2055,12 @@ def _slopes(da):
 def phase_dqm(device, card, record):
     """DQM at config 4's width: train on ref and hist, adjust a sim with a
     planted trend; launch counts, finiteness, the trend kept, times, peak
-    memory; winquantile held against its twin at the scaled hist."""
+    memory; winquantile held against its twin at the scaled hist, eqmadjust
+    at sim."""
     import torch
 
-    from xclim_tpu_torch.ops import winquantile
+    from perfbench import roofline
+    from xclim_tpu_torch.ops import eqmadjust, winquantile
     from xclim_tpu_torch.sdba import Grouper
     from xclim_tpu_torch.sdba.adjustment import _apply_kind
     from xclim_tpu_torch.sdba.utils import gather_doy_slices
@@ -2070,9 +2080,12 @@ def phase_dqm(device, card, record):
     peak = (torch.cuda.max_memory_allocated() - base) / 2**30
     _log(f"[dqm] launch counts of one DQM train+adjust at {cells} cells: "
          f"{json.dumps(counts)}")
-    if counts != dict({k: 0 for k in counts}, winquantile=2):
-        raise AssertionError(f"DQM did not train on the kernel: {counts}")
+    if counts != dict({k: 0 for k in counts}, winquantile=2, eqmadjust=1,
+                      eqmadjust_shared=1):
+        raise AssertionError(f"DQM did not run on the kernels: {counts}")
     record["winquantile"]["paths"]["dqm train"] = counts["winquantile"]
+    record["eqmadjust"]["paths"]["dqm adjust"] = counts["eqmadjust"]
+    record["eqmadjust"]["launches"] = counts["eqmadjust"]
 
     sim = series["sim"].data
     if tuple(out.shape) != tuple(sim.shape) or out.data.device != device:
@@ -2108,6 +2121,31 @@ def phase_dqm(device, card, record):
     record["winquantile"]["max_abs_err"] = max(
         record["winquantile"]["max_abs_err"], err)
     del xh, xd
+
+    # eqmadjust against its twin at the trained state, on sim itself (the
+    # adjust runs it on the detrended sim: the same shapes)
+    table = grp.device_adjust_table(series["sim"].time, device)[0]
+    xf2 = sim.reshape(T, -1)
+    hq, af = (adj.ds[k].reshape(adj.ds[k].shape[0], adj.ds[k].shape[1], -1)
+              for k in ("hist_q", "af"))
+    args = (xf2, table, hq, af)
+    err = _compare(f"eqmadjust at DQM's series {tuple(xf2.shape)}",
+                   eqmadjust.eqm_adjust_series(*args),
+                   eqmadjust.eqm_adjust_series_plain(*args), rtol=0.0,
+                   atol=0.0)
+    ms = _cuda_ms(lambda: eqmadjust.eqm_adjust_series(*args), 10)
+    pms = _cuda_ms(lambda: eqmadjust.eqm_adjust_series_plain(*args), 1)
+    # bound: the series, the table, hist_q and af read once, the result
+    # written once; operations: each value against each node
+    record["eqmadjust"].update(
+        max_abs_err=err, ms=ms, plain_ms=pms,
+        **roofline.bound((2 * xf2.numel() + hq.numel() + af.numel()) * 4
+                         + table.numel() * 8, float(xf2.numel() * hq.shape[1])))
+    _log(f"[kernel vs twin] eqmadjust at DQM's series {tuple(xf2.shape)} "
+         f"through a {tuple(table.shape)} table, {hq.shape[1]} nodes on "
+         f"{card}: value-equal; kernel_ms={ms:.3f} twin_ms={pms:.3f} "
+         f"bound_ms={record['eqmadjust']['bound_ms']:.4f}")
+    del args, xf2, hq, af
 
     train_s, adjust_s = [], []
     for _ in range(4):   # a warm-up, then 3
@@ -2149,7 +2187,8 @@ def phase_dqm_cpu_vs_card(full):
     torch.cuda.synchronize()
     after = _counts()
     d = {k: after[k] - before[k] for k in after}
-    if d != dict({k: 0 for k in d}, winquantile=2, winquantile_twin=2):
+    if d != dict({k: 0 for k in d}, winquantile=2, winquantile_twin=2,
+                 eqmadjust=1, eqmadjust_twin=1, eqmadjust_shared=1):
         raise AssertionError(f"CPU run must use the twins, the card the "
                              f"kernels: {d}")
     errs = {

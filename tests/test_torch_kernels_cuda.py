@@ -142,7 +142,7 @@ def test_qdm_train_over_the_window_limit_on_the_card(cuda):
 def test_dqm_trains_on_the_kernel_and_matches_the_twin(cuda, years, cells):
     """DQM's train runs winquantile twice on the card (ref and the scaled
     hist; w31 x 300 years takes the global-scratch instance) and agrees
-    with the CPU twins; its adjust agrees too."""
+    with the CPU twins; its adjust (one eqmadjust launch) agrees too."""
     from xclim_tpu_torch.core.dataarray import ClimArray
     from xclim_tpu_torch.sdba import DetrendedQuantileMapping, Grouper
 
@@ -162,14 +162,19 @@ def test_dqm_trains_on_the_kernel_and_matches_the_twin(cuda, years, cells):
             nquantiles=50, kind="+")
         return adj, adj.adjust(arrays["sim"])
 
+    from xclim_tpu_torch.ops import eqmadjust
+
     shared = winquantile.window_in_shared(31, years)
     counts = (winquantile.launches, winquantile.global_launches,
               winquantile.twin_calls)
+    eqm_counts = (eqmadjust.launches, eqmadjust.twin_calls)
     got, out = run(cuda)
     torch.cuda.synchronize()
     assert (winquantile.launches, winquantile.global_launches,
             winquantile.twin_calls) == (
         counts[0] + 2, counts[1] + (0 if shared else 2), counts[2])
+    assert (eqmadjust.launches, eqmadjust.twin_calls) == (eqm_counts[0] + 1,
+                                                          eqm_counts[1])
     ref, ref_out = run("cpu")
     # scaling is a difference of ~290 K window means summed in another
     # order on the two devices (1e-6 of each, absolute); hist_q (the
@@ -399,6 +404,125 @@ def test_qdmadjust_rejects_too_many_years(cuda):
     af = torch.zeros(3, len(Q), 4, device=cuda)
     with pytest.raises(ValueError, match="year slots"):
         qdmadjust.qdm_adjust_doy(xd, af, Q)
+
+
+def _eqm_series(calendar, group, years, C, nq, kind, device):
+    """A (T, C) K-scale series, its adjust table and (G, nq, C) nodes and
+    factors: cell 0 all NaN, cell 1 an all-NaN node column, cell 2 tied
+    nodes (3 K steps: denom 0), cell 3 values beyond both end nodes, cell 4
+    +-inf, cell 5 its top nodes NaN; the rest 10 % missing."""
+    from xclim_tpu_torch.sdba import Grouper
+
+    t = date_range("1981-01-01", periods=years * 365 + years // 4,
+                   calendar=calendar)
+    table = Grouper(group).device_adjust_table(t, device)[0]
+    rng = np.random.default_rng(years * nq + C)
+    x = rng.normal(289.0, 6.0, (len(t), C)).astype(np.float32)
+    x[rng.random(x.shape) < 0.1] = np.nan
+    hq = np.sort(rng.normal(289.0, 6.0, (table.shape[0], nq, C)), axis=1)
+    af = rng.normal(0.0, 2.0, (table.shape[0], nq, C))
+    if kind == "*":
+        af = 1.0 + 0.01 * af
+    x[:, 0] = np.nan
+    hq[:, :, 1] = np.nan
+    hq[:, :, 2] = np.round(hq[:, :, 2] / 3.0) * 3.0
+    x[::2, 3] = 400.0
+    x[1::2, 3] = 200.0
+    x[::3, 4] = np.inf
+    x[1::3, 4] = -np.inf
+    hq[:, nq // 2:, 5] = np.nan
+    return (torch.as_tensor(x, device=device), table,
+            torch.as_tensor(hq.astype(np.float32), device=device),
+            torch.as_tensor(af.astype(np.float32), device=device))
+
+
+# doy tables (365, 30) and (366, 30), month groups (12, 310) and the whole
+# series as one group (1, 1825: two spans of slots); 3 and 52 nodes stage
+# the node tiles in shared memory (52 past the 48 KB without the opt-in),
+# 500 read them from global memory; 133 cells: two full blocks and a part
+@pytest.mark.parametrize("extrapolation", ["constant", "nan"])
+@pytest.mark.parametrize("kind", ["+", "*"])
+@pytest.mark.parametrize("nq", [3, 52, 500])
+@pytest.mark.parametrize("calendar,group,years", [
+    ("noleap", "time.dayofyear", 30), ("standard", "time.dayofyear", 30),
+    ("noleap", "time.month", 10), ("noleap", "time", 5)])
+def test_eqmadjust_kernel_matches_twin(cuda, calendar, group, years, nq, kind,
+                                       extrapolation):
+    from xclim_tpu_torch.ops import eqmadjust
+
+    xf, table, hq, af = _eqm_series(calendar, group, years, 133, nq, kind,
+                                    cuda)
+    counts = (eqmadjust.launches, eqmadjust.shared_launches,
+              eqmadjust.global_launches, eqmadjust.twin_calls)
+    got = eqmadjust.eqm_adjust_series(xf, table, hq, af, kind, extrapolation)
+    torch.cuda.synchronize()
+    shared = nq < 500
+    assert eqmadjust.tables_in_shared(nq) == shared
+    assert (eqmadjust.launches, eqmadjust.shared_launches,
+            eqmadjust.global_launches, eqmadjust.twin_calls) == (
+        counts[0] + 1, counts[1] + shared, counts[2] + (not shared),
+        counts[3])
+    exp = eqmadjust.eqm_adjust_series_plain(*(a.cpu() for a in (xf, table, hq,
+                                                                af)),
+                                            kind, extrapolation)
+    _value_equal(got, exp)
+
+
+def test_eqmadjust_counts_one_pass_a_launch(cuda):
+    from xclim_tpu_torch.ops import eqmadjust
+    from xclim_tpu_torch.utils.profiling import tracing
+
+    args = _eqm_series("noleap", "time.dayofyear", 2, 70, 52, "+", cuda)
+    with tracing() as tr:
+        eqmadjust.eqm_adjust_series(*args)
+    assert tr.counters["eqm_node_passes"] == 1
+    (op,) = tr.spans
+    assert op["name"] == "op.eqmadjust" and op["eqm_node_passes"] == 1
+
+
+def test_eqmadjust_refuses_float64_on_the_card(cuda):
+    from xclim_tpu_torch.ops import eqmadjust
+
+    xf, table, hq, af = _eqm_series("noleap", "time.dayofyear", 1, 8, 5, "+",
+                                    cuda)
+    with pytest.raises(TypeError, match="float32"):
+        eqmadjust.eqm_adjust_series(xf.double(), table, hq.double(),
+                                    af.double())
+
+
+@pytest.mark.parametrize("group,window", [("time.dayofyear", 31),
+                                          ("time.month", 1)])
+def test_eqm_adjust_on_the_card_matches_the_cpu(cuda, group, window):
+    """EQM's adjust on the card is one eqmadjust launch and equals the
+    CPU's (1e-6, as tests/test_torch_sdba_methods.py bounds EQM against the
+    reference)."""
+    from xclim_tpu_torch.core.dataarray import ClimArray
+    from xclim_tpu_torch.ops import eqmadjust
+    from xclim_tpu_torch.sdba import EmpiricalQuantileMapping, Grouper
+
+    t = date_range("1981-01-01", periods=8 * 365, calendar="noleap")
+    rng = np.random.default_rng(8)
+    data = {k: rng.normal(mu, 5.0, (len(t), 70)).astype(np.float32)
+            for k, mu in (("ref", 285.0), ("hist", 287.0), ("sim", 289.0))}
+    data["sim"][rng.random(data["sim"].shape) < 0.05] = np.nan
+
+    def run(device):
+        arrays = {k: ClimArray(torch.as_tensor(v, device=device),
+                               ("time", "cell"), {"time": t}, {"units": "K"},
+                               k) for k, v in data.items()}
+        adj = EmpiricalQuantileMapping.train(
+            arrays["ref"], arrays["hist"], group=Grouper(group, window),
+            nquantiles=50, kind="+")
+        return adj.adjust(arrays["sim"]).data
+
+    counts = (eqmadjust.launches, eqmadjust.twin_calls)
+    got = run(cuda)
+    torch.cuda.synchronize()
+    assert (eqmadjust.launches, eqmadjust.twin_calls) == (counts[0] + 1,
+                                                          counts[1])
+    exp = run("cpu")
+    np.testing.assert_allclose(got.cpu().numpy(), exp.numpy(), rtol=1e-6,
+                               atol=0)
 
 
 def _segred_series(T, C, seed):

@@ -313,10 +313,13 @@ def test_dqm_sites_and_the_node_pass_counter():
     assert order == ["sdba.scaling", "sdba.quantiles", "sdba.quantiles",
                      "sdba.scaling", "sdba.detrend", "sdba.eqm",
                      "sdba.detrend"]
-    # one pass a node (50 quantiles and the two end nodes), all in sdba.eqm
+    # one pass a node (50 quantiles and the two end nodes), all in the
+    # eqmadjust op's span inside sdba.eqm
     assert tr.counters["eqm_node_passes"] == 52
     (eqm,) = [s for s in tr.spans if s["name"] == "sdba.eqm"]
-    assert eqm["eqm_node_passes"] == 52
+    (op,) = [s for s in tr.spans if s["name"] == "op.eqmadjust"]
+    assert op["parent"] == eqm["id"]
+    assert op["eqm_node_passes"] == 52
     assert sum(s["eqm_node_passes"] for s in tr.spans) == 52
 
 
@@ -342,14 +345,16 @@ def test_eqm_adjust_opens_the_eqm_span():
     rec = {s["id"]: s for s in tr.spans}
     (eqm,) = [s for s in tr.spans if s["name"] == "sdba.eqm"]
     assert rec[eqm["parent"]]["name"] == "sdba.adjust"
-    assert eqm["eqm_node_passes"] == tr.counters["eqm_node_passes"] == 12
+    (op,) = [s for s in tr.spans if s["name"] == "op.eqmadjust"]
+    assert op["parent"] == eqm["id"]
+    assert op["eqm_node_passes"] == tr.counters["eqm_node_passes"] == 12
     assert "sdba.scaling" not in _names(tr)
     assert "sdba.detrend" not in _names(tr)
 
 
 def _op_calls():
-    from xclim_tpu_torch.ops import (bootstrap, qdmadjust, segred, spells,
-                                     winquantile)
+    from xclim_tpu_torch.ops import (bootstrap, eqmadjust, qdmadjust, segred,
+                                     spells, winquantile)
     from xclim_tpu_torch.ops.quantile import nan_quantile
 
     rng = np.random.default_rng(1)
@@ -365,6 +370,8 @@ def _op_calls():
         "op.bootstrap": lambda: bootstrap.merge_rank_replaced_year_quantile(
             *tabs, None, None, 1, 0.9, samples=D),
         "op.winquantile": lambda: winquantile.doy_window_quantiles(xg, q, 3),
+        "op.eqmadjust": lambda: eqmadjust.eqm_adjust_series(
+            x2, table, torch.sort(af, dim=1).values, af),
         "op.qdmadjust": lambda: (qdmadjust.qdm_adjust_doy(xg, af, q),
                                  qdmadjust.qdm_adjust_series(x2, table, af,
                                                              q)),

@@ -22,7 +22,7 @@ import xclim_tpu_torch
 from xclim_tpu_torch.core.dataarray import ClimArray
 from xclim_tpu_torch.core.units import convert_units_to, str2pint
 from xclim_tpu_torch.indices.stats import _lmoments
-from xclim_tpu_torch.ops import qdmadjust
+from xclim_tpu_torch.ops import eqmadjust, qdmadjust
 from xclim_tpu_torch.ops.quantile import nan_quantile
 from xclim_tpu_torch.sdba.grouping import Grouper
 from xclim_tpu_torch.sdba.utils import (
@@ -123,15 +123,18 @@ def _dqm_train_core_doy(xref, xhist, dtref, dthist, gid_hist, *, q, kind,
 @span("sdba.eqm")
 def _eqm_adjust_body(xf, table, flat_pos, hist_q, af, *, kind, interp,
                      extrapolation):
-    """EQM adjust on a time-first tensor; returns the time-first result."""
-    g = gather_groups(xf, table)
-    (g, hist_q, af), sshape = _spacify(g, hist_q, af)
-    af_v = interp_on_quantiles(g, hist_q, af, method=interp,
-                               extrapolation=extrapolation)  # (G, ms, C)
-    adj = _apply_kind(g, af_v, kind)
-    adj = adj.reshape(tuple(adj.shape[:2]) + sshape)
-    flat = adj.reshape((-1,) + tuple(adj.shape[2:]))
-    return flat[flat_pos]
+    """EQM adjust on a time-first tensor; returns the time-first result.
+
+    Runs the eqmadjust op (the kernel on the card, its twin on the CPU):
+    one pass over the series, each group's steps read and written through
+    ``table`` (``flat_pos`` is not needed)."""
+    sshape = tuple(xf.shape[1:])
+    xf2 = xf.reshape(xf.shape[0], -1)
+    hq2 = hist_q.reshape(tuple(hist_q.shape[:2]) + (-1,))
+    af2 = af.reshape(tuple(af.shape[:2]) + (-1,))
+    out = eqmadjust.eqm_adjust_series(xf2, table, hq2, af2, kind=kind,
+                                      extrapolation=extrapolation)
+    return out.reshape((out.shape[0],) + sshape)
 
 
 def _qdm_adjust_core(xf, table, flat_pos, af, q, *, kind, interp,

@@ -14,14 +14,14 @@ import numpy as np
 import torch
 
 from xclim_tpu_torch.ops import winquantile
+from xclim_tpu_torch.ops.eqmadjust import interp_on_quantiles
 from xclim_tpu_torch.ops.qdmadjust import (
-    _take_nodes,
     gather_groups,
     grouped_rank,
     interp_hat_nodes,
 )
 from xclim_tpu_torch.ops.quantile import nan_quantile
-from xclim_tpu_torch.utils.profiling import count, span
+from xclim_tpu_torch.utils.profiling import span
 
 __all__ = ["equally_spaced_nodes", "grouped_quantile", "interp_on_quantiles",
            "grouped_rank",
@@ -104,37 +104,3 @@ def windowed_doy_mean(xf: torch.Tensor, doy_table: torch.Tensor,
     sw = s[rows.reshape(-1)].reshape((n_doy, window) + tuple(s.shape[1:])).sum(dim=1)
     cw = c[rows.reshape(-1)].reshape((n_doy, window) + tuple(c.shape[1:])).sum(dim=1)
     return torch.where(cw > 0, sw / torch.clamp(cw, min=1.0), torch.nan)
-
-
-def interp_on_quantiles(x: torch.Tensor, xq: torch.Tensor, yq: torch.Tensor,
-                        method: str = "linear",
-                        extrapolation: str = "constant") -> torch.Tensor:
-    """y(x) by piecewise-linear interp of (xq → yq) along the quantile axis.
-
-    x: (..., ms, C); xq, yq: (..., nq, C) sorted along -2. Constant
-    extrapolation clamps to the edge values (xsdba default
-    ``extrapolation='constant'``). The bracketing index is a comparison
-    count over the nodes (NaN nodes compare False, i.e. count as greater),
-    one pass over ``x`` a node, each counted as ``eqm_node_passes``.
-    """
-    nq = xq.shape[-2]
-    # the narrowest count that holds nq: the loop reads and writes it once
-    # a node
-    cnt = torch.zeros(x.shape, device=x.device,
-                      dtype=torch.int16 if nq < 2**15 else torch.int64)
-    for k in range(nq):
-        cnt += xq[..., k:k + 1, :] <= x
-        count("eqm_node_passes")
-    hi = torch.clamp(cnt, 1, nq - 1).to(torch.int64)
-    lo = hi - 1
-    x0 = _take_nodes(xq, lo)
-    x1 = _take_nodes(xq, hi)
-    y0 = _take_nodes(yq, lo)
-    y1 = _take_nodes(yq, hi)
-    denom = x1 - x0
-    w = torch.where(denom != 0,
-                    (x - x0) / torch.where(denom == 0, 1.0, denom), 0.0)
-    if extrapolation == "constant":
-        w = torch.clamp(w, 0.0, 1.0)
-    y = y0 + w * (y1 - y0)
-    return torch.where(torch.isnan(x), torch.nan, y)
