@@ -42,9 +42,10 @@ shapes are the card tests', ``tests/test_torch_kernels_cuda.py``):
    members x 365 noleap days x 192 x 448 cells, 3.77 GB of float32) with
    planted NaN cells: ``create_ensemble``, ``ensemble_percentiles(ens,
    [10, 50, 90])`` and ``robustness_fractions(fut, hist, test="ttest")``,
-   checks their launch counts and values, times them, holds the
-   axisquantile kernel against its twin at the call's own input, and
-   times ``torch.nanquantile`` on the same input;
+   checks their launch counts and values (the benchmark's cell
+   ``ens192x448.pct_robust`` times them), holds the axisquantile kernel
+   against its twin at the call's own input, and times the kernel, the
+   twin and ``torch.nanquantile`` on the same input;
 9. runs the same two calls on the first 1024 cells with CPU tensors and on
    the card and compares the outputs;
 10. drives config 2 at bench's "spells" sizes (448 x 448 and 100 x 100
@@ -1543,27 +1544,6 @@ def phase_ensembles(device, card, record):
          f"the pair above the input {peak:.3f} GiB (input "
          f"{nbytes / 2**30:.3f} GiB)")
     del per, rf
-
-    rate = ENS_MEMBERS * ENS_DAYS * cells
-    for name, fn in (
-            ("ensemble_percentiles(ens, [10, 50, 90])",
-             lambda: ensemble_percentiles(ens, values=ENS_VALUES)),
-            ("robustness_fractions(fut, hist, test='ttest')",
-             lambda: robustness_fractions(ens.isel(time=slice(183, 365)),
-                                          ens.isel(time=slice(0, 182)),
-                                          test="ttest")),
-            ("percentiles + robustness (the pair)", lambda: _ens_calls(ens))):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        sec, runs = _timed(fn)
-        pk = (torch.cuda.max_memory_allocated() - base) / 2**30
-        _log(f"[ensembles] {name} ({ENS_MEMBERS}, {ENS_DAYS}, {ENS_LAT}, "
-             f"{ENS_LON}) on {card}: {sec:.5f} s (median of 3 after a "
-             f"warm-up; runs {[round(v, 5) for v in runs]}), "
-             f"{rate / sec:.1f} member-cell-days/s, peak device memory above "
-             f"the input {pk:.3f} GiB")
-
-    _profile("ensembles pair", lambda: _ens_calls(ens), card)
 
     # the kernel against its twin, and torch.nanquantile (alpha = beta = 1:
     # the same function; the port never calls it), at the call's own input

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: it imports without JAX, no source file of
 it imports JAX or Triton, its ops import nothing above them and leave
 binding and launching kernels to ``ops/_build.py``, and its kernels are
-CUDA sources built for sm_90a."""
+CUDA sources built for sm_90a. The benchmark's plain references import
+neither JAX nor either package."""
 
 import ast
 import pathlib
@@ -15,6 +16,7 @@ from xclim_tpu_torch.ops import _build
 
 PKG = pathlib.Path(__file__).resolve().parent.parent / "xclim_tpu_torch"
 SOURCES = sorted(PKG.rglob("*.py"))
+REFERENCES = sorted((PKG.parent / "perfbench" / "reference").glob("*.py"))
 OPS = sorted((PKG / "ops").glob("*.py"))
 #: the layers above ops: an op module imports none of them
 ABOVE_OPS = ("core.dataarray", "sdba", "indices", "indicators", "ensembles")
@@ -71,6 +73,13 @@ def test_import_with_jax_poisoned():
 def test_no_jax_or_triton_import(path):
     roots = _imported_roots(path)
     assert not roots & {"jax", "jaxlib", "triton", "xclim_tpu"}, roots
+
+
+@pytest.mark.parametrize("path", REFERENCES, ids=lambda p: p.name)
+def test_references_import_neither_jax_nor_either_package(path):
+    roots = _imported_roots(path)
+    assert not roots & {"jax", "jaxlib", "xclim_tpu", "xclim_tpu_torch"}, \
+        roots
 
 
 @pytest.mark.parametrize("path", OPS, ids=lambda p: p.name)

@@ -3,8 +3,9 @@ and invisible to a profiler; on inside ``tracing()``, with parent, root and
 sibling ids, the decorator form and a span closed by an exception; nested
 around their operations on the profiler's clock; emitted at every site of
 the indicator, bootstrap, percentile, sdba (DQM's scaling and detrend,
-EQM's adjust and its node passes) and op layers; and without effect on any
-output.
+EQM's adjust and its node passes), ensembles (the percentiles, the
+robustness with its moments and incomplete beta, and the continued
+fraction's steps) and op layers; and without effect on any output.
 
 The file imports no JAX: its ``cuda`` test runs on the card with
 
@@ -122,6 +123,33 @@ def _eqm():
     return [adj.ds["af"], adj.ds["hist_q"], scen.data]
 
 
+def _ensemble_calls():
+    """ensemble_percentiles and the t-test robustness_fractions of 30
+    members (365 noleap days, 2 x 3 cells, a warming of 0-2 K over the year
+    by member, cell (0, 0) missing in members 0-4): the outputs."""
+    from xclim_tpu_torch.ensembles import (create_ensemble,
+                                           ensemble_percentiles,
+                                           robustness_fractions)
+
+    time = date_range("2000-01-01", periods=365, freq="D", calendar="noleap")
+    rng = np.random.default_rng(5)
+    ramp = np.linspace(0.0, 1.0, 365)[:, None, None]
+    coords = {"time": time, "lat": np.arange(2), "lon": np.arange(3)}
+    members = []
+    for m, warm in enumerate(rng.uniform(0.0, 2.0, 30)):
+        x = (285.0 + rng.normal(0.0, 5.0, (365, 2, 3))
+             + warm * ramp).astype(np.float32)
+        if m < 5:
+            x[:, 0, 0] = np.nan
+        members.append(ClimArray(torch.as_tensor(x), ("time", "lat", "lon"),
+                                 coords, {"units": "K"}, "tas"))
+    ens = create_ensemble(members)
+    per = ensemble_percentiles(ens, values=[10, 50, 90])
+    rf = robustness_fractions(ens.isel(time=slice(183, 365)),
+                              ens.isel(time=slice(0, 182)), test="ttest")
+    return [p.data for p in per.values()] + [rf[k].data for k in rf.keys()]
+
+
 # ---------------------------------------------------------------- off
 
 
@@ -131,6 +159,13 @@ def test_off_records_nothing_and_opens_no_range():
     with span("op.segred") as s:
         assert s is None
     events = _kineto(lambda: _etccdi(False))
+    assert not [e.name() for e in events
+                if e.name().startswith(profiling.PREFIX)]
+
+
+def test_off_the_ensembles_record_and_count_nothing():
+    events = _kineto(_ensemble_calls)
+    assert profiling._trace is None
     assert not [e.name() for e in events
                 if e.name().startswith(profiling.PREFIX)]
 
@@ -352,6 +387,55 @@ def test_eqm_adjust_opens_the_eqm_span():
     assert "sdba.detrend" not in _names(tr)
 
 
+def test_ensembles_sites_and_the_betainc_counter(monkeypatch):
+    from xclim_tpu_torch.ensembles import _robustness
+
+    steps = []
+    numerator = _robustness._betainc_numerator
+
+    def counted(it, a, b, x):
+        steps.append(it)
+        return numerator(it, a, b, x)
+
+    monkeypatch.setattr(_robustness, "_betainc_numerator", counted)
+    with tracing() as tr:
+        _ensemble_calls()
+    rec = {s["id"]: s for s in tr.spans}
+    names = _names(tr)
+    (pct,) = [s for s in tr.spans if s["name"] == "ensembles.percentiles"]
+    (rob,) = [s for s in tr.spans if s["name"] == "ensembles.robustness"]
+    assert pct["parent"] is None and rob["parent"] is None
+    assert rec[next(s["parent"] for s in tr.spans
+                    if s["name"] == "op.quantile")] is pct
+    # the moments and the t statistic, then one incomplete beta evaluation
+    order = [n for n in names if n in ("ensembles.moments",
+                                       "ensembles.betainc")]
+    assert order == ["ensembles.moments", "ensembles.betainc"]
+    kids = [s for s in tr.spans if s["parent"] == rob["id"]]
+    assert [s["name"] for s in kids] == order
+    # one count a continued-fraction step, all inside ensembles.betainc
+    (beta,) = [s for s in tr.spans if s["name"] == "ensembles.betainc"]
+    assert steps == list(range(1, len(steps) + 1)) and len(steps) > 1
+    assert tr.counters["betainc_terms"] == beta["betainc_terms"] \
+        == len(steps)
+    assert sum(s["betainc_terms"] for s in tr.spans) == len(steps)
+
+
+def test_betainc_steps_are_ranges_inside_the_betainc_span():
+    def run():
+        with tracing():
+            _ensemble_calls()
+
+    events = _kineto(run)
+    (beta,) = [e for e in events if e.name() == "xtt:ensembles.betainc"]
+    (rob,) = [e for e in events if e.name() == "xtt:ensembles.robustness"]
+    steps = [e for e in events if e.name() == "xtt:betainc_terms"]
+    assert steps
+    assert rob.start_ns() <= beta.start_ns() <= beta.end_ns() <= rob.end_ns()
+    assert all(beta.start_ns() <= e.start_ns() <= e.end_ns()
+               <= beta.end_ns() for e in steps)
+
+
 def _op_calls():
     from xclim_tpu_torch.ops import (bootstrap, eqmadjust, qdmadjust, segred,
                                      spells, winquantile)
@@ -404,11 +488,12 @@ def test_the_axisquantile_entry_opens_its_span_before_it_refuses_the_cpu():
     assert rec["name"] == "op.axisquantile" and rec["end_ns"] is not None
 
 
-@pytest.mark.parametrize("case", ["bootstrap", "plain", "qdm", "dqm", "eqm"])
+@pytest.mark.parametrize("case", ["bootstrap", "plain", "qdm", "dqm", "eqm",
+                                  "ensembles"])
 def test_outputs_are_bit_equal_with_tracing_on_and_off(case):
     fn = {"bootstrap": lambda: _etccdi(True),
           "plain": lambda: _etccdi(False), "qdm": _qdm, "dqm": _dqm,
-          "eqm": _eqm}[case]
+          "eqm": _eqm, "ensembles": _ensemble_calls}[case]
     off = fn()
     with tracing() as tr:
         on = fn()

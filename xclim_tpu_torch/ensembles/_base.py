@@ -8,6 +8,7 @@ import torch
 from xclim_tpu_torch.core.calendar import common_calendar
 from xclim_tpu_torch.core.dataarray import ClimArray, ClimDataset, concat
 from xclim_tpu_torch.ops.quantile import nan_quantile
+from xclim_tpu_torch.utils.profiling import span
 
 __all__ = ["create_ensemble", "ensemble_mean_std_max_min", "ensemble_percentiles"]
 
@@ -123,29 +124,32 @@ def ensemble_percentiles(ens, values=None, keep_chunk_size=None, weights=None,
                 out[k] = res
         return out
 
-    da = ens
-    ax = da.dims.index("realization")
-    # q stays a host numpy array: the kernel takes its nodes from the host
-    q = np.asarray(values, dtype=np.float32) / np.float32(100.0)
-    if weights is None:
-        res = nan_quantile(da.data, q, axis=ax)  # (Q, ...)
-    else:
-        w = torch.as_tensor(np.asarray(weights, np.float32), device=da.device)
-        res = _weighted_quantile(da.data, w, q, axis=ax)
-    dims = ("percentiles",) + tuple(d for d in da.dims if d != "realization")
-    coords = {c: v for c, v in da.coords.items() if c != "realization"}
-    coords["percentiles"] = np.asarray(values)
-    full = ClimArray(res, dims, coords, dict(da.attrs), da.name)
-    full.attrs["description"] = (f"Percentiles of the ensemble of "
-                                 f"{da.attrs.get('description', da.name or '')}")
-    if not split:
-        return full
-    out = {}
-    for i, p in enumerate(np.asarray(values)):
-        arr = full.isel(percentiles=i)
-        arr.name = f"{da.name or 'data'}_p{int(p):02d}"
-        out[float(p)] = arr
-    return out
+    with span("ensembles.percentiles"):
+        da = ens
+        ax = da.dims.index("realization")
+        # q stays a host numpy array: the kernel takes its nodes from the host
+        q = np.asarray(values, dtype=np.float32) / np.float32(100.0)
+        if weights is None:
+            res = nan_quantile(da.data, q, axis=ax)  # (Q, ...)
+        else:
+            w = torch.as_tensor(np.asarray(weights, np.float32),
+                                device=da.device)
+            res = _weighted_quantile(da.data, w, q, axis=ax)
+        dims = ("percentiles",) + tuple(d for d in da.dims
+                                        if d != "realization")
+        coords = {c: v for c, v in da.coords.items() if c != "realization"}
+        coords["percentiles"] = np.asarray(values)
+        full = ClimArray(res, dims, coords, dict(da.attrs), da.name)
+        full.attrs["description"] = (f"Percentiles of the ensemble of "
+                                     f"{da.attrs.get('description', da.name or '')}")
+        if not split:
+            return full
+        out = {}
+        for i, p in enumerate(np.asarray(values)):
+            arr = full.isel(percentiles=i)
+            arr.name = f"{da.name or 'data'}_p{int(p):02d}"
+            out[float(p)] = arr
+        return out
 
 
 def _weighted_quantile(x, w, q, axis):

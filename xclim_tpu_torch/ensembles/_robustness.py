@@ -4,6 +4,11 @@ Significance tests are computed analytically on the data's device
 (Student-t / Welch / Mann-Whitney normal approximation / Brown-Forsythe F),
 with :func:`_betainc`, a torch port of XLA's regularized incomplete beta,
 supplying the t and F distribution functions: ``torch.special`` has none.
+
+Spans: ``ensembles.robustness`` around :func:`robustness_fractions`, and
+inside it ``ensembles.moments`` (the time moments and the t statistic) and
+``ensembles.betainc`` (each :func:`_betainc` evaluation); the counter
+``betainc_terms`` counts the continued fraction's steps, one host sync each.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import torch
 
 from xclim_tpu_torch.core.dataarray import ClimArray, ClimDataset
 from xclim_tpu_torch.ops.quantile import nan_quantile
+from xclim_tpu_torch.utils.profiling import count, span
 
 __all__ = ["robustness_fractions", "robustness_categories", "robustness_coefficient"]
 
@@ -39,6 +45,7 @@ def _betainc_numerator(it: int, a, b, x):
     return m * (b - m) * x / ((a + 2.0 * m - 1.0) * (a + 2.0 * m))
 
 
+@span("ensembles.betainc")
 def _betainc(a, b, x) -> torch.Tensor:
     """Regularized incomplete beta function I_x(a, b) in float32.
 
@@ -73,6 +80,7 @@ def _betainc(a, b, x) -> torch.Tensor:
     c = h
     d = torch.zeros_like(x)
     for it in range(1, _BETAINC_ITERATIONS):
+        count("betainc_terms")
         num = _betainc_numerator(it, a, b, x)
         c = 1.0 + num / c
         c = torch.where(c.abs() < _HALF_EPS, _HALF_EPS, c)
@@ -200,16 +208,29 @@ def _fractions(futd, refd, w, test, strict_sign, has_ref, tax, rax, kw):
     """The fractions pipeline of the reference's jitted
     ``_fractions_program`` (xclim_tpu/ensembles/_robustness.py:132-223), as
     eager torch in the same op order."""
-    if has_ref:
-        n1, m1, ss1, nanf = _moments(futd, tax)
-        n2, m2, ss2, nanr = _moments(refd, tax)
-        deltas = m1 - m2
-        valid = ~(nanf | nanr)
-        ref_mean = m2
-    else:
-        deltas = futd
-        valid = ~torch.isnan(deltas)
-        ref_mean = None
+    with span("ensembles.moments"):
+        if has_ref:
+            n1, m1, ss1, nanf = _moments(futd, tax)
+            n2, m2, ss2, nanr = _moments(refd, tax)
+            deltas = m1 - m2
+            valid = ~(nanf | nanr)
+            ref_mean = m2
+        else:
+            deltas = futd
+            valid = ~torch.isnan(deltas)
+            ref_mean = None
+        if test == "ttest":
+            fstd = torch.sqrt(ss1 / torch.clamp(n1 - 1, min=1.0))
+            t = (m1 - m2) / (fstd / torch.sqrt(torch.clamp(n1, min=1.0)))
+            df = torch.clamp(n1 - 1, min=1.0)
+        elif test == "welch-ttest":
+            v1 = ss1 / torch.clamp(n1 - 1, min=1.0)
+            v2 = ss2 / torch.clamp(n2 - 1, min=1.0)
+            se2 = v1 / n1 + v2 / n2
+            t = (m1 - m2) / torch.sqrt(se2)
+            df = se2 ** 2 / ((v1 / n1) ** 2 / torch.clamp(n1 - 1, min=1.0)
+                             + (v2 / n2) ** 2 / torch.clamp(n2 - 1, min=1.0))
+            df = torch.clamp(df, min=1.0)
     pvals = None
     if test is None:
         changed = torch.ones_like(deltas, dtype=torch.bool)
@@ -218,23 +239,9 @@ def _fractions(futd, refd, w, test, strict_sign, has_ref, tax, rax, kw):
             changed = torch.abs(deltas) > kw["abs_thresh"]
         else:
             changed = torch.abs(deltas / ref_mean) > kw["rel_thresh"]
-    elif test == "ttest":
-        p_change = kw.get("p_change", 0.05)
-        fstd = torch.sqrt(ss1 / torch.clamp(n1 - 1, min=1.0))
-        t = (m1 - m2) / (fstd / torch.sqrt(torch.clamp(n1, min=1.0)))
-        df = torch.clamp(n1 - 1, min=1.0)
+    elif test in _MOMENT_TESTS:
         pvals = _t_sf(torch.abs(t), df)
-        changed = pvals < p_change
-    elif test == "welch-ttest":
-        p_change = kw.get("p_change", 0.05)
-        v1 = ss1 / torch.clamp(n1 - 1, min=1.0)
-        v2 = ss2 / torch.clamp(n2 - 1, min=1.0)
-        se2 = v1 / n1 + v2 / n2
-        t = (m1 - m2) / torch.sqrt(se2)
-        df = se2 ** 2 / ((v1 / n1) ** 2 / torch.clamp(n1 - 1, min=1.0)
-                         + (v2 / n2) ** 2 / torch.clamp(n2 - 1, min=1.0))
-        pvals = _t_sf(torch.abs(t), torch.clamp(df, min=1.0))
-        changed = pvals < p_change
+        changed = pvals < kw.get("p_change", 0.05)
     else:
         changed, pvals = SIGNIFICANCE_TESTS[test](futd, refd, tax, **kw)
 
@@ -267,6 +274,7 @@ def _fractions(futd, refd, w, test, strict_sign, has_ref, tax, rax, kw):
             frac(changed & neg), agree, wtot / tot, pvals)
 
 
+@span("ensembles.robustness")
 def robustness_fractions(fut: ClimArray, ref: ClimArray | None = None,
                          test: str | None = None, weights=None,
                          strict_sign: bool = True, **kwargs) -> ClimDataset:

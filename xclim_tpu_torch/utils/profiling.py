@@ -9,9 +9,11 @@ Spans. The program opens :func:`span` at its stages (``indicator.call`` and
 its checks, compute, units, missing and attrs; the bootstrap's plain
 compute, tables and in-base years; ``percentiles.doy``; ``sdba.train`` and
 ``sdba.adjust`` with their units, tables, quantiles and attrs, DQM's
-scaling and detrend, and the EQM adjust of EQM and DQM; the op entries
-``op.*``). Outside :func:`tracing` a span costs one check of a
-module-level flag and returns its name's shared no-op. Inside it, each span
+scaling and detrend, and the EQM adjust of EQM and DQM;
+``ensembles.percentiles`` and ``ensembles.robustness`` with its moments
+and ``ensembles.betainc``; the op entries ``op.*``). Outside
+:func:`tracing` a span costs one check of a module-level flag and returns
+its name's shared no-op. Inside it, each span
 keeps a record (name, id, parent id, the id of the outermost span it sits
 in, host start and end from ``time.perf_counter_ns()``, the counts made
 while it was the innermost span) and opens
