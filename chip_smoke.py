@@ -45,7 +45,9 @@ shapes are the card tests', ``tests/test_torch_kernels_cuda.py``):
    checks their launch counts and values (the benchmark's cell
    ``ens192x448.pct_robust`` times them), holds the axisquantile kernel
    against its twin at the call's own input, and times the kernel, the
-   twin and ``torch.nanquantile`` on the same input;
+   twin and ``torch.nanquantile`` on the same input; holds the betainc
+   kernel against its twin at the t-test's own arguments (p-values of
+   30 x 192 x 448 elements) and times both;
 9. runs the same two calls on the first 1024 cells with CPU tensors and on
    the card and compares the outputs;
 10. drives config 2 at bench's "spells" sizes (448 x 448 and 100 x 100
@@ -171,8 +173,10 @@ Without a CUDA device it exits with status 2 and prints no result.
 
     PYTHONPATH=<checkout> python3 -P chip_smoke.py --kernel-times
 
-prints one JSON line of the winquantile, spells, qdmadjust and
-axisquantile times at this script's shapes (``kernel_times``) for the
+prints one JSON line of the winquantile, spells, qdmadjust,
+axisquantile and betainc times at this script's shapes (``kernel_times``;
+betainc beside its twin, and the twin alone where the package has no
+``ops.betainc``) for the
 package of ``<checkout>`` (``-P`` keeps this script's own directory off
 the module path), and nothing else: run it for two checkouts in turns
 within one call to compare them on one card.
@@ -211,6 +215,9 @@ ENS_VALUES = [10, 50, 90]
 P_RTOL = 1e-3       # p-values: lgamma, exp and log round differently
 P_ATOL = 1e-6       # on the CPU and the card (tests/test_torch_ensembles.py)
 P_NEAR_ONE = 3e-3   # p >= 0.5: x = df / (df + t^2) rounds to 1 - k ulp
+# betainc kernel vs twin: the twin steps converged elements on until the
+# whole call has converged, its h drifting by up to one ulp a step
+BETAINC_DRIFT = 198 * 2.0**-23
 def _log(*args):
     print(*args, flush=True)
 
@@ -928,7 +935,11 @@ def kernel_times(device) -> dict:
     4096), 10 % True, YS), the QDM_CASES and the AXQ_CASES, and QDM's adjust
     and the ensemble's quantile at their slices' shapes. Every version of
     the port has those wrappers, so this times an older checkout of the
-    package too (``--kernel-times`` in main)."""
+    package too (``--kernel-times`` in main). Last, the ensemble t-test's
+    p-values I_x(df / 2, 0.5) at (30, 192 x 448), df 181, 25 % of the cells
+    missing: ``ops.betainc.betainc`` and its twin ``betainc_plain``, or,
+    in a package without that op, the twin ``ensembles._robustness.
+    _betainc``."""
     import torch
 
     from xclim_tpu_torch.core.calendar import date_range, resample_segments
@@ -977,6 +988,26 @@ def kernel_times(device) -> dict:
     ens_q = [v / 100.0 for v in ENS_VALUES]
     out[f"axisquantile {tuple(x.shape)} ensembles"] = _cuda_ms(
         lambda: axisquantile.axis_quantile_small(x, ens_q, 0), 10)
+    del x
+    cells = ENS_LAT * ENS_LON
+    df = torch.full((ENS_MEMBERS, cells), 181.0, device=device)
+    warm = torch.rand((ENS_MEMBERS, 1), generator=gen, device=device) * 2.0
+    t = torch.randn(df.shape, generator=gen, device=device) + 1.35 * warm
+    missing = torch.rand((cells,), generator=gen, device=device) < 0.25
+    df[:, missing] = 1.0
+    x = df / (df + t * t)
+    x[:, missing] = torch.nan
+    a = df / 2.0
+    try:
+        from xclim_tpu_torch.ops import betainc
+    except ImportError:
+        from xclim_tpu_torch.ensembles._robustness import _betainc as twin
+    else:
+        twin = betainc.betainc_plain
+        out[f"betainc {tuple(x.shape)} ttest"] = _cuda_ms(
+            lambda: betainc.betainc(a, 0.5, x), 20)
+    out[f"betainc twin {tuple(x.shape)} ttest"] = _cuda_ms(
+        lambda: twin(a, 0.5, x), 3)
     return out
 
 
@@ -1508,7 +1539,7 @@ def phase_ensembles(device, card, record):
         ensemble_percentiles,
         robustness_fractions,
     )
-    from xclim_tpu_torch.ops import axisquantile
+    from xclim_tpu_torch.ops import axisquantile, betainc
 
     ens = _ensemble(device)
     torch.cuda.synchronize()
@@ -1518,8 +1549,8 @@ def phase_ensembles(device, card, record):
 
     # the main path's runs: counts from zero before each call, read right
     # after. ensemble_percentiles: one axisquantile launch (all three nodes
-    # in one pass); robustness_fractions(ttest): none (time moments and the
-    # incomplete beta function are plain torch).
+    # in one pass); robustness_fractions(ttest): one betainc launch (the
+    # time moments are plain torch).
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     per = ensemble_percentiles(ens, values=ENS_VALUES)
@@ -1536,9 +1567,10 @@ def phase_ensembles(device, card, record):
          f"days x {cells} cells: ensemble_percentiles {json.dumps(c_per)}; "
          f"robustness_fractions(ttest) {json.dumps(c_rf)}")
     if c_per != dict(zero, axisquantile=1, axisquantile_staged=1) \
-            or c_rf != zero:
-        raise AssertionError("the ensembles slice missed its kernel")
+            or c_rf != dict(zero, betainc=1):
+        raise AssertionError("the ensembles slice missed its kernels")
     record["axisquantile"]["launches"] = c_per["axisquantile"]
+    record["betainc"]["launches"] = c_rf["betainc"]
     summary = _check_ens(ens, per, rf)
     _log(f"[ensembles] values: {json.dumps(summary)}; peak device memory of "
          f"the pair above the input {peak:.3f} GiB (input "
@@ -1584,7 +1616,64 @@ def phase_ensembles(device, card, record):
          f"{lms:.4f} (max diff to the kernel {lib_err}) "
          f"bound_ms={bound['bound_ms']:.4f} ({bound['bound_by']}); "
          f"{(x.numel() + len(q) * cols) * 4 / ms / 1e6:.1f} GB/s")
+    del x
+
+    # the betainc kernel against its twin at the t-test's own arguments
+    (args, kwargs), = _capture(betainc, "betainc", 1,
+                               lambda: robustness_fractions(
+                                   ens.isel(time=slice(183, 365)),
+                                   ens.isel(time=slice(0, 182)),
+                                   test="ttest"))
+    a, b, x = args[:3]
+    got = betainc.betainc(*args, **kwargs)
+    torch.cuda.synchronize()
+    ref = betainc.betainc_plain(*args, **kwargs)
+    err = _betainc_compare(f"betainc{tuple(got.shape)} at the t-test's "
+                           f"arguments", got, ref, a, b, x)
+    del ref
+    ms = _cuda_ms(lambda: betainc.betainc(*args, **kwargs), 20)
+    pms = _cuda_ms(lambda: betainc.betainc_plain(*args, **kwargs), 2)
+    # bound: the full-size operands read once, the result written once;
+    # the terms each element takes are not counted, so no operations
+    nbytes = sum(v.numel() * 4 for v in (a, b, x)
+                 if isinstance(v, torch.Tensor) and v.numel() > 1)
+    bound = roofline.bound(nbytes + got.numel() * 4, 0)
+    record["betainc"].update(
+        max_abs_err=max(record["betainc"]["max_abs_err"], err), ms=ms,
+        plain_ms=pms, **bound)
+    _log(f"[kernel vs twin] betainc {tuple(got.shape)} (the t-test's "
+         f"p-values, b {b if not isinstance(b, torch.Tensor) else 'tensor'})"
+         f" on {card}: max_abs_err={err} kernel_ms={ms:.4f} "
+         f"twin_ms={pms:.4f} bound_ms={bound['bound_ms']:.4f} "
+         f"({bound['bound_by']}, operations not counted)")
     return ens
+
+
+def _betainc_compare(name, got, ref, a, b, x) -> float:
+    """Max abs error of the betainc kernel against its twin; raises on a
+    NaN-pattern mismatch or an element beyond atol 1e-6 and rtol 1e-5 plus
+    BETAINC_DRIFT of h * factor (the result, or 1 minus it where the
+    arguments were swapped)."""
+    import torch
+
+    a, b, x = torch.broadcast_tensors(*(
+        torch.as_tensor(v, dtype=torch.float32, device=got.device)
+        for v in (a, b, x)))
+    swapped = ~(x < (a + 1.0) / (a + b + 2.0))
+    hf = torch.where(swapped, 1.0 - ref, ref)
+    got, ref, hf = (v.double().cpu() for v in (got, ref, hf))
+    gn, rn = torch.isnan(got), torch.isnan(ref)
+    if not torch.equal(gn, rn):
+        raise AssertionError(f"{name}: NaN patterns differ "
+                             f"({int((gn != rn).sum())} elements)")
+    ok = ~rn
+    err = (got - ref).abs()[ok]
+    bound = 1e-6 + 1e-5 * ref.abs()[ok] + BETAINC_DRIFT * hf.abs()[ok]
+    if err.numel() and bool((err > bound).any()):
+        raise AssertionError(f"{name}: {int((err > bound).sum())} elements "
+                             f"beyond the bound, max abs err "
+                             f"{float(err.max())}")
+    return float(err.max()) if err.numel() else 0.0
 
 
 def phase_ensembles_cpu_vs_card(ens):
@@ -1603,9 +1692,10 @@ def phase_ensembles_cpu_vs_card(ens):
     torch.cuda.synchronize()
     after = _counts()
     d = {k: after[k] - before[k] for k in after}
-    if d["axisquantile_twin"] != 1 or d["axisquantile"] != 1:
-        raise AssertionError(f"CPU run must use the twin, the card the "
-                             f"kernel: {d}")
+    if any(d[f"{k}_twin"] != 1 or d[k] != 1
+           for k in ("axisquantile", "betainc")):
+        raise AssertionError(f"CPU run must use the twins, the card the "
+                             f"kernels: {d}")
     errs = {f"p{int(v)}": _compare(f"p{int(v)} cpu vs card",
                                    per_g[float(v)].data, per_c[float(v)].data,
                                    rtol=0.0, atol=0.0) for v in ENS_VALUES}

@@ -1,0 +1,207 @@
+"""The betainc op on the CPU: its argument checks, its twin route, the twin
+against the ensembles' ``_betainc`` body it replaced, value for value, and
+its counter. The kernel against the twin is in
+``tests/test_torch_kernels_cuda.py``; the twin against JAX's betainc in
+``tests/test_torch_ensembles.py``."""
+
+import numpy as np
+import pytest
+import torch
+
+from xclim_tpu_torch.ensembles import _robustness
+from xclim_tpu_torch.ops import betainc
+from xclim_tpu_torch.utils.profiling import tracing
+
+_HALF_EPS = float(np.finfo(np.float32).eps) / 2.0
+_VERY_SMALL = float(np.finfo(np.float32).tiny) * 2.0
+
+
+def _parent_numerator(it, a, b, x):
+    if it == 1:
+        return torch.ones_like(x)
+    m = (it - 1) // 2
+    if it % 2 == 0:
+        if m == 0:
+            return -(a + b) * x / (a + 1.0)
+        return -(a + m) * (a + b + m) * x / ((a + 2.0 * m) * (a + 2.0 * m + 1.0))
+    return m * (b - m) * x / ((a + 2.0 * m - 1.0) * (a + 2.0 * m))
+
+
+def _parent_betainc(a, b, x):
+    """``ensembles._robustness._betainc`` before the op: the eager loop."""
+    device = next(v.device for v in (a, b, x) if isinstance(v, torch.Tensor))
+    a, b, x = torch.broadcast_tensors(*(
+        torch.as_tensor(v, dtype=torch.float32, device=device)
+        for v in (a, b, x)))
+    a_is_zero = (a == 0) | (b == torch.inf)
+    b_is_zero = (b == 0) | (a == torch.inf)
+    x_is_zero = x == 0
+    x_is_one = x == 1
+    is_nan = torch.isnan(a) | torch.isnan(b) | torch.isnan(x)
+    result_is_zero = (b_is_zero & ~x_is_one) | (a_is_zero & x_is_zero)
+    result_is_one = (a_is_zero & ~x_is_zero) | (b_is_zero & x_is_one)
+    result_is_nan = ((a < 0) | (b < 0) | (x < 0) | (x > 1)
+                     | (a_is_zero & b_is_zero) | is_nan)
+    converges_rapidly = x < (a + 1.0) / (a + b + 2.0)
+    a, b = (torch.where(converges_rapidly, a, b),
+            torch.where(converges_rapidly, b, a))
+    x = torch.where(converges_rapidly, x, 1.0 - x)
+    h = torch.full_like(x, _HALF_EPS)
+    c = h
+    d = torch.zeros_like(x)
+    for it in range(1, 200):
+        num = _parent_numerator(it, a, b, x)
+        c = 1.0 + num / c
+        c = torch.where(c.abs() < _HALF_EPS, _HALF_EPS, c)
+        d = 1.0 + num * d
+        d = torch.where(d.abs() < _HALF_EPS, _HALF_EPS, d)
+        d = torch.reciprocal(d)
+        delta = c * d
+        h = h * delta
+        if not bool(((delta - 1.0).abs() >= _HALF_EPS).any()):
+            break
+    lbeta_ab_small_a = torch.lgamma(b) - torch.lgamma(a + b)
+    lbeta_ab = torch.lgamma(a) + lbeta_ab_small_a
+    factor = torch.where(
+        a < _VERY_SMALL,
+        torch.exp(torch.log1p(-x) * b - lbeta_ab_small_a),
+        torch.exp(torch.log(x) * a + torch.log1p(-x) * b - lbeta_ab) / a)
+    result = h * factor
+    result = torch.where(converges_rapidly, result, 1.0 - result)
+    result = torch.where(result_is_zero, 0.0, result)
+    result = torch.where(result_is_one, 1.0, result)
+    return torch.where(result_is_nan, torch.nan, result)
+
+
+def _cases():
+    """(a, b, x) as numpy float32: the grids and draws of
+    ``test_torch_ensembles.py``, a Welch-like non-integer df and the
+    special cases."""
+    rng = np.random.default_rng(23)
+    out = {}
+    A, X = np.meshgrid(np.linspace(0.5, 100.0, 40, dtype=np.float32),
+                       np.linspace(0.001, 0.999, 50, dtype=np.float32))
+    for b in (0.5, 1.0, 3.0, 40.0):
+        out[f"grid b={b}"] = (A, np.full_like(A, b), X)
+    t = np.abs(rng.standard_t(10, 3000)).astype(np.float32) * 2
+    for name, df in (("ttest", rng.integers(1, 200, 3000)),
+                     ("welch", rng.uniform(1.0, 200.0, 3000))):
+        df = df.astype(np.float32)
+        out[name] = (df / 2, np.full_like(df, 0.5), df / (df + t * t))
+    a, b = (rng.uniform(0.05, 60.0, 3000).astype(np.float32) for _ in "ab")
+    out["random"] = (a, b, rng.uniform(0.0, 1.0, 3000).astype(np.float32))
+    out["special"] = tuple(np.asarray(v, np.float32) for v in (
+        [0, 1, 0, 2, np.inf, 1, 2, -1, 2, np.nan, 0, 2, 1e-39, 3, np.inf],
+        [1, 0, 0, np.inf, 2, 2, 2, 2, -1, 1, 1, 2, 2, np.nan, np.inf],
+        [0.5, 0.5, 0.5, 0.3, 0.3, 0.0, 1.0, 0.5, 0.5, 0.5, 0.0, 1.5, 0.5,
+         0.5, 0.5]))
+    return out
+
+
+def _bit_equal(got, exp):
+    assert got.shape == exp.shape and got.dtype == exp.dtype == torch.float32
+    assert torch.equal(torch.isnan(got), torch.isnan(exp))
+    ok = ~torch.isnan(exp)
+    assert torch.equal(got[ok], exp[ok])
+
+
+@pytest.mark.parametrize("case", sorted(_cases()))
+def test_the_cpu_runs_the_twin_value_for_value(case):
+    a, b, x = (torch.as_tensor(v) for v in _cases()[case])
+    counts = (betainc.launches, betainc.twin_calls)
+    got = betainc.betainc(a, b, x)
+    assert (betainc.launches, betainc.twin_calls) == (counts[0],
+                                                      counts[1] + 1)
+    exp = _parent_betainc(a, b, x)
+    _bit_equal(got, exp)
+    _bit_equal(betainc.betainc_plain(a, b, x), exp)
+    _bit_equal(_robustness._betainc(a, b, x), exp)
+
+
+@pytest.mark.parametrize("where", ["a", "b", "x"])
+def test_a_python_number_broadcasts_against_tensors(where):
+    rng = np.random.default_rng(5)
+    args = {"a": torch.as_tensor(rng.uniform(1, 90, (3, 1)).astype(np.float32)),
+            "b": torch.as_tensor(rng.uniform(0.2, 5, (1, 4)).astype(np.float32)),
+            "x": torch.as_tensor(rng.uniform(0, 1, (3, 4)).astype(np.float32))}
+    number = {"a": 12.5, "b": 0.5, "x": 0.25}[where]
+    got = betainc.betainc(**dict(args, **{where: number}))
+    full = torch.full((3, 4), number, dtype=torch.float32)
+    assert got.shape == (3, 4)
+    _bit_equal(got, _parent_betainc(**dict(args, **{where: full})))
+
+
+def test_float64_tensors_are_taken_as_float32():
+    a, b, x = (torch.as_tensor(v) for v in _cases()["random"])
+    _bit_equal(betainc.betainc(a.double(), b.double(), x.double()),
+               _parent_betainc(a, b, x))
+
+
+@pytest.mark.parametrize("args,error,match", [
+    ((torch.ones(3, dtype=torch.int32), 0.5, torch.rand(3)), TypeError,
+     "floating-point"),
+    ((torch.ones(3), 0.5, torch.rand(3) > 0.5), TypeError, "floating-point"),
+    ((2.0, 0.5, 0.3), TypeError, "at least one tensor"),
+    ((torch.ones(3), "0.5", torch.rand(3)), TypeError, "Python numbers"),
+    ((torch.ones(3), True, torch.rand(3)), TypeError, "Python numbers"),
+    ((torch.ones(3), 0.5, torch.rand(3, device="meta")), ValueError,
+     "arguments on"),
+])
+def test_the_entry_refuses_what_it_does_not_take(args, error, match):
+    counts = (betainc.launches, betainc.twin_calls)
+    with pytest.raises(error, match=match):
+        betainc.betainc(*args)
+    assert (betainc.launches, betainc.twin_calls) == counts
+
+
+def test_a_device_without_the_kernel_raises():
+    a = torch.ones(3, device="meta")
+    counts = (betainc.launches, betainc.twin_calls)
+    with pytest.raises(ValueError, match="no betainc kernel"):
+        betainc.betainc(a, 0.5, a)
+    assert (betainc.launches, betainc.twin_calls) == counts
+
+
+def test_the_twin_counts_a_term_a_step(monkeypatch):
+    steps = []
+    numerator = betainc._betainc_numerator
+
+    def counted(it, a, b, x):
+        steps.append(it)
+        return numerator(it, a, b, x)
+
+    monkeypatch.setattr(betainc, "_betainc_numerator", counted)
+    a, b, x = (torch.as_tensor(v) for v in _cases()["ttest"])
+    with tracing() as tr:
+        betainc.betainc(a, b, x)
+    (op,) = tr.spans
+    assert op["name"] == "op.betainc"
+    assert steps == list(range(1, len(steps) + 1)) and len(steps) > 1
+    assert op["betainc_terms"] == tr.counters["betainc_terms"] == len(steps)
+
+
+@pytest.mark.parametrize("iterations", [1, 2, 5, 30])
+def test_iterations_bound_the_terms(iterations):
+    a, b, x = (torch.as_tensor(v) for v in _cases()["ttest"])
+    with tracing() as tr:
+        cut = betainc.betainc(a, b, x, iterations)
+    assert tr.counters["betainc_terms"] == iterations - 1
+    full = betainc.betainc(a, b, x)
+    assert torch.equal(torch.isnan(cut), torch.isnan(full))
+    assert not torch.equal(torch.nan_to_num(cut), torch.nan_to_num(full))
+
+
+def test_the_ensembles_hand_their_iterations_to_the_op(monkeypatch):
+    a, b, x = (torch.as_tensor(v) for v in _cases()["ttest"])
+    monkeypatch.setattr(_robustness, "_BETAINC_ITERATIONS", 5)
+    with tracing() as tr:
+        got = _robustness._betainc(a, b, x)
+    assert tr.counters["betainc_terms"] == 4
+    _bit_equal(got, betainc.betainc(a, b, x, 5))
+
+
+def test_empty_and_zero_dimensional_shapes():
+    assert betainc.betainc(torch.ones(0, 3), 0.5, 0.5).shape == (0, 3)
+    got = betainc.betainc(torch.tensor(3.0), 0.5, 0.2)
+    assert got.shape == () and got.dtype == torch.float32
+    _bit_equal(got, _parent_betainc(torch.tensor(3.0), 0.5, 0.2))

@@ -12,6 +12,7 @@ import torch
 from xclim_tpu_torch.core.calendar import date_range, resample_segments
 from xclim_tpu_torch.ops import (
     axisquantile,
+    betainc,
     bootstrap,
     qdmadjust,
     segred,
@@ -1251,3 +1252,212 @@ def test_bootstrapped_indices_launch_once_a_base_year(cuda):
     for g, e in zip(got, run("cpu")):
         assert not torch.isnan(e.data).all()
         _value_equal(g.data, e.data)
+
+
+# ---------------------------------------------------------------------------
+# betainc: the incomplete beta function of the ensembles' t and F tests
+# ---------------------------------------------------------------------------
+
+#: p-values against float64 (tests/test_torch_ensembles.py): lgamma, exp
+#: and log round differently in float32
+P_RTOL = 1e-3
+P_ATOL = 1e-6
+#: the twin steps every element until the whole call has converged; each
+#: step past an element's own convergence, where the kernel stops,
+#: multiplies h by a delta within an ulp of 1 and rounds, so the twin's h
+#: moves by at most 2^-23 of itself a step, for at most 198 steps
+BETAINC_DRIFT = 198 * 2.0**-23
+
+
+def _betainc_cases(cuda):
+    """(a, b, x) on the card: the grids and draws of
+    tests/test_torch_ensembles.py (b a tensor), the t-test's arguments and a
+    Welch-like non-integer df (b the Python number 0.5), and the
+    ensemble cell's own t-test shape, (30, 192, 448) at df 181 with 25 % of
+    the cells missing (df 1 and x NaN there, as the moments give them)."""
+    rng = np.random.default_rng(2023)
+    out = {}
+    A, X = np.meshgrid(np.linspace(0.5, 100.0, 40, dtype=np.float32),
+                       np.linspace(0.001, 0.999, 50, dtype=np.float32))
+    for b in (0.5, 1.0, 3.0, 40.0):
+        out[f"grid b={b}"] = (A, np.full_like(A, b), X)
+    t = np.abs(rng.standard_t(10, 5000)).astype(np.float32) * 2
+    for name, df in (("ttest", rng.integers(1, 200, 5000)),
+                     ("welch", rng.uniform(1.0, 200.0, 5000))):
+        df = df.astype(np.float32)
+        out[name] = (df / 2, 0.5, df / (df + t * t))
+    a, b = (rng.uniform(0.05, 60.0, 4000).astype(np.float32) for _ in "ab")
+    out["random"] = (a, b, rng.uniform(0.0, 1.0, 4000).astype(np.float32))
+    shape = (30, 192, 448)
+    warm = rng.uniform(0.0, 2.0, (30, 1, 1))
+    t = (rng.normal(0.0, 1.0, shape) + 1.35 * warm).astype(np.float32)
+    df = np.full(shape, 181.0, np.float32)
+    missing = rng.random(shape[1:]) < 0.25
+    df[:, missing] = 1.0
+    x = df / (df + t * t)
+    x[:, missing] = np.nan
+    out["cell"] = (df / 2, 0.5, x)
+    return {k: tuple(torch.as_tensor(v, device=cuda)
+                     if isinstance(v, np.ndarray) else v for v in args)
+            for k, args in out.items()}
+
+
+def _betainc_close(got, exp, a, b, x):
+    """Kernel against twin: the NaN pattern equal; within rtol 1e-5 and
+    atol 1e-6, plus the twin's drift on h * factor (the result, or 1 minus
+    it where the arguments were swapped)."""
+    a, b, x = torch.broadcast_tensors(*(
+        torch.as_tensor(v, dtype=torch.float32, device=got.device)
+        for v in (a, b, x)))
+    swapped = ~(x < (a + 1.0) / (a + b + 2.0))
+    hf = torch.where(swapped, 1.0 - exp, exp)
+    got, exp, hf = (v.double().cpu() for v in (got, exp, hf))
+    assert torch.equal(torch.isnan(got), torch.isnan(exp))
+    ok = ~torch.isnan(exp)
+    err = (got - exp).abs()[ok]
+    bound = 1e-6 + 1e-5 * exp.abs()[ok] + BETAINC_DRIFT * hf.abs()[ok]
+    assert bool((err <= bound).all()), float((err - bound).max())
+
+
+@pytest.mark.parametrize("case", ["grid b=0.5", "grid b=1.0", "grid b=3.0",
+                                  "grid b=40.0", "ttest", "welch", "random",
+                                  "cell"])
+def test_betainc_kernel_matches_twin(cuda, case):
+    from scipy.special import betainc as s_betainc
+
+    a, b, x = _betainc_cases(cuda)[case]
+    counts = (betainc.launches, betainc.twin_calls)
+    got = betainc.betainc(a, b, x)
+    torch.cuda.synchronize()
+    assert (betainc.launches, betainc.twin_calls) == (counts[0] + 1,
+                                                      counts[1])
+    assert got.shape == x.shape and got.dtype == torch.float32
+    _betainc_close(got, betainc.betainc_plain(a, b, x), a, b, x)
+    # and the float64 function, as the twin is held to JAX's on the CPU
+    exact = s_betainc(*(np.broadcast_to(
+        v.double().cpu().numpy() if isinstance(v, torch.Tensor) else v,
+        x.shape) for v in (a, b, x)))
+    np.testing.assert_allclose(got.cpu().numpy(), exact, rtol=P_RTOL,
+                               atol=P_ATOL, equal_nan=True)
+
+
+def test_betainc_special_cases_equal_the_twin(cuda):
+    a, b, x = (torch.as_tensor(np.asarray(v, np.float32), device=cuda)
+               for v in (
+        [0, 1, 0, 2, np.inf, 1, 2, -1, 2, np.nan, 0, 2, 1e-39, 3, np.inf, 0,
+         2, -0.0, 5, 5, 5],
+        [1, 0, 0, np.inf, 2, 2, 2, 2, -1, 1, 1, 2, 2, np.nan, np.inf, np.inf,
+         0, 3, 0.5, 0.5, np.inf],
+        [0.5, 0.5, 0.5, 0.3, 0.3, 0.0, 1.0, 0.5, 0.5, 0.5, 0.0, 1.5, 0.5,
+         0.5, 0.5, 0.0, 1.0, 0.0, np.nan, -0.5, 1.0]))
+    got = betainc.betainc(a, b, x)
+    _value_equal(got, betainc.betainc_plain(a, b, x))
+    np.testing.assert_array_equal(got[:7].cpu().numpy(),
+                                  [1, 0, np.nan, 1, 0, 0, 1])
+
+
+def test_betainc_scalar_b_and_a_non_contiguous_x(cuda):
+    rng = np.random.default_rng(7)
+    df = torch.as_tensor(rng.uniform(1.0, 200.0, (64, 300)).astype(
+        np.float32), device=cuda)
+    t = torch.as_tensor(rng.normal(0.0, 2.0, (300, 64)).astype(np.float32),
+                        device=cuda).t()
+    x = df / (df + t * t)
+    xt = x.t().contiguous().t()
+    assert not xt.is_contiguous()
+    exp = betainc.betainc_plain(df / 2, 0.5, x)
+    for b in (0.5, torch.tensor(0.5, device=cuda),
+              torch.full((1, 1), 0.5, device=cuda)):
+        got = betainc.betainc(df / 2, b, xt)
+        _betainc_close(got, exp, df / 2, 0.5, x)
+    # a row of a broadcast against a column
+    got = betainc.betainc(df[:, :1] / 2, 0.5, x[:1])
+    _betainc_close(got, betainc.betainc_plain(df[:, :1] / 2, 0.5, x[:1]),
+                   df[:, :1] / 2, 0.5, x[:1])
+
+
+def test_betainc_counts_one_term_a_launch(cuda):
+    from xclim_tpu_torch.utils.profiling import tracing
+
+    a, b, x = _betainc_cases(cuda)["ttest"]
+    betainc.betainc(a, b, x)
+    torch.cuda.synchronize()
+    counts = (betainc.launches, betainc.twin_calls)
+    with tracing() as tr:
+        betainc.betainc(a, b, x)
+    assert (betainc.launches, betainc.twin_calls) == (counts[0] + 1,
+                                                      counts[1])
+    assert tr.counters["betainc_terms"] == 1
+    (op,) = tr.spans
+    assert op["name"] == "op.betainc" and op["betainc_terms"] == 1
+    assert op["host_syncs"] == 0
+
+
+def test_betainc_launch_failure_raises(cuda, monkeypatch):
+    """A launch whose entry returns a CUDA error raises, naming the kernel,
+    and no twin serves the call."""
+    from xclim_tpu_torch.ops import _build
+
+    a, b, x = _betainc_cases(cuda)["ttest"]
+    monkeypatch.setattr(_build, "function", lambda *args: lambda *a: 1)
+    counts = (betainc.launches, betainc.twin_calls)
+    with pytest.raises(RuntimeError, match="betainc kernel launch failed"):
+        betainc.betainc(a, b, x)
+    assert (betainc.launches, betainc.twin_calls) == counts
+
+
+@pytest.mark.parametrize("test", ["ttest", "welch-ttest",
+                                  "brownforsythe-test"])
+def test_robustness_tests_launch_betainc_once_with_no_host_sync(
+        cuda, monkeypatch, test):
+    """robustness_fractions on the card: one betainc launch a call, no twin,
+    no host sync inside the incomplete beta function, and p-values that
+    are the kernel's at the call's own arguments, held to the twin there
+    (the CPU run's moments sum in another order: chip_smoke.py holds the
+    t-test's pipeline to it)."""
+    from xclim_tpu_torch.core.calendar import date_range as t_date_range
+    from xclim_tpu_torch.core.dataarray import ClimArray
+    from xclim_tpu_torch.ensembles import create_ensemble, robustness_fractions
+    from xclim_tpu_torch.utils.profiling import tracing
+
+    rng = np.random.default_rng(11)
+    time = t_date_range("2000-01-01", periods=365, freq="D",
+                        calendar="noleap")
+    coords = {"time": time, "lat": np.arange(8), "lon": np.arange(16)}
+    ramp = np.linspace(0.0, 1.0, 365)[:, None, None]
+    members = []
+    for m, warm in enumerate(rng.uniform(0.0, 2.0, 30)):
+        v = (285.0 + rng.normal(0.0, 5.0, (365, 8, 16))
+             + warm * ramp).astype(np.float32)
+        v[:, 0, :m % 4] = np.nan
+        members.append(ClimArray(torch.as_tensor(v, device=cuda),
+                                 ("time", "lat", "lon"), coords,
+                                 {"units": "K"}, "tas"))
+    ens = create_ensemble(members)
+
+    def run():
+        return robustness_fractions(ens.isel(time=slice(183, 365)),
+                                    ens.isel(time=slice(0, 182)), test=test)
+
+    run()
+    torch.cuda.synchronize()
+    seen = []
+    kernel = betainc.betainc
+
+    def capture(*args):
+        seen.append(args)
+        return kernel(*args)
+
+    monkeypatch.setattr(betainc, "betainc", capture)
+    counts = (betainc.launches, betainc.twin_calls)
+    with tracing() as tr:
+        got = run()["pvals"].data
+    torch.cuda.synchronize()
+    assert (betainc.launches, betainc.twin_calls) == (counts[0] + 1,
+                                                      counts[1])
+    spans = [s for s in tr.spans
+             if s["name"] in ("ensembles.betainc", "op.betainc")]
+    assert len(spans) == 2 and all(s["host_syncs"] == 0 for s in spans)
+    (args,) = seen
+    assert not torch.isnan(got).all()
+    _betainc_close(got, betainc.betainc_plain(*args), *args[:3])

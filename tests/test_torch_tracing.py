@@ -388,16 +388,16 @@ def test_eqm_adjust_opens_the_eqm_span():
 
 
 def test_ensembles_sites_and_the_betainc_counter(monkeypatch):
-    from xclim_tpu_torch.ensembles import _robustness
+    from xclim_tpu_torch.ops import betainc
 
     steps = []
-    numerator = _robustness._betainc_numerator
+    numerator = betainc._betainc_numerator
 
     def counted(it, a, b, x):
         steps.append(it)
         return numerator(it, a, b, x)
 
-    monkeypatch.setattr(_robustness, "_betainc_numerator", counted)
+    monkeypatch.setattr(betainc, "_betainc_numerator", counted)
     with tracing() as tr:
         _ensemble_calls()
     rec = {s["id"]: s for s in tr.spans}
@@ -413,10 +413,13 @@ def test_ensembles_sites_and_the_betainc_counter(monkeypatch):
     assert order == ["ensembles.moments", "ensembles.betainc"]
     kids = [s for s in tr.spans if s["parent"] == rob["id"]]
     assert [s["name"] for s in kids] == order
-    # one count a continued-fraction step, all inside ensembles.betainc
+    # one count a step of the CPU twin's continued fraction, all in the op
+    # span inside ensembles.betainc
     (beta,) = [s for s in tr.spans if s["name"] == "ensembles.betainc"]
+    (op,) = [s for s in tr.spans if s["name"] == "op.betainc"]
+    assert op["parent"] == beta["id"]
     assert steps == list(range(1, len(steps) + 1)) and len(steps) > 1
-    assert tr.counters["betainc_terms"] == beta["betainc_terms"] \
+    assert tr.counters["betainc_terms"] == op["betainc_terms"] \
         == len(steps)
     assert sum(s["betainc_terms"] for s in tr.spans) == len(steps)
 
@@ -437,8 +440,8 @@ def test_betainc_steps_are_ranges_inside_the_betainc_span():
 
 
 def _op_calls():
-    from xclim_tpu_torch.ops import (bootstrap, eqmadjust, qdmadjust, segred,
-                                     spells, winquantile)
+    from xclim_tpu_torch.ops import (betainc, bootstrap, eqmadjust, qdmadjust,
+                                     segred, spells, winquantile)
     from xclim_tpu_torch.ops.quantile import nan_quantile
 
     rng = np.random.default_rng(1)
@@ -451,6 +454,8 @@ def _op_calls():
     tabs = bootstrap.topk_rank_tables(D.reshape(2, 12, 4),
                                       np.arange(4).repeat(3), 6)
     return {
+        "op.betainc": lambda: betainc.betainc(
+            torch.abs(af[0]) + 1.0, 0.5, torch.sigmoid(x2[:5])),
         "op.bootstrap": lambda: bootstrap.merge_rank_replaced_year_quantile(
             *tabs, None, None, 1, 0.9, samples=D),
         "op.winquantile": lambda: winquantile.doy_window_quantiles(xg, q, 3),

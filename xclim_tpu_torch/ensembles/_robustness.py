@@ -2,13 +2,16 @@
 
 Significance tests are computed analytically on the data's device
 (Student-t / Welch / Mann-Whitney normal approximation / Brown-Forsythe F),
-with :func:`_betainc`, a torch port of XLA's regularized incomplete beta,
-supplying the t and F distribution functions: ``torch.special`` has none.
+with :func:`_betainc`, XLA's regularized incomplete beta as the op
+``ops/betainc.py`` (the kernel ``csrc/betainc.cu`` on the card), supplying
+the t and F distribution functions: ``torch.special`` has none.
 
 Spans: ``ensembles.robustness`` around :func:`robustness_fractions`, and
 inside it ``ensembles.moments`` (the time moments and the t statistic) and
-``ensembles.betainc`` (each :func:`_betainc` evaluation); the counter
-``betainc_terms`` counts the continued fraction's steps, one host sync each.
+``ensembles.betainc`` (each :func:`_betainc` evaluation, around the op's
+``op.betainc``); the counter ``betainc_terms``, counted to ``op.betainc``,
+is one a kernel launch on the card and one a continued-fraction step (and
+host check) of the CPU twin.
 """
 
 from __future__ import annotations
@@ -19,90 +22,22 @@ import numpy as np
 import torch
 
 from xclim_tpu_torch.core.dataarray import ClimArray, ClimDataset
+from xclim_tpu_torch.ops import betainc
 from xclim_tpu_torch.ops.quantile import nan_quantile
-from xclim_tpu_torch.utils.profiling import count, span
+from xclim_tpu_torch.utils.profiling import span
 
 __all__ = ["robustness_fractions", "robustness_categories", "robustness_coefficient"]
 
-_F32 = np.finfo(np.float32)
-#: the continued fraction's small value and tolerance: float32 eps / 2
-_HALF_EPS = float(_F32.eps) / 2.0
-#: below this `a`, the prefactor uses a * gamma(a) -> 1
-_VERY_SMALL = float(_F32.tiny) * 2.0
-#: continued-fraction terms evaluated at most (XLA's count for float32)
-_BETAINC_ITERATIONS = 200
-
-
-def _betainc_numerator(it: int, a, b, x):
-    """Partial numerator `it` of the continued fraction (DLMF 8.17.23)."""
-    if it == 1:
-        return torch.ones_like(x)
-    m = (it - 1) // 2
-    if it % 2 == 0:
-        if m == 0:
-            return -(a + b) * x / (a + 1.0)
-        return -(a + m) * (a + b + m) * x / ((a + 2.0 * m) * (a + 2.0 * m + 1.0))
-    return m * (b - m) * x / ((a + 2.0 * m - 1.0) * (a + 2.0 * m))
+#: continued-fraction terms :func:`_betainc` asks for at most, plus one
+_BETAINC_ITERATIONS = betainc.ITERATIONS
 
 
 @span("ensembles.betainc")
 def _betainc(a, b, x) -> torch.Tensor:
-    """Regularized incomplete beta function I_x(a, b) in float32.
-
-    The Lentz-Thompson-Barnett evaluation of
-    ``jax._src.lax.special.regularized_incomplete_beta_impl`` (XLA's
-    ``math.cc``): the symmetry swap where x >= (a+1)/(a+b+2), float32
-    eps/2 as the small value and the tolerance, at most 200 terms, and the
-    loop runs until every element of the call has converged, as XLA's
-    while loop does; the same special cases (a or b zero or infinite, x at
-    0 or 1, out-of-domain and NaN arguments).
-    """
-    device = next(v.device for v in (a, b, x) if isinstance(v, torch.Tensor))
-    a, b, x = torch.broadcast_tensors(*(
-        torch.as_tensor(v, dtype=torch.float32, device=device)
-        for v in (a, b, x)))
-    a_is_zero = (a == 0) | (b == torch.inf)
-    b_is_zero = (b == 0) | (a == torch.inf)
-    x_is_zero = x == 0
-    x_is_one = x == 1
-    is_nan = torch.isnan(a) | torch.isnan(b) | torch.isnan(x)
-    result_is_zero = (b_is_zero & ~x_is_one) | (a_is_zero & x_is_zero)
-    result_is_one = (a_is_zero & ~x_is_zero) | (b_is_zero & x_is_one)
-    result_is_nan = ((a < 0) | (b < 0) | (x < 0) | (x > 1)
-                     | (a_is_zero & b_is_zero) | is_nan)
-
-    converges_rapidly = x < (a + 1.0) / (a + b + 2.0)
-    a, b = torch.where(converges_rapidly, a, b), torch.where(converges_rapidly, b, a)
-    x = torch.where(converges_rapidly, x, 1.0 - x)
-
-    # iteration 0: partial denominator 0 -> the small value
-    h = torch.full_like(x, _HALF_EPS)
-    c = h
-    d = torch.zeros_like(x)
-    for it in range(1, _BETAINC_ITERATIONS):
-        count("betainc_terms")
-        num = _betainc_numerator(it, a, b, x)
-        c = 1.0 + num / c
-        c = torch.where(c.abs() < _HALF_EPS, _HALF_EPS, c)
-        d = 1.0 + num * d
-        d = torch.where(d.abs() < _HALF_EPS, _HALF_EPS, d)
-        d = torch.reciprocal(d)
-        delta = c * d
-        h = h * delta
-        if not bool(((delta - 1.0).abs() >= _HALF_EPS).any()):
-            break
-
-    lbeta_ab_small_a = torch.lgamma(b) - torch.lgamma(a + b)
-    lbeta_ab = torch.lgamma(a) + lbeta_ab_small_a
-    factor = torch.where(
-        a < _VERY_SMALL,
-        torch.exp(torch.log1p(-x) * b - lbeta_ab_small_a),
-        torch.exp(torch.log(x) * a + torch.log1p(-x) * b - lbeta_ab) / a)
-    result = h * factor
-    result = torch.where(converges_rapidly, result, 1.0 - result)
-    result = torch.where(result_is_zero, 0.0, result)
-    result = torch.where(result_is_one, 1.0, result)
-    return torch.where(result_is_nan, torch.nan, result)
+    """Regularized incomplete beta function I_x(a, b) in float32:
+    :func:`xclim_tpu_torch.ops.betainc.betainc` (one kernel launch on the
+    card, the plain twin on the CPU)."""
+    return betainc.betainc(a, b, x, _BETAINC_ITERATIONS)
 
 
 def _t_sf(t, df):

@@ -11,7 +11,8 @@ compute, tables and in-base years; ``percentiles.doy``; ``sdba.train`` and
 ``sdba.adjust`` with their units, tables, quantiles and attrs, DQM's
 scaling and detrend, and the EQM adjust of EQM and DQM;
 ``ensembles.percentiles`` and ``ensembles.robustness`` with its moments
-and ``ensembles.betainc``; the op entries ``op.*``). Outside
+and ``ensembles.betainc``, around ``op.betainc``; the op entries
+``op.*``). Outside
 :func:`tracing` a span costs one check of a module-level flag and returns
 its name's shared no-op. Inside it, each span
 keeps a record (name, id, parent id, the id of the outermost span it sits
@@ -25,7 +26,9 @@ call warn; the warnings are counted (``host_syncs``) and not shown.
 
 Counters. Beside ``host_syncs``, the program counts with :func:`count`,
 under any name, how it took a path that depends on its input (the
-callers name their own counters). Each count goes to the block's total
+callers name their own counters; ``betainc_terms``, for one, is one a
+kernel launch on the card and one a step of the CPU twin's continued
+fraction). Each count goes to the block's total
 and to the innermost open span's record, as a sync does, and is an empty
 ``xtt:<name>`` range on a profiler's clock, so that a trace holds it too.
 A counter never counted reads 0.
