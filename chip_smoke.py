@@ -2766,22 +2766,20 @@ def phase_chain(device, card, record):
     """bench.py's fused 10-indicator chain (the CLI --fused path) at its
     two rows, 320 x 320 and 100 x 100 cells x 10 noleap years: each step's
     launches and twin calls, the whole chain's, values against plain
-    per-year expressions, indicator-cell-days/s (median of 3), TG_MEAN
-    alone and the marginal ms per indicator as bench.py:596-600 computes
-    them, peak memory, a profile, and segred and spells against their
-    twins at the chain's own inputs."""
+    per-year expressions, peak memory, and segred and spells against their
+    twins at the chain's own inputs. The chain's time is the benchmark's
+    ``icclim16k.chain`` cell (30 icclim indicators, 16384 cells x 30
+    years)."""
     import torch
 
     from perfbench import roofline
     from xclim_tpu_torch import climjit_chain
-    from xclim_tpu_torch.core.indicator import registry
     from xclim_tpu_torch.ops import segred, spells
 
     crop = None
     for side in CH_SIDES:
         arrays = _chain_inputs(device, side)
         datas = [arrays[k].data for k in CH_VARS]
-        cells = side * side
         nbytes = sum(d.numel() * 4 for d in datas)
         steps = _chain_steps(arrays)
         fused = climjit_chain(steps)
@@ -2841,25 +2839,14 @@ def phase_chain(device, card, record):
         for k in ("segred", "spells"):
             record[k]["paths"][name] = counts[k]
         del outs
-        sec, runs = _timed(lambda: fused(*datas))
-        tas = arrays["tas"]
-        one, one_runs = _timed(lambda: registry["TG_MEAN"](tas, freq="MS"))
-        icd = 10 * CH_DAYS * cells / sec
         _log(f"[chain] fused 10-indicator chain ({CH_DAYS}, {side}, {side}) "
-             f"on {card}: {sec:.6f} s (median of 3 after a warm-up; runs "
-             f"{[round(v, 6) for v in runs]}), {icd:.1f} "
-             f"indicator-cell-days/s; TG_MEAN alone {one * 1e3:.3f} ms "
-             f"(runs {[round(v * 1e3, 3) for v in one_runs]}), marginal "
-             f"{(sec - one) / 9 * 1e3:.3f} ms per indicator "
-             f"(bench.py:596-600); peak device memory above the inputs "
+             f"on {card}: peak device memory above the inputs "
              f"{peak:.3f} GiB (inputs {nbytes / 2**30:.3f} GiB); launches "
              f"{json.dumps({k: v for k, v in counts.items() if v})}, twin "
              f"calls 0; partition {fused.partition}")
         if side != CH_SIDES[0]:
             continue
 
-        _profile(f"fused 10-indicator chain ({CH_DAYS}, {side}, {side})",
-                 lambda: fused(*datas), card, top=12)
         # segred and spells against their twins at the chain's own inputs
         ys = arrays["tas"].resample("YS").spec
         ms_spec = arrays["tas"].resample("MS").spec

@@ -5,7 +5,9 @@ around their operations on the profiler's clock; emitted at every site of
 the indicator, bootstrap, percentile, sdba (DQM's scaling and detrend,
 EQM's adjust and its node passes), ensembles (the percentiles, the
 robustness with its moments and incomplete beta, and the continued
-fraction's steps) and op layers; and without effect on any output.
+fraction's steps), run-length (the run statistics, the season parts and
+the rolling reduction, never one inside another of its name), indicator
+call counter and op layers; and without effect on any output.
 
 The file imports no JAX: its ``cuda`` test runs on the card with
 
@@ -148,6 +150,60 @@ def _ensemble_calls():
     rf = robustness_fractions(ens.isel(time=slice(183, 365)),
                               ens.isel(time=slice(0, 182)), test="ttest")
     return [p.data for p in per.values()] + [rf[k].data for k in rf.keys()]
+
+
+def _icclim_suite():
+    """The benchmark caller's ECA&D suite (30 calls of the icclim module
+    over tas, tasmax, tasmin and pr) on 2 x 3 cells x 3 noleap years of CPU
+    tensors: the outputs."""
+    import copy
+    import json
+    import pathlib
+
+    from perfbench.callers import icclim as caller
+
+    path = (pathlib.Path(caller.__file__).resolve().parent.parent
+            / "configs" / "icclim_ecad_16k.json")
+    config = copy.deepcopy(json.loads(path.read_text()))
+    config["data"].update(grid=[2, 3], years=3)
+    state = caller.setup(config, 5, torch.device("cpu"))
+    state["config"] = config
+    caller.suite(state)
+    return [o.data for o in state["outs"]]
+
+
+def _run_length_calls():
+    """The run-length API's entries on a bool series over 3 noleap years of
+    2 cells (runs of every length, a season in most years)."""
+    from xclim_tpu_torch.indices import run_length as rl
+
+    time = date_range("1991-01-01", periods=3 * 365, freq="D",
+                      calendar="noleap")
+    rng = np.random.default_rng(2)
+    doy = np.arange(len(time)) % 365
+    p = 0.5 + 0.45 * np.sin(2 * np.pi * (doy - 105) / 365.0)[:, None]
+    cond = ClimArray(torch.as_tensor(rng.random((len(time), 2)) < p),
+                     ("time", "x"), {"time": time, "x": np.arange(2)},
+                     {"units": ""}, "cond")
+    return {
+        "season": lambda: rl.season(cond, 4, mid_date="07-01", freq="YS"),
+        "season_whole": lambda: rl.season_length(cond.isel(
+            time=slice(0, 365)), 4, mid_date="07-01"),
+        "first_run_after_date": lambda: rl.first_run_after_date(cond, 3),
+        "last_run_before_date": lambda: rl.last_run_before_date(cond, 3),
+        "first_run_before_date": lambda: rl.first_run_before_date(cond, 3),
+        "run_end_after_date": lambda: rl.run_end_after_date(cond, 3),
+        "longest_run": lambda: rl.longest_run(cond, freq="YS"),
+        "longest_run_whole": lambda: rl.longest_run(cond),
+        "windowed_run_count": lambda: rl.windowed_run_count(cond, 3, "YS"),
+        "windowed_run_events": lambda: rl.windowed_run_events(cond, 3, "YS"),
+        "windowed_max_run_sum": lambda: rl.windowed_max_run_sum(
+            cond.astype(torch.float32), 2, "YS"),
+        "rle_statistics_q90": lambda: rl.rle_statistics(cond, "q90", 2, "YS"),
+        "first_last_run": lambda: (rl.first_run(cond, 3, "YS"),
+                                   rl.last_run(cond, 3, "YS")),
+        "keep_longest_run": lambda: rl.keep_longest_run(cond, "YS"),
+    }
 
 
 # ---------------------------------------------------------------- off
@@ -439,6 +495,51 @@ def test_betainc_steps_are_ranges_inside_the_betainc_span():
                <= beta.end_ns() for e in steps)
 
 
+def test_icclim_suite_sites_and_the_indicator_call_counter():
+    with tracing() as tr:
+        _icclim_suite()
+    names = _names(tr)
+    calls = [s for s in tr.spans if s["name"] == "indicator.call"]
+    assert len(calls) == tr.counters["indicator_calls"] == 30
+    # one count an Indicator.__call__, in its own outermost span
+    assert all(s["indicator_calls"] == 1 and s["parent"] is None
+               for s in calls)
+    assert sum(s["indicator_calls"] for s in tr.spans) == 30
+    # CSU, CFD, CDD, CWD; GSL; RX5day
+    assert names.count("runlength.runs") == 4
+    assert names.count("runlength.season") == 1
+    assert names.count("rolling.reduce") == 1
+    rec = {s["id"]: s for s in tr.spans}
+    for s in tr.spans:
+        if s["name"].startswith(("runlength.", "rolling.")):
+            assert rec[s["parent"]]["name"] == "indicator.compute"
+
+
+def _ancestors(span, rec):
+    while span["parent"] is not None:
+        span = rec[span["parent"]]
+        yield span["name"]
+
+
+@pytest.mark.parametrize("case", ["suite", *sorted(_run_length_calls())])
+def test_no_run_length_span_opens_inside_one_it_is_counted_with(case):
+    """The metric ``indices.runlength_ms`` sums the device time launched in
+    ``runlength.runs`` and ``runlength.season``: an operation inside two
+    such spans would count twice, as it would inside two of one name."""
+    fn = _icclim_suite if case == "suite" else _run_length_calls()[case]
+    with tracing() as tr:
+        fn()
+    rec = {s["id"]: s for s in tr.spans}
+    seen = set()
+    for s in tr.spans:
+        up = set(_ancestors(s, rec))
+        assert s["name"] not in up, s["name"]
+        if s["name"].startswith("runlength."):
+            assert not {"runlength.runs", "runlength.season"} & up, case
+            seen.add(s["name"])
+    assert seen
+
+
 def _op_calls():
     from xclim_tpu_torch.ops import (betainc, bootstrap, eqmadjust, qdmadjust,
                                      segred, spells, winquantile)
@@ -494,11 +595,12 @@ def test_the_axisquantile_entry_opens_its_span_before_it_refuses_the_cpu():
 
 
 @pytest.mark.parametrize("case", ["bootstrap", "plain", "qdm", "dqm", "eqm",
-                                  "ensembles"])
+                                  "ensembles", "icclim"])
 def test_outputs_are_bit_equal_with_tracing_on_and_off(case):
     fn = {"bootstrap": lambda: _etccdi(True),
           "plain": lambda: _etccdi(False), "qdm": _qdm, "dqm": _dqm,
-          "eqm": _eqm, "ensembles": _ensemble_calls}[case]
+          "eqm": _eqm, "ensembles": _ensemble_calls,
+          "icclim": _icclim_suite}[case]
     off = fn()
     with tracing() as tr:
         on = fn()

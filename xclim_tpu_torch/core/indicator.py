@@ -48,7 +48,7 @@ from xclim_tpu_torch.core.options import (
 )
 from xclim_tpu_torch.core.units import convert_units_to, units2pint
 from xclim_tpu_torch.core.variables import VARIABLES
-from xclim_tpu_torch.utils.profiling import span
+from xclim_tpu_torch.utils.profiling import count, span
 
 __all__ = [
     "Daily",
@@ -363,6 +363,7 @@ class Indicator:
                     out[key] = self(*args, ds=node, **kwds)
             return out
         with span("indicator.call"):
+            count("indicator_calls")
             with span("indicator.checks"):
                 das, params = self._parse_variables_from_call(args, kwds, ds)
                 self._preprocess_and_checks(das, params)

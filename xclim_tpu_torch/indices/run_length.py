@@ -9,6 +9,13 @@ and ``keep_longest_run``, ``jax.lax.scan``). Here both are a fixed number of
 tensor ops whatever the length of the series: a step's state follows from
 the last position at or before it where the scan would set it and the last
 where it would clear it, two running maxima (``torch.cummax``).
+
+Tracing: the season parts and the date-constrained runs (GSL's route:
+``_season_parts`` under ``season_start``/``season_end``/``season_length``,
+``first_run_after_date`` and its kin, ``run_end_after_date``) open the
+program span ``runlength.season`` and find their runs with the engine's
+body (``_rl._boundary_run``), so that no ``runlength.runs`` span opens
+inside it.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ import torch
 from xclim_tpu_torch.core.calendar import SegmentSpec, TimeIndex, resample_segments
 from xclim_tpu_torch.core.dataarray import ClimArray
 from xclim_tpu_torch.ops import runlength as _rl
+from xclim_tpu_torch.utils.profiling import span
 
 __all__ = [
     "cumsum_reset",
@@ -45,6 +53,9 @@ __all__ = [
     "suspicious_run",
     "find_events",
 ]
+
+#: the program span of the season parts and the date-constrained runs
+SEASON_SPAN = "runlength.season"
 
 
 def _spec(da: ClimArray, freq: str | None) -> SegmentSpec | None:
@@ -202,6 +213,7 @@ def _mask_after(da: ClimArray, spec: SegmentSpec, mid_idx, has, offset: int = 0,
     return (pos > step_thresh) if strict else (pos >= step_thresh)
 
 
+@span(SEASON_SPAN)
 def _apply_date_masked_run(da, freq, window, date, which, mask_builder, coord):
     spec = _spec(da, freq)
     if spec is None:
@@ -209,8 +221,7 @@ def _apply_date_masked_run(da, freq, window, date, which, mask_builder, coord):
     mid_idx, has = _mid_date_index(da.time, spec, date)
     mask = mask_builder(spec, mid_idx, has)
     x = _rl._as_bool(da.data) & _along(mask, da)
-    fn = _rl.first_run if which == "first" else _rl.last_run
-    idx = fn(x, window, axis=da.time_axis, spec=spec)
+    idx = _rl._boundary_run(x, window, da.time_axis, spec, which)
     # segments without the date give NaN
     idx = torch.where(_along(has, da), idx, torch.nan)
     return _wrap_seg(da, _index_to_doy(da, idx, coord), spec)
@@ -252,6 +263,7 @@ def _last_step(da: ClimArray, spec: SegmentSpec | None):
     return _along(last, da)
 
 
+@span(SEASON_SPAN)
 def run_end_after_date(da: ClimArray, window: int, date: str = "07-01",
                        freq: str = "YS", coord="dayofyear") -> ClimArray:
     """Index of first item after the end of a run that began before `date` and
@@ -263,8 +275,8 @@ def run_end_after_date(da: ClimArray, window: int, date: str = "07-01",
     b = _rl._as_bool(da.data)
     end_x = ~b & _along(after, da)
     beg_x = b & _along(~after, da)
-    end = _rl.first_run(end_x, window, axis=ax, spec=spec)
-    beg = _rl.first_run(beg_x, window, axis=ax, spec=spec)
+    end = _rl._boundary_run(end_x, window, ax, spec, "first")
+    beg = _rl._boundary_run(beg_x, window, ax, spec, "first")
     # where no end is found but a beginning exists: the period's last step
     end = torch.where(torch.isnan(end) & ~torch.isnan(beg), _last_step(da, spec),
                       end)
@@ -278,6 +290,7 @@ def run_end_after_date(da: ClimArray, window: int, date: str = "07-01",
 # ---------------------------------------------------------------------------
 
 
+@span(SEASON_SPAN)
 def _season_parts(da: ClimArray, window: int, mid_date: str | None, freq: str):
     if freq is None:
         # whole-axis season (the reference's default, xclim :998): no
@@ -294,7 +307,7 @@ def _season_parts(da: ClimArray, window: int, mid_date: str | None, freq: str):
         beg_x = b & _along(before, da)
     else:
         beg_x = b
-    beg = _rl.first_run(beg_x, window, axis=ax, spec=spec)
+    beg = _rl._boundary_run(beg_x, window, ax, spec, "first")
 
     # end: the first run of `window` Falses after the start (and mid_date)
     pos = _along(np.arange(n, dtype=np.float32), da)
@@ -304,7 +317,7 @@ def _season_parts(da: ClimArray, window: int, mid_date: str | None, freq: str):
     not_da = ~b & (pos >= beg_per_step)
     if mid_date is not None:
         not_da = not_da & _along(_mask_after(da, spec, mid_idx, has), da)
-    end = _rl.first_run(not_da, window, axis=ax, spec=spec)
+    end = _rl._boundary_run(not_da, window, ax, spec, "first")
 
     if mid_date is not None:
         hasv = _along(has, da)
@@ -334,12 +347,12 @@ def _season_parts_whole(da: ClimArray, window: int, mid_date: str | None = None)
         beg_x = b & (pos < mid + window - 1)
     else:
         beg_x = b
-    beg = _rl.first_run(beg_x, window, axis=ax, spec=None)  # (space,) abs idx
+    beg = _rl._boundary_run(beg_x, window, ax, None, "first")  # (space,) abs idx
     beg_per_step = torch.nan_to_num(beg, nan=torch.inf).unsqueeze(ax)
     not_da = ~b & (pos >= beg_per_step)
     if mid_date is not None:
         not_da = not_da & (pos >= mid)
-    end = _rl.first_run(not_da, window, axis=ax, spec=None)
+    end = _rl._boundary_run(not_da, window, ax, None, "first")
     if not has_date:
         beg = torch.full_like(beg, torch.nan)
         end = torch.full_like(end, torch.nan)

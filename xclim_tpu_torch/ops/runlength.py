@@ -20,6 +20,13 @@ with a segment spec that tiles the time axis and
 on a CUDA tensor, its plain twin on a CPU tensor. The rest takes the plain
 torch path below, which follows the reference's XLA route.
 
+Tracing: the run statistics (``rle_statistics``, ``longest_run``,
+``windowed_run_count``, ``windowed_run_events``, ``windowed_max_run_sum``,
+``first_run``, ``last_run``) each open the program span
+``runlength.runs``. One never opens inside another: an entry that needs
+another's work calls its body (``__wrapped__``, or ``_boundary_run``), so
+each device operation is counted to one such span.
+
 Semantics (the reference's, verified against xclim):
 
 * ``rle(index='first')`` puts each run's total length on its FIRST element,
@@ -46,6 +53,7 @@ from xclim_tpu_torch.ops.segments import (
     build_gather_table,
     segment_reduce,
 )
+from xclim_tpu_torch.utils.profiling import span
 
 __all__ = [
     "cumsum_reset",
@@ -59,6 +67,9 @@ __all__ = [
     "last_run",
     "suspicious_run",
 ]
+
+#: the program span of every run statistic
+RUNS_SPAN = "runlength.runs"
 
 
 def _bcast(v: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -193,6 +204,7 @@ _FULL_REDUCERS = {
 }
 
 
+@span(RUNS_SPAN)
 def rle_statistics(x, reducer: str, window: int, axis: int = 0,
                    spec: SegmentSpec | None = None, index: str = "first",
                    resample_before_rl: bool = True) -> torch.Tensor:
@@ -252,6 +264,7 @@ def _spell(x, window, axis, spec, resample_before_rl, what):
     return out[("cnt", "wrc", "wre", "lng").index(what)]
 
 
+@span(RUNS_SPAN)
 def longest_run(x, axis: int = 0, spec: SegmentSpec | None = None,
                 index: str = "first",
                 resample_before_rl: bool = True) -> torch.Tensor:
@@ -259,10 +272,12 @@ def longest_run(x, axis: int = 0, spec: SegmentSpec | None = None,
     out = _spell(x, 1, axis, spec, resample_before_rl, "lng")
     if out is not None:
         return out
-    return rle_statistics(x, "max", 1, axis=axis, spec=spec, index=index,
-                          resample_before_rl=resample_before_rl)
+    return rle_statistics.__wrapped__(x, "max", 1, axis=axis, spec=spec,
+                                      index=index,
+                                      resample_before_rl=resample_before_rl)
 
 
+@span(RUNS_SPAN)
 def windowed_run_count(x, window: int, axis: int = 0,
                        spec: SegmentSpec | None = None, index: str = "first",
                        resample_before_rl: bool = True) -> torch.Tensor:
@@ -278,6 +293,7 @@ def windowed_run_count(x, window: int, axis: int = 0,
     return _seg_or_full(torch.nan_to_num(d, nan=0.0), spec, axis, "sum")
 
 
+@span(RUNS_SPAN)
 def windowed_run_events(x, window: int, axis: int = 0,
                         spec: SegmentSpec | None = None, index: str = "first",
                         resample_before_rl: bool = True) -> torch.Tensor:
@@ -302,6 +318,7 @@ def windowed_run_events(x, window: int, axis: int = 0,
     return _seg_or_full(d, spec, axis, "sum")
 
 
+@span(RUNS_SPAN)
 def windowed_max_run_sum(x, window: int, axis: int = 0,
                          spec: SegmentSpec | None = None, index: str = "first",
                          resample_before_rl: bool = True) -> torch.Tensor:
@@ -350,6 +367,7 @@ def _boundary_run(x, window, axis, spec, position, resample_before_rl=True):
     return out.movedim(0, axis)
 
 
+@span(RUNS_SPAN)
 def first_run(x, window: int, axis: int = 0, spec: SegmentSpec | None = None,
               resample_before_rl: bool = True) -> torch.Tensor:
     """Index of the first item of the first run of at least `window`
@@ -357,6 +375,7 @@ def first_run(x, window: int, axis: int = 0, spec: SegmentSpec | None = None,
     return _boundary_run(x, window, axis, spec, "first", resample_before_rl)
 
 
+@span(RUNS_SPAN)
 def last_run(x, window: int, axis: int = 0, spec: SegmentSpec | None = None,
              resample_before_rl: bool = True) -> torch.Tensor:
     """Index of the last item of the last run of at least `window`

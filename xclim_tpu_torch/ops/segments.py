@@ -17,7 +17,8 @@ Dispatch of :func:`segment_reduce`:
   a masked dense reduction.
 
 The time axis may be any axis. All reductions skip NaN unless
-``skipna=False`` (xarray's default).
+``skipna=False`` (xarray's default). :func:`rolling_reduce` opens the
+program span ``rolling.reduce``.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch
 from xclim_tpu_torch.core.calendar import SegmentSpec
 from xclim_tpu_torch.ops import segred
 from xclim_tpu_torch.ops.quantile import nan_quantile
+from xclim_tpu_torch.utils.profiling import span
 
 __all__ = [
     "build_gather_table",
@@ -214,6 +216,7 @@ def segment_first_last(x: torch.Tensor, spec: SegmentSpec,
     return out.movedim(0, axis)
 
 
+@span("rolling.reduce")
 def rolling_reduce(x: torch.Tensor, window: int, op: str, axis: int = 0,
                    min_periods: int | None = None,
                    center: bool = False) -> torch.Tensor:

@@ -6,7 +6,9 @@ here the equivalents are profiler traces in the Chrome trace format
 wall-clock timing that waits for the card.
 
 Spans. The program opens :func:`span` at its stages (``indicator.call`` and
-its checks, compute, units, missing and attrs; the bootstrap's plain
+its checks, compute, units, missing and attrs; the run statistics
+``runlength.runs``, the season parts and date-constrained runs
+``runlength.season``, ``rolling.reduce``; the bootstrap's plain
 compute, tables and in-base years; ``percentiles.doy``; ``sdba.train`` and
 ``sdba.adjust`` with their units, tables, quantiles and attrs, DQM's
 scaling and detrend, and the EQM adjust of EQM and DQM;
@@ -28,7 +30,7 @@ Counters. Beside ``host_syncs``, the program counts with :func:`count`,
 under any name, how it took a path that depends on its input (the
 callers name their own counters; ``betainc_terms``, for one, is one a
 kernel launch on the card and one a step of the CPU twin's continued
-fraction). Each count goes to the block's total
+fraction; ``indicator_calls`` is one an ``Indicator.__call__``). Each count goes to the block's total
 and to the innermost open span's record, as a sync does, and is an empty
 ``xtt:<name>`` range on a profiler's clock, so that a trace holds it too.
 A counter never counted reads 0.
