@@ -15,7 +15,9 @@ shapes are the card tests', ``tests/test_torch_kernels_cuda.py``):
    through the kernels (launch counts) and that the result is right, times
    it, runs EQM once, times each kernel against its twin at the slice's
    shapes, and runs winquantile's stage profile there (each stage's
-   result held against its plain expression);
+   result held against its plain expression); then holds winquantile
+   against its twin at the benchmark cells' (365, 30, 65536) and times
+   it there beside its bound, the twin and the stage profile;
 3. runs the same public call on the first 256 cells with CPU tensors (the
    twins) and on the card (the kernels) and compares the outputs;
 4. drives the indicator slice ``atmos.tg_mean(tas, freq="MS")`` at the
@@ -440,6 +442,47 @@ def _count_calls(targets, run):
     return counts, result
 
 
+#: the benchmark cells' winquantile shape: (365, 30, WQ_CELLS), window 31
+WQ_CELLS = 65536
+
+
+def _winquantile_at(cells, q, device, card, record):
+    """winquantile at (365, YEARS, cells) window WINDOW on the _lanes
+    slices: held value for value against its twin, timed beside the twin,
+    its bound (bytes) and the stage profile; kept in record["winquantile"]
+    ["at_cells"]."""
+    import torch
+
+    from perfbench import roofline
+    from xclim_tpu_torch.ops import winquantile
+    from xclim_tpu_torch.tools.prof_winquantile import stage_times
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    x = _lanes(gen, 365, YEARS, cells, device)
+    got = winquantile.doy_window_quantiles(x, q, WINDOW)
+    err = _compare(f"winquantile{tuple(x.shape)}", got,
+                   winquantile.doy_window_quantiles_plain(x, q, WINDOW),
+                   rtol=0.0, atol=0.0)
+    del got
+    ms = _cuda_ms(lambda: winquantile.doy_window_quantiles(x, q, WINDOW), 3)
+    pms = _cuda_ms(lambda: winquantile.doy_window_quantiles_plain(
+        x, q, WINDOW), 1)
+    nodes = 365 * len(q) * cells
+    bound = roofline.bound((x.numel() + nodes) * 4, 4 * nodes)
+    stage_ms = stage_times(x, q, WINDOW, reps=3)
+    record["winquantile"]["at_cells"][f"{cells}"] = {
+        "ms": ms, "plain_ms": pms, "bound_ms": bound["bound_ms"],
+        "stage_ms": stage_ms, "max_abs_err": err}
+    _log(f"[kernel vs twin] winquantile {tuple(x.shape)} window={WINDOW} "
+         f"({winquantile.instance(WINDOW, YEARS)} instance) on {card}: "
+         f"max_abs_err={err} (value-equal) kernel_ms={ms:.3f} "
+         f"twin_ms={pms:.3f} bound_ms={bound['bound_ms']:.4f} stages "
+         f"{json.dumps({k: round(v, 4) for k, v in stage_ms.items()})} ms")
+    del x
+    torch.cuda.empty_cache()
+
+
 def phase_slice(device, card, record):
     import torch
 
@@ -601,9 +644,15 @@ def phase_slice(device, card, record):
         **{k: record["winquantile"][k] for k in ("bound_ms", "bound_by")})
     _log(f"[winquantile stages] {tuple(xd.shape)} window={WINDOW} on {card}:"
          f" {json.dumps({k: round(v, 4) for k, v in stage_ms.items()})} ms "
-         f"(load+presort, + sort and slides, + node selection); each stage "
-         f"equal to its plain expression (max_abs_err={serr})")
+         f"(loads (+ presort where the instance has one), + sorts and "
+         f"slides, + node selection); each stage equal to its plain "
+         f"expression (max_abs_err={serr})")
     del got, ref
+    record["winquantile"]["at_cells"] = {
+        f"{C}": {"ms": ms, "plain_ms": pms,
+                 "bound_ms": record["winquantile"]["bound_ms"],
+                 "stage_ms": stage_ms}}
+    _winquantile_at(WQ_CELLS, q, device, card, record)
 
     # qdmadjust's two entries against their twins at the slice's own
     # inputs: the series through its adjust table (the main path), and the
@@ -930,7 +979,8 @@ def kernel_times(device) -> dict:
     the shapes this script times, through their public wrappers only
     (``doy_window_quantiles``, ``spell_stats``, ``qdm_adjust_doy``,
     ``axis_quantile_small``), on inputs made from SEED: the WQ_CASES, QDM's
-    (365, 30, 16384) slices at window 31, the _spell_cases, a
+    (365, 30, 16384) slices and the cells' (365, 30, 65536) at window 31,
+    the _spell_cases, a
     bootstrap-shaped condition (29 replacement-major copies of (10950,
     4096), 10 % True, YS), the QDM_CASES and the AXQ_CASES, and QDM's adjust
     and the ensemble's quantile at their slices' shapes. Every version of
@@ -957,6 +1007,11 @@ def kernel_times(device) -> dict:
     x = torch.randn((365, YEARS, SIDE * SIDE), generator=gen,
                     device=device) * 5.0 + 285.0
     out[f"winquantile {tuple(x.shape)} w{WINDOW} QDM"] = _cuda_ms(
+        lambda: winquantile.doy_window_quantiles(x, q, WINDOW), 3)
+    del x
+    x = torch.randn((365, YEARS, WQ_CELLS), generator=gen,
+                    device=device) * 5.0 + 285.0
+    out[f"winquantile {tuple(x.shape)} w{WINDOW} cells"] = _cuda_ms(
         lambda: winquantile.doy_window_quantiles(x, q, WINDOW), 3)
     del x
     for label, arg, segs, op, thresh in _spell_cases(gen, device):

@@ -194,7 +194,10 @@ def _cases(n_doy, Y, C, seed, kind):
     one valid sample in the whole series, lane 2 one valid sample per
     slice, the rest 10 % missing; ``kind`` adds heavy ties (values rounded
     to 0.5 K), +-inf samples, or a doy 366 that only the leap years have
-    (as tests/test_torch_winquantile.py builds them)."""
+    (as tests/test_torch_winquantile.py builds them); "straddle" rounds to
+    4 K (a few values, each filling several lanes' runs of a window), and
+    "nanslices" leaves whole doy slices missing (in every cell, and in all
+    but the first three), so that empty slices enter and leave."""
     rng = np.random.default_rng(seed)
     x = rng.normal(285.0, 5.0, (n_doy, Y, C)).astype(np.float32)
     x[rng.random(x.shape) < 0.1] = np.nan
@@ -211,6 +214,12 @@ def _cases(n_doy, Y, C, seed, kind):
     elif kind == "sparse366":
         x[365, :, :] = np.nan
         x[365, 3::4, :] = rng.normal(285.0, 5.0, (len(range(3, Y, 4)), C))
+    elif kind == "straddle":
+        x = np.round(x / 4.0) * 4.0
+    elif kind == "nanslices":
+        x[40:52] = np.nan
+        x[100:103, :, 3:] = np.nan
+        x[n_doy - 1] = np.nan
     return x.astype(np.float32)
 
 
@@ -275,6 +284,95 @@ def test_winquantile_stages_match_their_plain_expressions(cuda, stage, n_doy,
     torch.cuda.synchronize()
     assert winquantile.stage_launches == before + 1
     _value_equal(got, winquantile.stage_plain(x, Q, window, stage))
+
+
+# the warp instance's edges (window * Y <= 1024 samples) under the three
+# plans: w31 at 33 years (1023 samples) and 34 (the shared-memory
+# instance), window 1 at 1024 and 1025 years, slices sorted in shared
+# memory (more than 32 years), whole slices missing, equal values
+# straddling lanes, +-inf, a 1023-doy window of one year
+WARP_EDGES = [
+    (365, 33, 31, "normal", "warp"), (365, 34, 31, "normal", "shared"),
+    (40, 1024, 1, "normal", "warp"), (40, 1025, 1, "normal", "shared"),
+    (365, 30, 31, "nanslices", "warp"), (365, 30, 5, "nanslices", "warp"),
+    (365, 30, 31, "straddle", "warp"), (365, 200, 5, "straddle", "warp"),
+    (365, 30, 61, "straddle", "shared"), (365, 30, 31, "inf", "warp"),
+    (365, 300, 3, "inf", "warp"), (1100, 1, 1023, "normal", "warp")]
+
+
+@pytest.mark.parametrize("plan", ["shipped", "chunk_per_doy", "one_chunk"])
+@pytest.mark.parametrize("n_doy,Y,window,kind,which", WARP_EDGES)
+def test_winquantile_warp_instance_edges_value_equal(cuda, monkeypatch, n_doy,
+                                                     Y, window, kind, which,
+                                                     plan):
+    target = {"shipped": None, "chunk_per_doy": 1 << 30, "one_chunk": 1}
+    if target[plan] is not None:
+        monkeypatch.setattr(winquantile, "TARGET_BLOCKS", target[plan])
+        monkeypatch.setattr(winquantile, "TARGET_BLOCKS_SMEM", target[plan])
+    assert winquantile.instance(window, Y) == which
+    x = torch.as_tensor(_cases(n_doy, Y, 67, seed=Y + window, kind=kind),
+                        device=cuda)
+    counts = (winquantile.launches, winquantile.warp_launches)
+    got = winquantile.doy_window_quantiles(x, Q, window)
+    torch.cuda.synchronize()
+    assert (winquantile.launches, winquantile.warp_launches) == (
+        counts[0] + 1, counts[1] + (which == "warp"))
+    _value_equal(got, winquantile.doy_window_quantiles_plain(x, Q, window))
+
+
+# past 252 nodes the warp instance writes each cell's nodes itself (no
+# block staging): 300 nodes, with the stages' results besides
+def test_winquantile_warp_instance_many_nodes(cuda):
+    x = torch.as_tensor(_cases(365, 30, 67, seed=5, kind="ties"), device=cuda)
+    q = np.linspace(0.0, 1.0, 300).astype(np.float32)
+    _value_equal(winquantile.doy_window_quantiles(x, q, 31),
+                 winquantile.doy_window_quantiles_plain(x, q, 31))
+    for stage in (0, 1):
+        _value_equal(winquantile.doy_window_stage(x, q, 31, stage),
+                     winquantile.stage_plain(x, q, 31, stage))
+
+
+@pytest.mark.parametrize("window,Y,which", [
+    (31, 30, "warp"), (1, 1024, "warp"), (61, 30, "shared"),
+    (31, 300, "global")])
+def test_winquantile_counts_the_warp_instance(cuda, window, Y, which):
+    """warp_launches and the tracing counter winquantile_warp_launches
+    (inside op.winquantile) count one a launch of the warp instance, none
+    of the other instances, and none on the CPU."""
+    from xclim_tpu_torch.utils import profiling
+
+    warp = int(which == "warp")
+    x = torch.as_tensor(_cases(40, Y, 16, seed=Y, kind="normal"), device=cuda)
+    for xs, launched in ((x, 1), (x.cpu(), 0)):
+        counts = (winquantile.launches, winquantile.warp_launches,
+                  winquantile.global_launches)
+        with profiling.tracing() as tr:
+            winquantile.doy_window_quantiles(xs, Q, window)
+        torch.cuda.synchronize()
+        assert (winquantile.launches, winquantile.warp_launches,
+                winquantile.global_launches) == (
+            counts[0] + launched, counts[1] + launched * warp,
+            counts[2] + launched * (which == "global"))
+        assert tr.counters["winquantile_warp_launches"] == launched * warp
+        op = [s for s in tr.spans if s["name"] == "op.winquantile"]
+        assert len(op) == 1
+        assert op[0]["winquantile_warp_launches"] == launched * warp
+
+
+def test_winquantile_warp_instance_allocates_its_output_only(cuda):
+    # no presorted copy of the slices (179 MB at this shape) and no
+    # scratch: the call's peak rises by its output, plus under 1 MiB for
+    # the allocator's rounding
+    x = torch.as_tensor(_cases(365, 30, 4096, seed=4, kind="normal"),
+                        device=cuda)
+    winquantile.doy_window_quantiles(x, Q, 31)   # node constants cached
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = winquantile.doy_window_quantiles(x, Q, 31)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    assert out.numel() * 4 <= rise <= out.numel() * 4 + (1 << 20)
 
 
 @pytest.mark.parametrize("kind", ["+", "*"])

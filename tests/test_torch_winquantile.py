@@ -82,6 +82,31 @@ def test_window_in_shared_up_to_its_limit(window, Y, shared):
         not shared or window * Y > 4096)
 
 
+@pytest.mark.parametrize("window,Y,which", [
+    (31, 30, "warp"), (31, 33, "warp"), (31, 34, "shared"), (1, 1024, "warp"),
+    (1, 1025, "shared"), (5, 204, "warp"), (5, 205, "shared"),
+    (1023, 1, "warp"), (1, 0, "warp"), (61, 30, "shared"), (31, 264, "shared"),
+    (31, 265, "global"), (1, 8193, "global")])
+def test_instance_by_shape(window, Y, which):
+    # one warp a cell while the padded window fits 1024 samples, a block's
+    # shared memory up to MAX_P2, global scratch past it
+    assert winquantile.instance(window, Y) == which
+    assert (which == "warp") is (window * Y <= winquantile.WARP_P2 == 1024)
+    assert (which == "global") is not winquantile.window_in_shared(window, Y)
+    assert (winquantile.cells_per_block(window, Y) == 8) is (which == "warp")
+
+
+def test_cpu_call_counts_no_warp_launch():
+    from xclim_tpu_torch.utils import profiling
+
+    x = torch.as_tensor(_slices(365, 3, 4, seed=2))
+    before = winquantile.warp_launches
+    with profiling.tracing() as tr:
+        winquantile.doy_window_quantiles(x, Q, 31)
+    assert winquantile.warp_launches == before
+    assert tr.counters["winquantile_warp_launches"] == 0
+
+
 @pytest.mark.parametrize("bad,err", [
     (lambda: torch.zeros(5, 3, 2, dtype=torch.float64), TypeError),
     (lambda: torch.zeros(5, 6, dtype=torch.float32), ValueError),

@@ -12,27 +12,53 @@
 // with NaN = missing, C contiguous; output (n_doy, nq, C). A window with no
 // valid sample gives NaN.
 //
-// What bounds it on the card: issuing the work that keeps each window
-// sorted. Bytes are few (the slices read a few times, mostly from L2, and
-// the nodes written once); sorting every (doy, cell) window from scratch
-// (the previous design) cost ~28 K compare-exchanges a pair at 930
-// samples, and every sample was sorted again in each of its 31 windows.
+// Design: a sliding sorted window, as the TPU kernel merged presorted
+// runs. A block takes neighbouring cells and one chunk of the doy axis
+// (the host splits n_doy into chunks so that the grid has a few thousand
+// blocks); at the chunk's first doy each cell's whole window is sorted,
+// then each step g -> g+1 takes slice g-half out and slice g+half+1 in.
+// Which instance runs is set by the padded window P2 (window * Y rounded up
+// to a power of two, at least 32):
 //
-// Design: a sliding sorted window, as the TPU kernel merged presorted runs.
-//  1. presort_kernel sorts each doy slice of Y values per cell once (NaN ->
-//     +inf, a warp's register bitonic sort up to 1024 padded values, a
-//     block's shared-memory sort above) into a scratch (n_doy, C, Y) array:
-//     the sorted valid samples, then NaN.
-//  2. slide_kernel: a block takes CT neighbouring cells and one chunk of the
-//     doy axis (the host splits n_doy into chunks so that the grid has a
-//     few thousand blocks; one chunk per doy sorts every window in full and
-//     skips the presort). At the chunk's first doy it gathers and
-//     bitonic-sorts each cell's whole window (register path for P2 <= 1024
-//     with CT = 8, one warp a cell; shared-memory path up to P2 = 8192
-//     with CT = 8192 / P2; past that, the global-scratch instance below).
-//     Then each step g -> g+1 removes the presorted
-//     slice g-half and merges in the presorted slice g+half+1, writing the
-//     new window into the second of two shared buffers:
+// * P2 <= 1024, the warp instance (warp_kernel; sdba's w31 x 30 years):
+//   one warp owns one cell's window for its whole doy chunk, 8 cells a
+//   block, and meets the other warps only at one block barrier every few
+//   doys, where the block writes the node values it staged (8 neighbouring
+//   cells of a node as one 32-byte run). The window lives in the warp's
+//   shared memory as P2 sorted ranks: its n valid values, then +inf (lane
+//   l's run is ranks l*R .. l*R+R-1, R = P2/32, one float of padding every
+//   32 so the runs' k-th entries fall in 32 banks). The chunk's first
+//   window is sorted by the warp in shared memory; then each slide:
+//     - loads the outgoing and incoming slices (a value a lane at Y <= 32,
+//       prefetched one slide ahead) and sorts each in the warp (a 32-wide
+//       register bitonic network on both at once; a shared-memory one past
+//       32 years);
+//     - reads each lane's run into registers, then finds where the lane
+//       starts in the two sorted slices by binary searches over those
+//       <= Y values (never over the window): the incoming values not above
+//       the previous lane's last entry, and the outgoing values matched
+//       before the run (those below its first entry, and, where equal
+//       values straddle lanes, as many equal ones as the runs before hold:
+//       a segmented warp scan, run only when such a tie is matched);
+//     - walks the run once, writing each entry once: incoming values not
+//       above it go first, then the entry itself unless it equals the next
+//       outgoing value (removal by value: the outgoing slice is a
+//       sub-multiset of the window, and only values are read, so which of
+//       equal entries leaves does not matter). The +inf padding takes part
+//       as entries, so every incoming value lands before it.
+//   No presort pass and no scratch: each slice is sorted as it enters and
+//   again as it leaves. Window 1 sorts each doy's slice as its window.
+//   What bounds it: issue and latency, not bytes. A slide costs ~1000 warp
+//   instructions (the walk ~17 an entry: two compares, the store and its
+//   place, the cursor steps), so 23.9 M (cell, doy) slides a launch at
+//   sdba's shape, (365, 30, 65536), take ~42 ms on an H100 against ~2.3 ms
+//   of device-memory bytes; registers cap it at 4 blocks (32 warps) a SM.
+// * 1024 < P2 <= 8192, the shared-memory instance (slide_kernel): the
+//   previous design. presort_kernel sorts each doy slice once into a
+//   scratch (n_doy, C, Y) array (a warp's register bitonic sort up to
+//   1024 padded values, a block's shared-memory sort above); a block takes
+//   8192 / P2 cells, sorts their windows in shared memory at the chunk
+//   start, and each step merges the presorted slices:
 //       * removed value j (sorted run rout) takes old position
 //         lower_bound(old, rout[j]) + (j - lower_bound(rout, rout[j])): the
 //         k-th duplicate among the removed values takes the k-th equal
@@ -44,35 +70,33 @@
 //         the two counts only advance;
 //       * inserted value j moves to j + lower_bound(old, u) -
 //         lower_bound(rout, u) (kept entries below u).
-//     Inserted entries land before kept equal ones; only values are read,
-//     so any tie order gives the same quantiles. The valid count is the
-//     running sum of the slices' non-NaN entries.
-//  3. select_nodes reads the two order statistics of each node from the
-//     sorted window; the block writes 8 neighbouring cells of a node as one
-//     32-byte run.
-// Window 1 needs no slide: each doy's window is its presorted slice.
-// The +inf padding is exact: the first n_valid sorted entries are exactly
-// the sorted valid samples (a valid +inf equals the padding), and only
-// those ranks are read.
-//
-// Windows past kMaxP2 padded samples (w31 over more than 264 years, w91
-// over more than 90) do not fit a block's shared memory. Their instance
-// (template GLOBAL, one cell a block) runs the same code on the block's
-// own region of a global scratch array: the two window buffers, the slices
-// and the removed positions (the valid count stays in shared memory; the
-// block barriers order the global accesses as they order shared ones).
-// Its grid is persistent, at most kGlobalBlocks blocks walking over the
-// cells, so the scratch (xtt_winquantile_scratch floats) stays near 140 MB
-// at w31 x 300 years however many cells there are. A presort of more than
-// kMaxP2 years takes the same route. The only limit left is the valid
-// count's: a window holds at most kMaxWindow = 2^24 samples, which float32
-// counts exactly.
+//     The window holds W entries, NaN as +inf: the first n_valid sorted
+//     entries are exactly the sorted valid samples (a valid +inf equals
+//     the padding), and only those ranks are read. select_nodes reads the
+//     two order statistics of each node; with one chunk per doy every
+//     window is sorted in full and nothing is presorted.
+// * P2 > 8192 (w31 over more than 264 years, w91 over more than 90), the
+//   global-scratch instance (slide_kernel, template GLOBAL, one cell a
+//   block): the same code on the block's own region of a global scratch
+//   array: the two window buffers, the slices and the removed positions
+//   (the valid count stays in shared memory; the block barriers order the
+//   global accesses as they order shared ones). Its grid is persistent, at
+//   most kGlobalBlocks blocks walking over the cells, so the scratch
+//   (xtt_winquantile_scratch floats) stays near 140 MB at w31 x 300 years
+//   however many cells there are. A presort of more than kMaxP2 years
+//   takes the same route. The only limit left is the valid count's: a
+//   window holds at most kMaxWindow = 2^24 samples, which float32 counts
+//   exactly.
+// Inserted entries land before kept equal ones in every instance; any tie
+// order gives the same quantiles. The valid count is the running sum of
+// the slices' non-NaN entries.
 //
 // Stages (template STAGE, the profile of tools/prof_winquantile.py; the
 // entry point xtt_winquantile_stages, and so stages 0 and 1, are compiled
 // only with -DXTT_WINQUANTILE_STAGES, the build target winquantile_stages):
-//   0 presort + the per-doy loads of the window's slices and the running
-//     valid count; writes the count per (doy, cell) as float32 (nq = 1);
+//   0 the per-doy loads of the window's slices and the running valid count
+//     (and the presort, in the instances that have one); writes the count
+//     per (doy, cell) as float32 (nq = 1);
 //   1 + the chunk-start sort and the slides; writes the window's smallest
 //     valid value (NaN without one);
 //   2 + node selection: the shipped kernel (xtt_winquantile).
@@ -116,7 +140,7 @@ __host__ __device__ constexpr size_t slide_floats(int P2, int CT, int Y) {
   return 2 * (size_t)CT * row_stride(P2, CT) + 3 * (size_t)CT * Y;
 }
 
-__host__ int pow2_at_least(int n) {
+__host__ __device__ inline int pow2_at_least(int n) {
   int p = kWarp;
   while (p < n) p <<= 1;
   return p;
@@ -387,14 +411,15 @@ presort_kernel(const float* __restrict__ x, float* __restrict__ ps,
   } while (GLOBAL && (cg += gridDim.x) < (C + CT - 1) / CT);
 }
 
-// The sliding window. Grid (cell groups, chunks of the doy axis): block
-// (k, j) takes cell group k (GLOBAL: k, k + gridDim.x, ...) over chunk j.
+// The sliding window of the shared-memory and global-scratch instances
+// (P2 > kRegP2). Grid (cell groups, chunks of the doy axis): block (k, j)
+// takes cell group k (GLOBAL: k, k + gridDim.x, ...) over chunk j.
 // Shared (or, GLOBAL, the block's region of scratch, slide_floats each):
 // two window buffers of CT rows, the incoming and outgoing sorted slices
 // and the removed positions (CT x Y each); the valid counts stay in shared
 // memory. With one chunk per doy (nchunk == n_doy) every window is sorted
 // in full and nothing slides.
-template <int R, int STAGE, bool GLOBAL>
+template <int STAGE, bool GLOBAL>
 __global__ void __launch_bounds__(kThreads)
 slide_kernel(const float* __restrict__ x, const float* __restrict__ ps,
              float* __restrict__ out, const float* __restrict__ qv,
@@ -402,9 +427,8 @@ slide_kernel(const float* __restrict__ x, const float* __restrict__ ps,
              int Y, int C, int window, int nq, int nchunk, int P2_arg,
              int CT_arg) {
   extern __shared__ float smem[];
-  // compile-time on the register path, so divisions by them are shifts
-  const int P2 = R > 0 ? R * kWarp : P2_arg;
-  const int CT = R > 0 ? cells_per_block(R * kWarp) : CT_arg;
+  const int P2 = P2_arg;
+  const int CT = CT_arg;
   const int stride = row_stride(P2, CT);
   float* cur = GLOBAL ? scratch + (size_t)(blockIdx.y * gridDim.x + blockIdx.x)
                                       * slide_floats(P2, CT, Y)
@@ -442,7 +466,7 @@ slide_kernel(const float* __restrict__ x, const float* __restrict__ ps,
 
     if (window > 1) {
       load_windows(x, cur, nvalid, g0, c0, n_doy, Y, C, window, P2, CT);
-      if constexpr (STAGE >= 1) sort_rows<R>(cur, stride, P2, CT);
+      if constexpr (STAGE >= 1) sort_rows_smem(cur, stride, P2, CT);
     }
     for (int g = g0; g < g1; ++g) {
       float* row = cur + ct * stride;
@@ -540,6 +564,419 @@ slide_kernel(const float* __restrict__ x, const float* __restrict__ ps,
   } while (GLOBAL && (cg += gridDim.x) < (C + CT - 1) / CT);
 }
 
+// ---- The warp instance (P2 <= kRegP2): one warp a cell ----
+
+// Cells of a warp-instance block: one a warp. Four such blocks stay
+// resident on a SM (64 registers a thread): the slides wait on shared
+// memory and on each other's branches, so warps in flight set the pace.
+constexpr int kWarpCells = kThreads / kWarp;
+constexpr int kWarpBlocks = 4;
+// Staged node values a block holds at most (both buffers), and the most
+// doys it stages before a barrier; past kStageBytes a doy, each warp
+// writes its own nodes.
+constexpr int kStageBytes = 16 * 1024;
+constexpr int kMaxStageDoys = 8;
+
+// Place of sorted rank p in a warp's window: one float of padding after
+// every 32, so the k-th entries of the 32 lanes' runs fall in 32 banks.
+__device__ __forceinline__ int wpos(int p) { return p + (p >> 5); }
+
+// Floats of one warp's window: P2 ranks, and (window > 1) PY more that a
+// slide may shift the padding into.
+__host__ __device__ constexpr int window_floats(int P2, int PY, int window) {
+  return window > 1 ? (P2 + PY) + (P2 + PY) / 32 : P2 + P2 / 32;
+}
+
+// Floats of one warp's region: the window, then (window > 1) the sorted
+// incoming and outgoing slices, PY values and two NaN sentinels each;
+// rounded up to a multiple of 33, so that each warp's window starts where
+// rank 32 t of the block's padded layout would (merge_slices).
+__host__ __device__ constexpr int warp_floats(int P2, int PY, int window) {
+  return (window_floats(P2, PY, window) + (window > 1 ? 2 * (PY + 2) : 0) +
+          32) / 33 * 33;
+}
+
+// Row stride of a block's staged node values: nq rounded up to 4 mod 8,
+// so the 8 cells of 4 neighbouring nodes fall in 32 banks.
+__host__ __device__ constexpr int node_stride(int nq) {
+  return nq + ((12 - nq % 8) % 8);
+}
+
+// Doys of node values a block stages before one barrier writes them (0:
+// none, each warp writes its own nodes).
+__host__ int stage_doys(int nq) {
+  const int per_doy = 2 * kWarpCells * node_stride(nq) * (int)sizeof(float);
+  return std::min(kMaxStageDoys, kStageBytes / per_doy);
+}
+
+// Entries of the sorted a[0..N) (N a power of two, NaN after the values)
+// not above t (LT false) or below t (LT true): log2(N) + 1 dependent
+// loads; unrolled where N is given as the template's (a slice up to 32
+// years), else N = n.
+template <bool LT, int N>
+__device__ __forceinline__ int count_sorted(const float* a, int n, float t) {
+  int k = 0;
+#pragma unroll
+  for (int step = (N > 0 ? N : n) >> 1; step > 0; step >>= 1) {
+    const float e = a[k + step - 1];
+    if (LT ? e < t : e <= t) k += step;
+  }
+  const float e = a[k];
+  return k + (LT ? e < t : e <= t);
+}
+
+template <bool LT>
+__device__ __forceinline__ int count_slice(const float* a, int PY, float t) {
+  return PY == kWarp ? count_sorted<LT, kWarp>(a, PY, t)
+                     : count_sorted<LT, 0>(a, PY, t);
+}
+
+// Sorts a[0..N) ascending, N a power of two >= 32 (element i at
+// a[wpos(i)] if PADDED, else a[i]): the warp's bitonic network over shared
+// memory.
+template <bool PADDED>
+__device__ void warp_sort_smem(float* a, int N, int lane) {
+  for (int size = 2; size <= N; size <<= 1) {
+    for (int k = size >> 1; k > 0; k >>= 1) {
+      for (int p = lane; p < N / 2; p += kWarp) {
+        const int i = (p / k) * 2 * k + (p % k);
+        float* lo_at = a + (PADDED ? wpos(i) : i);
+        float* hi_at = a + (PADDED ? wpos(i + k) : i + k);
+        const float lo = *lo_at;
+        const float hi = *hi_at;
+        if ((lo > hi) == ((i & size) == 0)) {
+          *lo_at = hi;
+          *hi_at = lo;
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// Sorts a lane's a and b across the warp, each ascending in lane order:
+// the 32-wide bitonic network on both at once.
+__device__ __forceinline__ void sort32_pair(float& a, float& b, int lane) {
+#pragma unroll
+  for (int size = 2; size <= kWarp; size <<= 1) {
+#pragma unroll
+    for (int k = size >> 1; k > 0; k >>= 1) {
+      const float oa = __shfl_xor_sync(0xffffffffu, a, k);
+      const float ob = __shfl_xor_sync(0xffffffffu, b, k);
+      const bool keep_min = ((lane & k) == 0) == ((lane & size) == 0);
+      a = keep_min ? fminf(a, oa) : fmaxf(a, oa);
+      b = keep_min ? fminf(b, ob) : fmaxf(b, ob);
+    }
+  }
+}
+
+// Loads doy slice d of cell c (Y values, NaN = missing) into a[0..PY),
+// NaN as +inf, and returns its valid count; a needs sorting.
+__device__ __forceinline__ int load_slice(const float* __restrict__ x,
+                                          float* a, int d, int c, int Y,
+                                          int C, int PY, int lane) {
+  int cnt = 0;
+  for (int y = lane; y < PY; y += kWarp) {
+    const float xv = y < Y ? x[((size_t)d * Y + y) * C + c] : NAN;
+    cnt += !isnan(xv);
+    a[y] = isnan(xv) ? INFINITY : xv;
+  }
+  return __reduce_add_sync(0xffffffffu, cnt);
+}
+
+// The slices entering (doy d_in) and leaving (d_out) cell c's window,
+// sorted into uin and oin: their m and mo valid values first, then NaN up
+// to [PY + 1]. At Y <= 32 the caller has loaded sample `lane` of each
+// (in.x, in.y) and they are sorted in registers. STAGE 0 only counts.
+template <int STAGE>
+__device__ __forceinline__ void sorted_slices(const float* __restrict__ x,
+                                              float* uin, float* oin,
+                                              float2 in, int d_in, int d_out,
+                                              int c, int Y, int C, int PY,
+                                              int lane, int& m, int& mo) {
+  if (PY == kWarp) {
+    m = __popc(__ballot_sync(0xffffffffu, !isnan(in.x)));
+    mo = __popc(__ballot_sync(0xffffffffu, !isnan(in.y)));
+    if constexpr (STAGE >= 1) {
+      float a = isnan(in.x) ? INFINITY : in.x;
+      float b = isnan(in.y) ? INFINITY : in.y;
+      sort32_pair(a, b, lane);
+      uin[lane] = lane < m ? a : NAN;
+      oin[lane] = lane < mo ? b : NAN;
+      if (lane < 2) uin[kWarp + lane] = oin[kWarp + lane] = NAN;
+    }
+  } else if constexpr (STAGE >= 1) {
+    m = load_slice(x, uin, d_in, c, Y, C, PY, lane);
+    mo = load_slice(x, oin, d_out, c, Y, C, PY, lane);
+    __syncwarp();
+    warp_sort_smem<false>(uin, PY, lane);
+    warp_sort_smem<false>(oin, PY, lane);
+    for (int y = lane; y < PY + 2; y += kWarp) {
+      if (y >= m) uin[y] = NAN;
+      if (y >= mo) oin[y] = NAN;
+    }
+  } else {
+    m = mo = 0;
+    for (int y = lane; y < Y; y += kWarp) {
+      m += !isnan(x[((size_t)d_in * Y + y) * C + c]);
+      mo += !isnan(x[((size_t)d_out * Y + y) * C + c]);
+    }
+    m = __reduce_add_sync(0xffffffffu, m);
+    mo = __reduce_add_sync(0xffffffffu, mo);
+  }
+}
+
+// Sorts the window of doy g (slices g-half .. g+half) of cell c into win
+// (rank p at wpos(p), +inf from its valid count on up to P2); returns the
+// valid count. Sorted in shared memory: once a chunk, so the kernel keeps
+// its registers for the slides. STAGE 0 only counts.
+template <int R, int STAGE>
+__device__ __forceinline__ int sorted_window(const float* __restrict__ x,
+                                             float* win, int g, int c,
+                                             int n_doy, int Y, int C,
+                                             int window, int lane) {
+  const int half = window / 2;
+  const int W = window * Y;
+  int cnt = 0;
+  __syncwarp();  // the previous doy's nodes are read
+  for (int i = lane; i < R * kWarp; i += kWarp) {
+    float v = INFINITY;
+    if (i < W) {
+      const int o = i / Y;
+      int d = (g + o - half) % n_doy;
+      if (d < 0) d += n_doy;
+      const float xv = x[((size_t)d * Y + (i - o * Y)) * C + c];
+      if (!isnan(xv)) {
+        v = xv;
+        ++cnt;
+      }
+    }
+    if constexpr (STAGE >= 1) win[wpos(i)] = v;
+  }
+  if constexpr (STAGE >= 1) {
+    __syncwarp();
+    warp_sort_smem<true>(win, R * kWarp, lane);
+  }
+  return __reduce_add_sync(0xffffffffu, cnt);
+}
+
+// One slide of a warp's sorted window (P2 = 32 * R ranks: the n valid
+// values, then +inf): the mo sorted outgoing values oin leave, the m
+// sorted incoming values uin enter. Lane l reads its run (ranks l*R .. l*R
+// + R-1, which never crosses a padding float) into registers, finds its
+// starts in uin and oin by binary searches over them, then writes each
+// kept entry and each incoming value once at its new rank. The +inf
+// padding takes part as entries: incoming values go before it, and it is
+// never matched by an outgoing value before the valid +inf entries are.
+// An odd window of more than one slice holds fewer than P2 samples, so
+// some padding is always left: every incoming value goes before it.
+// Returns n - mo + m.
+//
+// The window is rank wb + p at sm[wpos(wb + p)] of the block's shared
+// memory sm (wb a multiple of 32), so that a rank's place costs two
+// instructions; uin and oin are walked by pointer.
+template <int R>
+__device__ __forceinline__ int merge_slices(float* sm, int wb, int n,
+                                            const float* uin, int m,
+                                            const float* oin, int mo, int PY,
+                                            int lane) {
+  constexpr unsigned kAll = 0xffffffffu;
+  constexpr int P2 = R * kWarp;
+  const float* run = sm + wpos(wb + lane * R);
+  float v[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) v[r] = run[r];
+  const float f = v[0];
+  const float z = v[R - 1];
+  // incoming values not above the run's last entry: the next lane's start
+  const int cu = count_slice<false>(uin, PY, z);
+  int k = __shfl_up_sync(kAll, cu, 1);
+  if (lane == 0) k = 0;
+  // outgoing values matched before the run (each outgoing value takes the
+  // first equal window entry not yet taken): those below its first entry,
+  // and of those equal to it as many as equal entries before the run hold
+  int ko = 0;
+  if (mo > 0) {
+    const int lo = count_slice<true>(oin, PY, f);
+    const float zp = __shfl_up_sync(kAll, z, 1);
+    const bool tie = lane > 0 && f == zp;
+    const bool taken = tie && oin[lo] == f;
+    int e = 0;
+    if (__any_sync(kAll, taken)) {
+      // X_l, the entries equal to z that end the runs up to lane l:
+      // tail_l + X_{l-1} where lane l is all equal and ties with l-1
+      int tail = 0;
+#pragma unroll
+      for (int r = 0; r < R; ++r) tail += v[r] == z;
+      int a = tail;
+      int carry = tie && f == z;
+#pragma unroll
+      for (int dl = 1; dl < kWarp; dl <<= 1) {
+        const int a2 = __shfl_up_sync(kAll, a, dl);
+        const int c2 = __shfl_up_sync(kAll, carry, dl);
+        if (lane >= dl) {
+          a += carry * a2;
+          carry *= c2;
+        }
+      }
+      const int before = __shfl_up_sync(kAll, a, 1);
+      if (taken) e = min(before, count_slice<false>(oin, PY, f) - lo);
+    }
+    ko = lo + e;
+  }
+  __syncwarp();  // every run is in registers: the window may be rewritten
+  int out = wb + lane * R - ko + k;
+  const float* up = uin + k;
+  const float* op = oin + ko;
+  float nu = *up;
+  float no = *op;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    while (nu <= v[r]) {
+      sm[wpos(out++)] = nu;
+      nu = *++up;
+    }
+    const bool keep = no != v[r];
+    if (keep) sm[wpos(out)] = v[r];
+    out += keep;
+    if (!keep) no = *++op;
+  }
+  // the ranks P2 - mo + m .. P2 - 1 written by nothing: padding again
+  for (int j = P2 - mo + m + lane; j < P2; j += kWarp)
+    sm[wpos(wb + j)] = INFINITY;
+  __syncwarp();
+  return n - mo + m;
+}
+
+// The nq node quantiles of a sorted window of n valid values (rank k at
+// win[wpos(k)]), node j written to dst[j * step].
+__device__ __forceinline__ void warp_nodes(const float* win, int n,
+                                           const float* __restrict__ qv,
+                                           const float* __restrict__ coff,
+                                           int nq, float* dst, size_t step,
+                                           int lane) {
+  for (int j = lane; j < nq; j += kWarp) {
+    float res = NAN;
+    if (n > 0) {
+      const float nf = (float)n;
+      const float nm1 = nf - 1.0f;  // exact: n < 2^24
+      float h = __fadd_rn(__fadd_rn(__fmul_rn(nf, qv[j]), coff[j]), -1.0f);
+      h = fminf(fmaxf(h, 0.0f), nm1);
+      const float fl = floorf(h);
+      const int k0 = (int)fl;
+      const float gam = __fsub_rn(h, fl);
+      const int k1 = min(k0 + 1, n - 1);
+      res = __fadd_rn(__fmul_rn(win[wpos(k0)], __fsub_rn(1.0f, gam)),
+                      __fmul_rn(win[wpos(k1)], gam));
+    }
+    dst[j * step] = res;
+  }
+}
+
+// The warp instance. Grid (cell groups of kWarpCells, chunks of the doy
+// axis); warp w of block (k, j) owns cell k * kWarpCells + w over chunk j.
+// Shared: each warp's region (warp_floats), then two buffers of S doys x
+// kWarpCells cells x node_stride(nq) staged node values (S = 0: none).
+template <int R, int STAGE>
+__global__ void __launch_bounds__(kThreads, kWarpBlocks)
+warp_kernel(const float* __restrict__ x, float* __restrict__ out,
+            const float* __restrict__ qv, const float* __restrict__ coff,
+            int n_doy, int Y, int C, int window, int nq, int nchunk, int S) {
+  extern __shared__ float smem[];
+  constexpr int P2 = R * kWarp;
+  const int PY = pow2_at_least(Y);
+  const int wf = warp_floats(P2, PY, window);
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  float* win = smem + warp * wf;
+  const int wb = warp * wf / 33 * 32;  // win == smem + wpos(wb)
+  float* uin = win + window_floats(P2, PY, window);
+  float* oin = uin + PY + 2;
+  const int nqs = node_stride(nq);
+  float* staged = smem + kWarpCells * wf;
+  const int c0 = blockIdx.x * kWarpCells;
+  const int c = c0 + warp;
+  const bool live = c < C;
+  const int g0 = (int)((long long)blockIdx.y * n_doy / nchunk);
+  const int g1 = (int)((long long)(blockIdx.y + 1) * n_doy / nchunk);
+  const int half = window / 2;
+  const bool small = PY == kWarp;  // a slice is a value a lane
+
+  // sample `lane` of the slices leaving and entering at the slide into
+  // doy gn (NaN past the chunk), loaded one slide ahead
+  auto ahead = [&](int gn) {
+    float2 r = make_float2(NAN, NAN);
+    if (small && live && lane < Y && gn < g1) {
+      int d_out = (gn - 1 - half) % n_doy;
+      if (d_out < 0) d_out += n_doy;
+      const int d_in = (gn + half) % n_doy;
+      r = make_float2(x[((size_t)d_in * Y + lane) * C + c],
+                      x[((size_t)d_out * Y + lane) * C + c]);
+    }
+    return r;
+  };
+  float2 pre = window > 1 ? ahead(g0 + 1) : make_float2(NAN, NAN);
+  int n = live ? sorted_window<R, STAGE>(x, win, g0, c, n_doy, Y, C, window,
+                                         lane)
+               : 0;
+  for (int g = g0; g < g1; ++g) {
+    if (g > g0 && live) {
+      if (window == 1) {
+        n = sorted_window<R, STAGE>(x, win, g, c, n_doy, Y, C, 1, lane);
+      } else {
+        int d_out = (g - 1 - half) % n_doy;
+        if (d_out < 0) d_out += n_doy;
+        const int d_in = (g + half) % n_doy;
+        const float2 cur = pre;
+        pre = ahead(g + 1);
+        int m, mo;
+        sorted_slices<STAGE>(x, uin, oin, cur, d_in, d_out, c, Y, C, PY, lane,
+                             m, mo);
+        if constexpr (STAGE >= 1) {
+          __syncwarp();
+          n = merge_slices<R>(smem, wb, n, uin, m, oin, mo, PY, lane);
+        } else {
+          n += m - mo;
+        }
+      }
+    }
+    if constexpr (STAGE == 2) {
+      if (S == 0) {
+        if (live)
+          warp_nodes(win, n, qv, coff, nq, out + (size_t)g * nq * C + c,
+                     (size_t)C, lane);
+      } else {
+        // stage doy g's nodes; the last doy of a batch (or of the chunk)
+        // meets the block and writes the batch as 32-byte runs
+        const int sl = (g - g0) % S;
+        float* buf = staged + (((g - g0) / S) & 1) * S * kWarpCells * nqs;
+        if (live)
+          warp_nodes(win, n, qv, coff, nq, buf + (sl * kWarpCells + warp) * nqs,
+                     1, lane);
+        if (sl == S - 1 || g == g1 - 1) {
+          __syncthreads();
+          // thread t writes cell t % 8 of nodes t / 8, t / 8 + 32, ...
+          const int ct = threadIdx.x % kWarpCells;
+          if (c0 + ct < C) {
+            const float* src = buf + ct * nqs;
+            float* dst = out + (size_t)(g - sl) * nq * C + c0 + ct;
+            for (int b = 0; b <= sl; ++b) {
+              for (int j = threadIdx.x / kWarpCells; j < nq;
+                   j += kThreads / kWarpCells)
+                dst[(size_t)j * C] = src[j];
+              src += kWarpCells * nqs;
+              dst += (size_t)nq * C;
+            }
+          }
+        }
+      }
+    } else if (lane == 0 && live) {
+      out[(size_t)g * C + c] =
+          STAGE == 0 ? (float)n : (n > 0 ? win[0] : NAN);
+    }
+  }
+}
+
 // Lets `kernel` take `bytes` of dynamic shared memory (above 48 KB only
 // when asked).
 template <typename K>
@@ -565,10 +1002,12 @@ dim3 slide_grid(int groups, int nchunk, bool global) {
               nchunk);
 }
 
-// Whether the presort runs: one chunk per doy with window > 1 sorts every
-// window in full and reads no presorted slice.
-bool presorts(int n_doy, int window, int nchunk) {
-  return !(window > 1 && nchunk == n_doy);
+// Whether the presort runs: not in the warp instance (each slice is
+// sorted as it enters), nor with one chunk per doy and window > 1 (every
+// window sorted in full, no presorted slice read).
+bool presorts(int n_doy, int Y, int window, int nchunk) {
+  return pow2_at_least(window * Y) > kRegP2 &&
+         !(window > 1 && nchunk == n_doy);
 }
 
 // Floats of global scratch a call needs (0 when every window and slice
@@ -577,7 +1016,7 @@ size_t scratch_floats(int n_doy, int Y, int C, int window, int nchunk) {
   const int pw = pow2_at_least(window * Y);
   const int py = pow2_at_least(Y);
   size_t need = 0;
-  if (py > kMaxP2 && presorts(n_doy, window, nchunk)) {
+  if (py > kMaxP2 && presorts(n_doy, Y, window, nchunk)) {
     const dim3 g = presort_grid(C, n_doy, true);
     need = (size_t)g.x * g.y * row_stride(py, 1);
   }
@@ -603,7 +1042,7 @@ cudaError_t launch_presort(const float* x, float* ps, float* scratch,
   return cudaGetLastError();
 }
 
-template <int R, int STAGE, bool GLOBAL>
+template <int STAGE, bool GLOBAL>
 cudaError_t launch_slide(const float* x, const float* ps, float* out,
                          const float* qv, const float* coff, float* scratch,
                          int n_doy, int Y, int C, int window, int nq,
@@ -612,11 +1051,28 @@ cudaError_t launch_slide(const float* x, const float* ps, float* out,
   const size_t smem =
       (GLOBAL ? 0 : slide_floats(P2, CT, Y) * sizeof(float)) +
       CT * sizeof(int);
-  cudaError_t err = set_smem(slide_kernel<R, STAGE, GLOBAL>, smem);
+  cudaError_t err = set_smem(slide_kernel<STAGE, GLOBAL>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid = slide_grid((C + CT - 1) / CT, nchunk, GLOBAL);
-  slide_kernel<R, STAGE, GLOBAL><<<grid, kThreads, smem, st>>>(
+  slide_kernel<STAGE, GLOBAL><<<grid, kThreads, smem, st>>>(
       x, ps, out, qv, coff, scratch, n_doy, Y, C, window, nq, nchunk, P2, CT);
+  return cudaGetLastError();
+}
+
+template <int R, int STAGE>
+cudaError_t launch_warp(const float* x, float* out, const float* qv,
+                        const float* coff, int n_doy, int Y, int C,
+                        int window, int nq, int nchunk, cudaStream_t st) {
+  const int S = STAGE == 2 ? stage_doys(nq) : 0;
+  const size_t smem =
+      ((size_t)kWarpCells * warp_floats(R * kWarp, pow2_at_least(Y), window) +
+       2 * (size_t)S * kWarpCells * node_stride(nq)) *
+      sizeof(float);
+  cudaError_t err = set_smem(warp_kernel<R, STAGE>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((C + kWarpCells - 1) / kWarpCells, nchunk);
+  warp_kernel<R, STAGE><<<grid, kThreads, smem, st>>>(
+      x, out, qv, coff, n_doy, Y, C, window, nq, nchunk, S);
   return cudaGetLastError();
 }
 
@@ -630,7 +1086,19 @@ cudaError_t run(const float* x, float* ps, float* scratch, float* out,
       scratch_n < (long long)scratch_floats(n_doy, Y, C, window, nchunk))
     return cudaErrorInvalidValue;
   const int pw = pow2_at_least(window * Y);
-  const int py = presorts(n_doy, window, nchunk) ? pow2_at_least(Y) : 0;
+#define XTT_WARP(R)                                                       \
+  launch_warp<R, STAGE>(x, out, qv, coff, n_doy, Y, C, window, nq, nchunk, \
+                        st)
+  switch (pw) {
+    case 32: return XTT_WARP(1);
+    case 64: return XTT_WARP(2);
+    case 128: return XTT_WARP(4);
+    case 256: return XTT_WARP(8);
+    case 512: return XTT_WARP(16);
+    case 1024: return XTT_WARP(32);
+  }
+#undef XTT_WARP
+  const int py = presorts(n_doy, Y, window, nchunk) ? pow2_at_least(Y) : 0;
   cudaError_t err = cudaSuccess;
 #define XTT_PRESORT(R, GLOBAL) \
   launch_presort<R, GLOBAL>(x, ps, scratch, n_doy, Y, C, py, st)
@@ -647,19 +1115,11 @@ cudaError_t run(const float* x, float* ps, float* scratch, float* out,
   }
 #undef XTT_PRESORT
   if (err != cudaSuccess) return err;
-#define XTT_SLIDE(R, GLOBAL)                                              \
-  launch_slide<R, STAGE, GLOBAL>(x, ps, out, qv, coff, scratch, n_doy, Y, \
-                                 C, window, nq, nchunk, pw, st)
-  switch (pw) {
-    case 32: return XTT_SLIDE(1, false);
-    case 64: return XTT_SLIDE(2, false);
-    case 128: return XTT_SLIDE(4, false);
-    case 256: return XTT_SLIDE(8, false);
-    case 512: return XTT_SLIDE(16, false);
-    case 1024: return XTT_SLIDE(32, false);
-    default: return pw <= kMaxP2 ? XTT_SLIDE(0, false) : XTT_SLIDE(0, true);
-  }
-#undef XTT_SLIDE
+  if (pw <= kMaxP2)
+    return launch_slide<STAGE, false>(x, ps, out, qv, coff, scratch, n_doy, Y,
+                                      C, window, nq, nchunk, pw, st);
+  return launch_slide<STAGE, true>(x, ps, out, qv, coff, scratch, n_doy, Y, C,
+                                   window, nq, nchunk, pw, st);
 }
 
 }  // namespace
@@ -671,13 +1131,14 @@ extern "C" long long xtt_winquantile_scratch(int n_doy, int Y, int C,
   return (long long)scratch_floats(n_doy, Y, C, window, nchunk);
 }
 
-// Launches on `stream`; returns the first CUDA error of the two launches
-// (or cudaErrorInvalidValue for an even window, window*Y above 2^24, a
-// chunk count outside 1..n_doy, or scratch_n below
-// xtt_winquantile_scratch). ps is scratch of n_doy*C*Y floats for the
-// presorted slices (unused, and may be empty, when window > 1 and nchunk
-// == n_doy); scratch holds scratch_n floats; nchunk splits the doy axis
-// across blocks.
+// Launches on `stream`; returns the first CUDA error of its launches (one
+// in the warp instance; the presort and the slides in the others), or
+// cudaErrorInvalidValue for an even window, window*Y above 2^24, a chunk
+// count outside 1..n_doy, or scratch_n below xtt_winquantile_scratch. ps
+// is scratch of n_doy*C*Y floats for the presorted slices (unused, and may
+// be empty, in the warp instance, window*Y <= 1024, and when window > 1
+// and nchunk == n_doy); scratch holds scratch_n floats; nchunk splits the
+// doy axis across blocks.
 extern "C" int xtt_winquantile(const float* x, float* ps, float* scratch,
                                float* out, const float* qv, const float* coff,
                                int n_doy, int Y, int C, int window, int nq,
@@ -687,8 +1148,8 @@ extern "C" int xtt_winquantile(const float* x, float* ps, float* scratch,
 }
 
 #ifdef XTT_WINQUANTILE_STAGES
-// The same kernel stopped after `stage` (0: presort and loads, writing the
-// window's valid count; 1: + sort and slides, writing the window's
+// The same kernel stopped after `stage` (0: loads (and presort), writing
+// the window's valid count; 1: + sort and slides, writing the window's
 // smallest valid value; 2: + node selection, as xtt_winquantile). For
 // stages 0 and 1, out is (n_doy, C).
 extern "C" int xtt_winquantile_stages(const float* x, float* ps,

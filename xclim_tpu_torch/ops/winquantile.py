@@ -6,23 +6,40 @@ quantiles of ALL samples whose doy falls in a ±half window around g (window
 from the (n_doy, Y, C) doy slices:
 
 * on a CUDA tensor it launches the hand-written kernel
-  ``csrc/winquantile.cu`` (each doy slice presorted once; a block keeps
-  the sorted windows of up to 8 cells in shared memory and slides them
-  along one chunk of the doy axis, one slice out and one merged in per
-  doy) and raises if the launch fails;
+  ``csrc/winquantile.cu`` (a sorted window slides along a chunk of the doy
+  axis, one slice out and one merged in per doy) and raises if the launch
+  fails;
 * on a CPU tensor it runs :func:`doy_window_quantiles_plain`, the plain
   PyTorch twin: the windowed gather plus the sort quantile of
   :func:`~xclim_tpu_torch.ops.quantile.nan_quantile_plain`, chunked over
   cells (never the dispatcher, so the twin stays plain on the card).
 
-A window of up to :data:`MAX_P2` samples (``window * Y`` rounded up to a
-power of two; :func:`window_in_shared`) stays in a block's shared memory.
-A larger one (w31 over more than 264 years, w91 over more than 90) takes
-the kernel's global-scratch instance: the same slides, one cell a block,
-on the block's own region of a scratch array the wrapper allocates
-(``xtt_winquantile_scratch`` floats, ~140 MB at w31 x 300 years). The
-only limit left is :data:`MAX_WINDOW` samples a window, which the kernel's
-float32 valid count holds exactly; past it the call raises.
+The window's size picks the kernel's instance (:func:`instance`; the
+padded window is ``window * Y`` rounded up to a power of two):
+
+* ``"warp"``, a padded window of at most :data:`WARP_P2` = 1024 samples
+  (w31 up to 33 years, w5 up to 204, window 1 up to 1024; sdba's w31 x 30
+  years): one warp owns one cell's sorted window in shared memory for its
+  whole doy chunk, with no block barrier between slides (one every few
+  doys writes the staged node values). Each slice is sorted by the warp as
+  it enters and as it leaves; a slide reads and writes each window entry
+  once, and finds where each lane starts by binary searches over the
+  <= Y slice values, never over the window. No presort pass and no
+  scratch: the call allocates its output only. What bounds it is issue
+  and latency, ~1000 warp instructions a (cell, doy) slide: ~42 ms a
+  launch at (365, 30, 65536) on an H100, against ~2.3 ms of device-memory
+  bytes;
+* ``"shared"``, up to :data:`MAX_P2` = 8192 samples (w61 x 30, w31 x 60
+  years): each doy slice presorted once into an (n_doy, C, Y) scratch
+  array, and a block keeps the sorted windows of 8192 / padded window
+  cells in shared memory and merges the presorted slices;
+* ``"global"``, past MAX_P2 (w31 over more than 264 years, w91 over more
+  than 90): the same slides, one cell a block, on the block's own region
+  of a scratch array the wrapper allocates (``xtt_winquantile_scratch``
+  floats, ~140 MB at w31 x 300 years).
+
+The only limit left is :data:`MAX_WINDOW` samples a window, which the
+kernel's float32 valid count holds exactly; past it the call raises.
 
 :func:`doy_window_stage` runs the same kernel stopped after a stage (the
 card profile of ``xclim_tpu_torch/tools/prof_winquantile.py``), from a
@@ -31,12 +48,15 @@ second build of the source with its stages compiled in (build target
 plain torch.
 
 ``launches`` counts the calls of :func:`doy_window_quantiles` that ran on
-the card (each launches the presort pass and the sliding kernel, or the
-sliding kernel alone when every doy is its own chunk), and
-``global_launches`` those of them whose windows took the global-scratch
-instance; ``twin_calls`` the calls the twin served on CPU tensors;
-``stage_launches`` the calls of :func:`doy_window_stage` that ran on the
-card.
+the card (one kernel launch in the warp instance; the presort pass and the
+sliding kernel in the others, or the sliding kernel alone when every doy
+is its own chunk); of those, ``warp_launches`` the calls the warp instance
+took (also counted as ``winquantile_warp_launches`` by
+:func:`~xclim_tpu_torch.utils.profiling.count`, inside the
+``op.winquantile`` span) and ``global_launches`` those of the
+global-scratch instance; ``twin_calls`` the calls the twin served on CPU
+tensors; ``stage_launches`` the calls of :func:`doy_window_stage` that ran
+on the card.
 """
 
 from __future__ import annotations
@@ -45,29 +65,34 @@ import torch
 
 from xclim_tpu_torch.ops import _build
 from xclim_tpu_torch.ops.quantile import _node_constants, nan_quantile_plain
-from xclim_tpu_torch.utils.profiling import span
+from xclim_tpu_torch.utils.profiling import count, span
 
 __all__ = ["doy_window_quantiles", "doy_window_quantiles_plain",
            "doy_window_stage", "stage_plain", "doy_chunks",
-           "window_in_shared"]
+           "window_in_shared", "instance"]
 
 #: calls of doy_window_quantiles that ran on the card
 launches = 0
-#: calls doy_window_quantiles served with the plain twin (CPU tensors)
-twin_calls = 0
+#: of those, the calls whose windows took the warp instance
+warp_launches = 0
 #: of those, the calls whose windows took the global-scratch instance
 global_launches = 0
+#: calls doy_window_quantiles served with the plain twin (CPU tensors)
+twin_calls = 0
 #: calls of doy_window_stage that ran on the card
 stage_launches = 0
 
-#: largest window (window * Y samples, rounded up to a power of two) the
-#: kernel sorts and slides in one block's shared memory
+#: largest window (window * Y samples, rounded up to a power of two) one
+#: warp sorts and slides (the warp instance)
+WARP_P2 = 1024
+#: largest window the kernel sorts and slides in one block's shared memory
 MAX_P2 = 8192
 #: most samples a window may hold (window * Y): the kernel counts a
 #: window's valid samples in float32, exact up to 2^24
 MAX_WINDOW = 1 << 24
-#: the kernel's stages: 0 presort + loads (the window's valid count), 1 +
-#: sort and slides (the window's smallest valid value), 2 + node selection
+#: the kernel's stages: 0 loads, and the presort where the instance has
+#: one (the window's valid count), 1 + sorts and slides (the window's
+#: smallest valid value), 2 + node selection
 STAGES = ("load_presort", "slide", "full")
 #: blocks a launch aims for: several waves of resident blocks on 132 SMs.
 #: Each chunk sorts its first window in full, which costs more in shared
@@ -95,15 +120,25 @@ def window_in_shared(window: int, Y: int) -> bool:
     """Whether the kernel keeps a window of ``window`` doys x ``Y`` years
     in shared memory: its padded size (a power of two) fits MAX_P2
     samples. Otherwise the global-scratch instance takes it."""
-    return _pow2(window * Y) <= MAX_P2
+    return instance(window, Y) != "global"
+
+
+def instance(window: int, Y: int) -> str:
+    """The kernel's instance for a window of ``window`` doys x ``Y``
+    years, by its padded size (``window * Y`` rounded up to a power of two,
+    at least 32): "warp" up to WARP_P2 samples, "shared" up to MAX_P2,
+    "global" past it."""
+    P2 = max(32, _pow2(window * Y))
+    return ("warp" if P2 <= WARP_P2
+            else "shared" if P2 <= MAX_P2 else "global")
 
 
 def cells_per_block(window: int, Y: int) -> int:
-    """Cells one block of the kernel takes: 8 while the padded window fits
-    a warp's registers (1024 samples), else 8192 / padded window, and one
-    past MAX_P2 (the global-scratch instance)."""
+    """Cells one block of the kernel takes: 8 in the warp instance (one a
+    warp), else 8192 / padded window, and one past MAX_P2 (the
+    global-scratch instance)."""
     P2 = max(32, _pow2(window * Y))
-    return 8 if P2 <= 1024 else max(1, MAX_P2 // P2)
+    return 8 if P2 <= WARP_P2 else max(1, MAX_P2 // P2)
 
 
 def doy_chunks(n_doy: int, C: int, window: int, Y: int) -> int:
@@ -112,7 +147,7 @@ def doy_chunks(n_doy: int, C: int, window: int, Y: int) -> int:
     window above 1024 padded samples), at most n_doy. Each chunk sorts its
     first window in full, then slides."""
     groups = -(-C // cells_per_block(window, Y))
-    target = (TARGET_BLOCKS if max(32, _pow2(window * Y)) <= 1024
+    target = (TARGET_BLOCKS if instance(window, Y) == "warp"
               else TARGET_BLOCKS_SMEM)
     return max(1, min(n_doy, -(-target // max(groups, 1))))
 
@@ -127,7 +162,7 @@ def doy_window_quantiles(xg: torch.Tensor, q, window: int, alpha: float = 1.0,
     semantics of :func:`~xclim_tpu_torch.ops.quantile.nan_quantile` (no
     valid samples -> NaN).
     """
-    global launches, twin_calls, global_launches
+    global launches, twin_calls, warp_launches, global_launches
     with span("op.winquantile"):
         _check(xg, window)
         if xg.device.type == "cpu":
@@ -135,7 +170,11 @@ def doy_window_quantiles(xg: torch.Tensor, q, window: int, alpha: float = 1.0,
             return doy_window_quantiles_plain(xg, q, window, alpha, beta)
         out = _launch(xg, q, window, alpha, beta, None)
         launches += 1
-        if not window_in_shared(window, xg.shape[1]):
+        which = instance(window, xg.shape[1])
+        if which == "warp":
+            warp_launches += 1
+            count("winquantile_warp_launches")
+        elif which == "global":
             global_launches += 1
         return out
 
@@ -173,10 +212,11 @@ def _launch(xg, q, window, alpha, beta, stage):
     if out.numel() == 0:
         return out
     nchunk = doy_chunks(n_doy, C, window, Y)
-    # scratch for the presorted slices; no slice slides when every doy
-    # is its own chunk
-    full_sort = window > 1 and nchunk == n_doy
-    presorted = torch.empty((0,) if full_sort else (n_doy, C, Y),
+    # scratch for the presorted slices: none in the warp instance (each
+    # slice sorted as it enters), nor when every doy is its own chunk
+    presort = (instance(window, Y) != "warp"
+               and not (window > 1 and nchunk == n_doy))
+    presorted = torch.empty((n_doy, C, Y) if presort else (0,),
                             dtype=torch.float32, device=x.device)
     # windows past MAX_P2 keep their sorted rows in global scratch
     scratch_n = _build.function("winquantile", "xtt_winquantile_scratch",

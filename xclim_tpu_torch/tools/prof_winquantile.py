@@ -4,9 +4,11 @@ The kernel (``csrc/winquantile.cu``) is built with its stage as a template
 parameter and reached through ``xtt_winquantile_stages``, so the profile
 times the shipped code:
 
-* ``load_presort``: the presort of every doy slice and the per-doy loads of
-  the window's slices with the running valid count;
-* ``slide``: + the chunk-start sort and the slides of the sorted window;
+* ``load_presort``: the per-doy loads of the window's slices with the
+  running valid count, and the presort of every doy slice where the
+  instance has one (not the warp instance, ``window * Y`` <= 1024);
+* ``slide``: + the chunk-start sort and the slides of the sorted window
+  (in the warp instance, each slice sorted as it enters and leaves);
 * ``full``: + node selection (the kernel ``doy_window_quantiles`` runs).
 
 The differences between neighbouring stages say where the time goes: sort
@@ -17,8 +19,9 @@ and loads, slide, or selection. Each stage writes a small result that
 
 runs the stages at QDM's shape (365 doys x 30 years, window 31, 50
 nodes of ``equally_spaced_nodes(50)``) on random slices and prints one JSON
-line of milliseconds: each stage's, and the presort pass's and the
-sliding kernel's device time in one full launch (torch.profiler).
+line of milliseconds: each stage's, and the device time of each kernel of
+one full launch (torch.profiler): the warp instance's one kernel, or the
+presort pass and the sliding kernel.
 """
 
 from __future__ import annotations
@@ -57,9 +60,9 @@ def stage_times(xg: torch.Tensor, q, window: int, reps: int = 3) -> dict:
 
 
 def kernel_split(xg: torch.Tensor, q, window: int) -> dict:
-    """Device milliseconds of the presort pass and of the sliding kernel
-    in one full launch, from torch.profiler's trace (None where the trace
-    holds no device time)."""
+    """Device milliseconds of each kernel in one full launch (the warp
+    instance's kernel, or the presort pass and the sliding kernel), from
+    torch.profiler's trace (None where the trace holds no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -68,7 +71,7 @@ def kernel_split(xg: torch.Tensor, q, window: int) -> dict:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         winquantile.doy_window_quantiles(xg, q, window)
         torch.cuda.synchronize()
-    out = {"presort_kernel": None, "slide_kernel": None}
+    out = {"warp_kernel": None, "presort_kernel": None, "slide_kernel": None}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
