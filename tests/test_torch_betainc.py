@@ -205,3 +205,100 @@ def test_empty_and_zero_dimensional_shapes():
     got = betainc.betainc(torch.tensor(3.0), 0.5, 0.2)
     assert got.shape == () and got.dtype == torch.float32
     _bit_equal(got, _parent_betainc(torch.tensor(3.0), 0.5, 0.2))
+
+
+def _first_convergence_steps(a, b, x, iterations=betainc.ITERATIONS):
+    """Each element's continued-fraction terms, replayed alone in numpy
+    float32 scalars, one rounding an operation, in the order of
+    ``csrc/betainc.cu``: the term at which its delta first meets the
+    tolerance, iterations - 1 where none does, 0 for a special case."""
+    f = np.float32
+    out = []
+    for a, b, x in zip(*(np.asarray(v, np.float32).ravel() for v in (a, b, x))):
+        a_zero = a == 0 or b == np.inf
+        b_zero = b == 0 or a == np.inf
+        if (np.isnan(a) or np.isnan(b) or np.isnan(x) or a < 0 or b < 0
+                or x < 0 or x > 1 or (a_zero and b_zero)
+                or (a_zero and x != 0) or (b_zero and x == 1)
+                or (b_zero and x != 1) or (a_zero and x == 0)):
+            out.append(0)
+            continue
+        if not x < f(f(a + f(1)) / f(f(a + b) + f(2))):
+            a, b, x = b, a, f(f(1) - x)
+        c, d, terms = f(_HALF_EPS), f(0), 0
+        for it in range(1, iterations):
+            m = (it - 1) // 2
+            a2m = f(a + f(2 * m))
+            if it == 1:
+                num = f(1)
+            elif it % 2 == 0 and m == 0:
+                num = f(f(-f(a + b) * x) / f(a + f(1)))
+            elif it % 2 == 0:
+                p = f(f(-f(a + f(m)) * f(f(a + b) + f(m))) * x)
+                num = f(p / f(a2m * f(a2m + f(1))))
+            else:
+                p = f(f(f(m) * f(b - f(m))) * x)
+                num = f(p / f(f(a2m - f(1)) * a2m))
+            c = f(f(1) + f(num / c))
+            c = f(_HALF_EPS) if abs(c) < _HALF_EPS else c
+            d = f(f(1) + f(num * d))
+            d = f(f(1) / (f(_HALF_EPS) if abs(d) < _HALF_EPS else d))
+            terms = it
+            if abs(f(f(c * d) - f(1))) < _HALF_EPS:
+                break
+        out.append(terms)
+    return np.asarray(out)
+
+
+def _sampled(n):
+    """The elements the counting build counts: those of one block of 256
+    in 32."""
+    return (np.arange(n) // 256) % 32 == 0
+
+
+def test_the_sampled_elements_are_every_32nd_block_of_256():
+    got = betainc.sampled(20000, "cpu").numpy()
+    assert got.dtype == bool and (got == _sampled(20000)).all()
+    assert np.flatnonzero(got).tolist() == (
+        list(range(256)) + list(range(8192, 8448))
+        + list(range(16384, 16640)))
+
+
+@pytest.mark.parametrize("case", ["grid b=3.0", "ttest", "special"])
+def test_the_twin_counts_each_elements_terms(case):
+    """While tracing, the twin counts betainc_element_terms (the sum of
+    each sampled element's first-convergence step) and betainc_elements
+    (the sampled elements), inside op.betainc, as the kernel's counting
+    build does; special cases count 0."""
+    a, b, x = _cases()[case]
+    if case == "ttest":
+        a, b, x = (np.tile(v, 4)[:9000] for v in (a, b, x))
+    elif case != "special":
+        a, b, x = (v.ravel()[:300] for v in (a, b, x))
+    keep = _sampled(x.size)
+    steps = _first_convergence_steps(*(v[keep] for v in (a, b, x)))
+    if case == "special":
+        # x at 0 or 1 with a, b finite and positive, and a tiny a, take
+        # the fraction
+        assert (np.flatnonzero(steps) == [5, 6, 12]).all()
+    else:
+        assert (steps > 0).all() and steps.max() < betainc.ITERATIONS - 1
+    with tracing() as tr:
+        betainc.betainc(*(torch.as_tensor(v) for v in (a, b, x)))
+    assert tr.counters["betainc_element_terms"] == int(steps.sum())
+    assert tr.counters["betainc_elements"] == int(keep.sum()) == len(steps)
+    (op,) = tr.spans
+    assert op["betainc_element_terms"] == int(steps.sum())
+
+
+@pytest.mark.parametrize("iterations", [1, 2, 5])
+def test_an_element_that_never_converges_counts_every_term(iterations):
+    a, b, x = (v[:300] for v in _cases()["ttest"])
+    steps = _first_convergence_steps(a[:256], b[:256], x[:256], iterations)
+    assert steps.max() == iterations - 1
+    if iterations < 3:
+        assert (steps == iterations - 1).all()
+    with tracing() as tr:
+        betainc.betainc(*(torch.as_tensor(v) for v in (a, b, x)), iterations)
+    assert tr.counters["betainc_element_terms"] == int(steps.sum())
+    assert tr.counters["betainc_elements"] == 256

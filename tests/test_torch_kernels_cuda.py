@@ -309,15 +309,21 @@ def test_winquantile_warp_instance_edges_value_equal(cuda, monkeypatch, n_doy,
     if target[plan] is not None:
         monkeypatch.setattr(winquantile, "TARGET_BLOCKS", target[plan])
         monkeypatch.setattr(winquantile, "TARGET_BLOCKS_SMEM", target[plan])
+    from xclim_tpu_torch.utils import profiling
+
     assert winquantile.instance(window, Y) == which
     x = torch.as_tensor(_cases(n_doy, Y, 67, seed=Y + window, kind=kind),
                         device=cuda)
-    counts = (winquantile.launches, winquantile.warp_launches)
+    launches = winquantile.launches
     got = winquantile.doy_window_quantiles(x, Q, window)
     torch.cuda.synchronize()
-    assert (winquantile.launches, winquantile.warp_launches) == (
-        counts[0] + 1, counts[1] + (which == "warp"))
+    assert winquantile.launches == launches + 1
     _value_equal(got, winquantile.doy_window_quantiles_plain(x, Q, window))
+    # traced, the counting build: the warp instance counted, the same bits
+    with profiling.tracing() as tr:
+        traced = winquantile.doy_window_quantiles(x, Q, window)
+    assert tr.counters["winquantile_warp_launches"] == (which == "warp")
+    _bit_equal(traced, got)
 
 
 # past 252 nodes the warp instance writes each cell's nodes itself (no
@@ -336,27 +342,111 @@ def test_winquantile_warp_instance_many_nodes(cuda):
     (31, 30, "warp"), (1, 1024, "warp"), (61, 30, "shared"),
     (31, 300, "global")])
 def test_winquantile_counts_the_warp_instance(cuda, window, Y, which):
-    """warp_launches and the tracing counter winquantile_warp_launches
-    (inside op.winquantile) count one a launch of the warp instance, none
-    of the other instances, and none on the CPU."""
+    """The tracing counter winquantile_warp_launches (inside
+    op.winquantile) counts one a launch of the warp instance, none of the
+    other instances, and none on the CPU."""
     from xclim_tpu_torch.utils import profiling
 
     warp = int(which == "warp")
     x = torch.as_tensor(_cases(40, Y, 16, seed=Y, kind="normal"), device=cuda)
     for xs, launched in ((x, 1), (x.cpu(), 0)):
-        counts = (winquantile.launches, winquantile.warp_launches,
-                  winquantile.global_launches)
+        counts = (winquantile.launches, winquantile.global_launches)
         with profiling.tracing() as tr:
             winquantile.doy_window_quantiles(xs, Q, window)
         torch.cuda.synchronize()
-        assert (winquantile.launches, winquantile.warp_launches,
-                winquantile.global_launches) == (
-            counts[0] + launched, counts[1] + launched * warp,
-            counts[2] + launched * (which == "global"))
+        assert (winquantile.launches, winquantile.global_launches) == (
+            counts[0] + launched, counts[1] + launched * (which == "global"))
         assert tr.counters["winquantile_warp_launches"] == launched * warp
         op = [s for s in tr.spans if s["name"] == "op.winquantile"]
         assert len(op) == 1
         assert op[0]["winquantile_warp_launches"] == launched * warp
+
+
+def _bit_equal(got, exp):
+    """Bit for bit (NaN where NaN): the counting builds change no output."""
+    assert got.shape == exp.shape and got.dtype == exp.dtype
+    assert torch.equal(got.view(torch.int32), exp.view(torch.int32))
+
+
+# the counting build (winquantile_count) in each instance: warp (w31 x 30,
+# window 1, w5 x 200 with slices sorted in shared memory), shared (w61 x
+# 30), global scratch (w31 x 300), under the shipped chunking and one
+# chunk a cell group
+COUNT_CASES = [(365, 30, 31, "warp"), (40, 30, 1, "warp"),
+               (100, 200, 5, "warp"), (365, 30, 61, "shared"),
+               (40, 300, 31, "global")]
+
+
+@pytest.mark.parametrize("plan", ["shipped", "one_chunk"])
+@pytest.mark.parametrize("n_doy,Y,window,which", COUNT_CASES)
+def test_winquantile_counting_build_counts_what_the_twin_counts(
+        cuda, monkeypatch, n_doy, Y, window, which, plan):
+    """Traced, the card launches the counting build: its output equals the
+    shipped build's bit for bit; its values entering and leaving windows
+    equal the twin's on the same input and chunking; the warp instance's
+    slides are the chunking's (cells x (doys - chunks), none at window 1),
+    those of the sampled cell groups (one in SAMPLE_EVERY) the chunking's
+    for their cells, their walk steps R = P2 / 32 a slide, their branch
+    steps and lanes within them, and each of their stages took cycles."""
+    from xclim_tpu_torch.utils import profiling
+
+    if plan == "one_chunk":
+        monkeypatch.setattr(winquantile, "TARGET_BLOCKS", 1)
+        monkeypatch.setattr(winquantile, "TARGET_BLOCKS_SMEM", 1)
+    assert winquantile.instance(window, Y) == which
+    C = 67
+    x = torch.as_tensor(_cases(n_doy, Y, C, seed=Y + window, kind="nanslices"
+                               if n_doy == 365 else "normal"), device=cuda)
+    shipped = winquantile.doy_window_quantiles(x, Q, window)
+    with profiling.tracing() as card:
+        counted = winquantile.doy_window_quantiles(x, Q, window)
+    _bit_equal(counted, shipped)
+    with profiling.tracing() as twin:
+        winquantile.doy_window_quantiles(x.cpu(), Q, window)
+    got = card.counters
+    for name in ("winquantile_inserted", "winquantile_removed"):
+        assert got[name] == twin.counters[name], name
+    (op,) = [s for s in card.spans if s["name"] == "op.winquantile"]
+    assert op["winquantile_inserted"] == got["winquantile_inserted"]
+    nchunk = winquantile.doy_chunks(n_doy, C, window, Y)
+    slides = C * (n_doy - nchunk) if window > 1 else 0
+    assert (got["winquantile_inserted"] > 0) is (slides > 0)
+    if which != "warp":
+        assert got["winquantile_slides"] == 0
+        return
+    R = max(32, 1 << (window * Y - 1).bit_length()) // 32
+    assert got["winquantile_slides"] == slides
+    sampled = sum(min(8, C - 8 * k) for k in range(0, -(-C // 8),
+                                                   winquantile.SAMPLE_EVERY))
+    sampled_slides = sampled * slides // C
+    assert got["winquantile_sampled_slides"] == sampled_slides
+    assert got["winquantile_walk_steps"] == sampled_slides * R
+    assert got["winquantile_walk_branch_steps"] <= sampled_slides * R
+    assert got["winquantile_walk_branch_steps"] \
+        <= got["winquantile_walk_branch_lanes"] \
+        <= 32 * got["winquantile_walk_branch_steps"]
+    # each event is a lane's at one step: fewer than inserted + removed
+    # (all the cells')
+    assert got["winquantile_walk_branch_lanes"] <= (
+        got["winquantile_inserted"] + got["winquantile_removed"])
+    assert got["winquantile_cycles_sort"] > 0
+    assert got["winquantile_cycles_nodes"] > 0
+    assert (got["winquantile_cycles_slices"] > 0) is (sampled_slides > 0)
+    assert (got["winquantile_cycles_walk"] > 0) is (sampled_slides > 0)
+
+
+def test_winquantile_counting_build_is_built_on_entering_tracing(cuda):
+    """A process that has loaded the kernel builds and binds its counting
+    build when a tracing block opens, before any call in it."""
+    from xclim_tpu_torch.ops import _build
+    from xclim_tpu_torch.utils import profiling
+
+    x = torch.as_tensor(_cases(40, 30, 16, seed=1, kind="normal"),
+                        device=cuda)
+    winquantile.doy_window_quantiles(x, Q, 31)
+    with profiling.tracing():
+        assert "winquantile_count" in _build._libs
+        assert "winquantile_count" in _build.build_info
 
 
 def test_winquantile_warp_instance_allocates_its_output_only(cuda):
@@ -1489,6 +1579,46 @@ def test_betainc_counts_one_term_a_launch(cuda):
     (op,) = tr.spans
     assert op["name"] == "op.betainc" and op["betainc_terms"] == 1
     assert op["host_syncs"] == 0
+
+
+@pytest.mark.parametrize("case", ["grid b=3.0", "ttest", "welch", "random",
+                                  "cell"])
+def test_betainc_counting_build_counts_what_the_twin_counts(cuda, case):
+    """Traced, the counting build's output equals the shipped build's bit
+    for bit, and its sampled elements' terms and the sampled elements
+    equal the twin's on the same arguments (each element's
+    first-convergence step; special cases and the cell's missing x count
+    0)."""
+    from xclim_tpu_torch.utils.profiling import tracing
+
+    a, b, x = _betainc_cases(cuda)[case]
+    shipped = betainc.betainc(a, b, x)
+    with tracing() as card:
+        counted = betainc.betainc(a, b, x)
+    _bit_equal(counted, shipped)
+    with tracing() as twin:
+        betainc.betainc_plain(a, b, x)
+    for name in betainc.COUNTERS:
+        assert card.counters[name] == twin.counters[name], name
+    n = int(betainc.sampled(x.numel(), "cpu").sum())
+    assert card.counters["betainc_elements"] == n
+    terms = card.counters["betainc_element_terms"] / n
+    assert 1 <= terms < betainc.ITERATIONS - 1
+
+
+def test_betainc_counting_build_special_cases_count_no_term(cuda):
+    from xclim_tpu_torch.utils.profiling import tracing
+
+    a, b, x = (torch.as_tensor(np.asarray(v, np.float32), device=cuda)
+               for v in ([0, 1, 0, np.nan, 2, 2], [1, 0, 0, 1, -1, 2],
+                         [0.5, 0.5, 0.5, 0.5, 0.5, 0.3]))
+    with tracing() as card:
+        betainc.betainc(a, b, x)
+    with tracing() as alone:
+        betainc.betainc(a[5:], b[5:], x[5:])
+    assert card.counters["betainc_elements"] == 6
+    assert card.counters["betainc_element_terms"] \
+        == alone.counters["betainc_element_terms"] > 0
 
 
 def test_betainc_launch_failure_raises(cuda, monkeypatch):

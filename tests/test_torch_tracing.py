@@ -333,6 +333,115 @@ def test_timed_is_a_span_when_tracing(capsys):
     assert blk["name"] == "blk" and inside["parent"] == blk["id"]
 
 
+# ---------------------------------------------------------------- counts
+
+
+def test_count_adds_an_int_amount_to_the_innermost_span():
+    with tracing() as tr:
+        profiling.count("c", 5)
+        with span("outer"):
+            profiling.count("c")
+            with span("inner"):
+                profiling.count("c", 7)
+    outer, inner = tr.spans
+    assert tr.counters["c"] == 13
+    assert outer["c"] == 1 and inner["c"] == 7
+
+
+def test_a_tensor_amount_is_read_when_the_block_exits():
+    with tracing() as tr:
+        with span("outer"):
+            with span("inner"):
+                profiling.count(("a", "b"), torch.tensor([3, 4]))
+            profiling.count("a", torch.tensor(10, dtype=torch.int32))
+            # kept as a tensor until the block exits: listed, not yet added
+            assert tr.counters["a"] == tr.counters["b"] == 0
+            assert "a" in tr.counters and "b" in tr.counters
+    outer, inner = tr.spans
+    assert (tr.counters["a"], tr.counters["b"]) == (13, 4)
+    assert (inner["a"], inner["b"], outer["a"], outer["b"]) == (3, 4, 10, 0)
+    assert all(isinstance(v, int) for v in tr.counters.values())
+
+
+def test_rows_of_amounts_are_summed_when_read():
+    with tracing() as tr:
+        profiling.count(("a", "b"), torch.tensor([[1, 2], [3, 4], [5, 6]]))
+        profiling.count("c", torch.tensor([[7], [8]]))
+    assert (tr.counters["a"], tr.counters["b"], tr.counters["c"]) == (9, 12,
+                                                                      15)
+
+
+def test_a_count_needs_one_amount_a_name():
+    with tracing():
+        with pytest.raises(ValueError, match="2 counts for 3 names"):
+            profiling.count(("a", "b", "c"), torch.tensor([1, 2]))
+        with pytest.raises(ValueError, match="2 counts for 3 names"):
+            profiling.count(("a", "b", "c"), torch.ones(4, 2))
+        with pytest.raises(ValueError, match="1 counts for 2 names"):
+            profiling.count(("a", "b"), 1)
+
+
+def test_reading_the_amounts_counts_no_host_sync(monkeypatch):
+    """The tensor amounts are read after the sync debug mode and the
+    warning hook are restored: a sync warning then is not counted."""
+    import warnings
+
+    read = profiling.Trace._resolve
+
+    def resolve(self):
+        warnings.warn(profiling.SYNC_WARNING + " (reading the counts)")
+        read(self)
+
+    monkeypatch.setattr(profiling.Trace, "_resolve", resolve)
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        with tracing() as tr:
+            with span("s"):
+                profiling.count("a", torch.tensor(2))
+    assert tr.counters["host_syncs"] == 0 and tr.spans[0]["host_syncs"] == 0
+    assert tr.counters["a"] == 2
+    assert any(str(w.message).startswith(profiling.SYNC_WARNING)
+               for w in seen)
+
+
+def test_one_range_for_each_count():
+    """One empty range a call, not one a unit; a call counting several
+    names is one range, named by the first."""
+    def run():
+        with tracing():
+            profiling.count("a", torch.tensor(5))
+            profiling.count("b", 9)
+            profiling.count(("c", "a"), torch.tensor([1, 2]))
+
+    names = [e.name() for e in _kineto(run)
+             if e.name().startswith(profiling.PREFIX)]
+    assert sorted(names) == ["xtt:a", "xtt:b", "xtt:c"]
+
+
+def test_the_last_blocks_counters_are_read_after_it():
+    with tracing() as tr:
+        with tracing() as inner:
+            profiling.count("a", torch.tensor(4))
+        # an inner block is the outer one: nothing is read before it ends
+        assert inner is tr and tr.counters["a"] == 0
+    assert profiling.last_trace() is tr and tr.counters["a"] == 4
+    with tracing() as other:
+        profiling.count("a")
+    assert profiling.last_trace() is other and other.counters["a"] == 1
+
+
+def test_counts_outside_tracing_record_nothing():
+    with tracing() as tr:
+        pass
+    profiling.count("a", 3)
+    profiling.count(("a", "b"), torch.tensor([1, 2]))
+    assert not profiling.active()
+    assert profiling.last_trace() is tr and "a" not in tr.counters
+    names = [e.name() for e in _kineto(lambda: profiling.count("a", 3))
+             if e.name().startswith(profiling.PREFIX)]
+    assert not names
+
+
 # ---------------------------------------------------------------- sites
 
 
@@ -639,3 +748,20 @@ def test_one_item_inside_a_span_counts_one_host_sync():
     syncs = [e for e in events if e.name() == "cudaStreamSynchronize"
              and inner.start_ns() <= e.start_ns() <= inner.end_ns()]
     assert len(syncs) == 1
+
+
+@pytest.mark.cuda
+def test_a_device_amount_is_read_without_a_host_sync_in_the_block():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: host syncs exist only on the card")
+    x = torch.ones(1000, device="cuda")
+    x.sum().item()                      # warm up outside the trace
+    with tracing() as tr:
+        with span("s"):
+            counts = torch.zeros(2, dtype=torch.int64, device="cuda")
+            counts[0] += 6
+            counts[1] += 1
+            profiling.count(("a", "b"), counts)
+    assert (tr.counters["a"], tr.counters["b"]) == (6, 1)
+    assert tr.spans[0]["a"] == 6
+    assert tr.counters["host_syncs"] == tr.spans[0]["host_syncs"] == 0

@@ -100,11 +100,61 @@ def test_cpu_call_counts_no_warp_launch():
     from xclim_tpu_torch.utils import profiling
 
     x = torch.as_tensor(_slices(365, 3, 4, seed=2))
-    before = winquantile.warp_launches
     with profiling.tracing() as tr:
         winquantile.doy_window_quantiles(x, Q, 31)
-    assert winquantile.warp_launches == before
     assert tr.counters["winquantile_warp_launches"] == 0
+    (op,) = [s for s in tr.spans if s["name"] == "op.winquantile"]
+    assert op["winquantile_warp_launches"] == 0
+
+
+def _slide_counts_numpy(x, window, nchunk):
+    """The valid values entering and leaving a window at each slide, by
+    loops: chunk j runs doys j * n // nchunk .. (j + 1) * n // nchunk - 1,
+    sorting its first window whole; window 1 never slides."""
+    n_doy = x.shape[0]
+    half = window // 2
+    valid = (~np.isnan(x)).sum(axis=(1, 2))
+    entered = left = 0
+    for j in range(nchunk):
+        g0, g1 = j * n_doy // nchunk, (j + 1) * n_doy // nchunk
+        for g in range(g0 + 1, g1):
+            if window > 1:
+                entered += int(valid[(g + half) % n_doy])
+                left += int(valid[(g - 1 - half) % n_doy])
+    return entered, left
+
+
+@pytest.mark.parametrize("chunks", [1, 3])
+@pytest.mark.parametrize("window", [1, 5, 31])
+def test_twin_counts_the_values_entering_and_leaving(monkeypatch, window,
+                                                     chunks):
+    """While tracing, the twin counts winquantile_inserted and
+    winquantile_removed at the chunk starts the card would use (one chunk,
+    or three of the 40 doys), inside op.winquantile; outside tracing it
+    counts nothing and its output is the same."""
+    from xclim_tpu_torch.utils import profiling
+
+    groups = -(-20 // winquantile.cells_per_block(window, 6))
+    monkeypatch.setattr(winquantile, "TARGET_BLOCKS", groups * chunks)
+    monkeypatch.setattr(winquantile, "TARGET_BLOCKS_SMEM", groups * chunks)
+    x = _slices(40, 6, 20, seed=window + chunks)
+    x[10:13] = np.nan                           # whole slices missing
+    nchunk = winquantile.doy_chunks(40, 20, window, 6)
+    assert nchunk == chunks
+    want = _slide_counts_numpy(x, window, nchunk)
+    xt = torch.as_tensor(x)
+    off = winquantile.doy_window_quantiles(xt, Q, window)
+    with profiling.tracing() as tr:
+        on = winquantile.doy_window_quantiles(xt, Q, window)
+    assert torch.equal(torch.isnan(off), torch.isnan(on))
+    assert torch.equal(torch.nan_to_num(off), torch.nan_to_num(on))
+    got = (tr.counters["winquantile_inserted"],
+           tr.counters["winquantile_removed"])
+    assert got == want
+    assert (want[0] > 0) is (window > 1)
+    (op,) = [s for s in tr.spans if s["name"] == "op.winquantile"]
+    assert (op["winquantile_inserted"], op["winquantile_removed"]) == want
+    assert "winquantile_slides" not in tr.counters    # the card's only
 
 
 @pytest.mark.parametrize("bad,err", [

@@ -44,6 +44,23 @@
 // t-test's df 181, a median of 10 terms and at most ~45), so the launch
 // costs what its slowest warps' terms cost. One launch a call, no host sync.
 //
+// Counting build (-DXTT_COUNT, build target betainc_count; the entry
+// xtt_betainc_count, launched while the program traces): the same kernel
+// with a last argument counts. One block in kSampleEvery (the sampled
+// blocks: element i's block is i / kThreads) writes, once, its elements'
+// continued-fraction terms (the term at which an element left the loop,
+// iterations - 1 where it never converged, 0 where a special case settled
+// it) and its elements to its own pair, counts[2 * (block / kSampleEvery)
+// + {0, 1}]: summed over each warp by __reduce_add_sync, then over the
+// block in shared memory; the caller sums the pairs. Counting the terms
+// keeps the loop from being unrolled by two (~12 % of the launch), so only
+// the sampled blocks run betainc_one<true>; with a pair a block, the
+// buffer needs no zeroing (a fill kernel, ~2 % of the launch) and no
+// atomic. No output bit changes; the shipped build
+// compiles none of it. xtt_betainc_count_load loads the kernel (CUDA
+// loads one on its first use), so that the first traced call does not
+// wait for that.
+//
 // Rounding: every float32 step of the fraction and the prefactor is one IEEE
 // operation written with __fadd_rn / __fsub_rn / __fmul_rn / __fdiv_rn /
 // __frcp_rn, so nvcc contracts nothing into an FMA; lgammaf, logf, log1pf
@@ -54,9 +71,24 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#ifdef XTT_COUNT
+#define XTT_COUNTS_PARAM , unsigned long long* __restrict__ counts
+#else
+#define XTT_COUNTS_PARAM
+#endif
+
 namespace {
 
+#ifdef XTT_COUNT
+constexpr bool kCount = true;
+#else
+constexpr bool kCount = false;
+#endif
+
 constexpr int kThreads = 256;
+// the counting build counts one block in kSampleEvery (ops/betainc.py
+// SAMPLE_EVERY)
+constexpr int kSampleEvery = 32;
 constexpr float kHalfEps = 5.9604644775390625e-08f;    // 2^-24
 constexpr float kVerySmall = 2.3509887016445750e-38f;  // 2 * FLT_MIN
 
@@ -82,7 +114,11 @@ __device__ __forceinline__ float numerator(int it, float a, float b,
   return __fdiv_rn(p, __fmul_rn(__fsub_rn(a2m, 1.0f), a2m));
 }
 
-__device__ float betainc_one(float a, float b, float x, int iterations) {
+// I_x(a, b); COUNT sets terms to the fraction's terms (0 if a special case
+// settles it).
+template <bool COUNT>
+__device__ float betainc_one(float a, float b, float x, int iterations,
+                             unsigned& terms) {
   const bool a_zero = a == 0.0f || b == INFINITY;
   const bool b_zero = b == 0.0f || a == INFINITY;
   if (isnan(a) || isnan(b) || isnan(x) || a < 0.0f || b < 0.0f ||
@@ -101,7 +137,8 @@ __device__ float betainc_one(float a, float b, float x, int iterations) {
   }
 
   float h = kHalfEps, c = kHalfEps, d = 0.0f;
-  for (int it = 1; it < iterations; ++it) {
+  int it = 1;
+  for (; it < iterations; ++it) {
     const float num = it == 1 ? 1.0f : numerator(it, a, b, x);
     c = clamp_small(__fadd_rn(1.0f, __fdiv_rn(num, c)));
     d = __frcp_rn(clamp_small(__fadd_rn(1.0f, __fmul_rn(num, d))));
@@ -109,6 +146,8 @@ __device__ float betainc_one(float a, float b, float x, int iterations) {
     h = __fmul_rn(h, delta);
     if (fabsf(__fsub_rn(delta, 1.0f)) < kHalfEps) break;
   }
+  // the term it left at, or the last where it never converged
+  if constexpr (COUNT) terms = it < iterations ? it : max(iterations - 1, 0);
 
   const float lbeta_small = __fsub_rn(lgammaf(b), lgammaf(__fadd_rn(a, b)));
   const float b_log1m = __fmul_rn(log1pf(-x), b);
@@ -128,25 +167,84 @@ __global__ void __launch_bounds__(kThreads)
     betainc_kernel(const float* __restrict__ a, const float* __restrict__ b,
                    const float* __restrict__ x, float* __restrict__ out,
                    long long n, int a_step, int b_step, int x_step,
-                   int iterations) {
+                   int iterations XTT_COUNTS_PARAM) {
   const long long stride = (long long)gridDim.x * kThreads;
+  const bool sampled = kCount && blockIdx.x % kSampleEvery == 0;
+  [[maybe_unused]] unsigned terms = 0, elements = 0;
   for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += stride)
-    out[i] = betainc_one(a[i * a_step], b[i * b_step], x[i * x_step],
-                         iterations);
+       i += stride) {
+    unsigned t = 0;
+    if (sampled) {
+      out[i] = betainc_one<true>(a[i * a_step], b[i * b_step], x[i * x_step],
+                                 iterations, t);
+      terms += t;
+      ++elements;
+    } else {
+      out[i] = betainc_one<false>(a[i * a_step], b[i * b_step],
+                                  x[i * x_step], iterations, t);
+    }
+  }
+#ifdef XTT_COUNT
+  if (sampled) {
+    __shared__ unsigned block[2];
+    if (threadIdx.x < 2) block[threadIdx.x] = 0;
+    terms = __reduce_add_sync(0xffffffffu, terms);
+    elements = __reduce_add_sync(0xffffffffu, elements);
+    __syncthreads();  // block[] zeroed
+    if (threadIdx.x % 32 == 0 && elements) {
+      atomicAdd(&block[0], terms);
+      atomicAdd(&block[1], elements);
+    }
+    __syncthreads();
+    if (threadIdx.x < 2)
+      counts[2 * (blockIdx.x / kSampleEvery) + threadIdx.x] = block[threadIdx.x];
+  }
+#endif
+}
+
+cudaError_t run(const float* a, const float* b, const float* x, float* out,
+                long long n, int a_step, int b_step, int x_step,
+                int iterations, unsigned long long* counts,
+                cudaStream_t stream) {
+  if (n <= 0) return cudaSuccess;
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  const int grid = (int)(blocks < (1LL << 30) ? blocks : (1LL << 30));
+#ifdef XTT_COUNT
+  betainc_kernel<<<grid, kThreads, 0, stream>>>(
+      a, b, x, out, n, a_step, b_step, x_step, iterations, counts);
+#else
+  betainc_kernel<<<grid, kThreads, 0, stream>>>(
+      a, b, x, out, n, a_step, b_step, x_step, iterations);
+#endif
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+#ifndef XTT_COUNT
 // out[i] = I_x(a, b) for i < n; a step of 0 broadcasts that operand's one
 // value, 1 reads it element by element. Returns a CUDA error code.
 extern "C" int xtt_betainc(const float* a, const float* b, const float* x,
                            float* out, long long n, int a_step, int b_step,
                            int x_step, int iterations, void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  const int grid = (int)(blocks < (1LL << 30) ? blocks : (1LL << 30));
-  betainc_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      a, b, x, out, n, a_step, b_step, x_step, iterations);
-  return (int)cudaGetLastError();
+  return (int)run(a, b, x, out, n, a_step, b_step, x_step, iterations,
+                  nullptr, (cudaStream_t)stream);
 }
+#else
+// xtt_betainc of the counting build: counts holds a pair (the elements'
+// terms, the elements) for each sampled block, ceil(grid / kSampleEvery)
+// pairs of the grid of min(ceil(n / kThreads), 2^30) blocks.
+extern "C" int xtt_betainc_count(const float* a, const float* b,
+                                 const float* x, float* out, long long n,
+                                 int a_step, int b_step, int x_step,
+                                 int iterations, unsigned long long* counts,
+                                 void* stream) {
+  return (int)run(a, b, x, out, n, a_step, b_step, x_step, iterations,
+                  counts, (cudaStream_t)stream);
+}
+
+extern "C" int xtt_betainc_count_load() {
+  cudaFuncAttributes attr;
+  return (int)cudaFuncGetAttributes(&attr, (const void*)betainc_kernel);
+}
+#endif  // XTT_COUNT

@@ -101,6 +101,26 @@
 //     valid value (NaN without one);
 //   2 + node selection: the shipped kernel (xtt_winquantile).
 //
+// Counting build (-DXTT_COUNT, build target winquantile_count; the
+// entry xtt_winquantile_count, launched while the program traces): the
+// same kernels with a last argument, counts, an array of int64 counters
+// (Counter below) they add to; nothing they write to out changes. In the
+// warp instance each warp keeps its counts in registers and adds them
+// once at its end: every warp its slides (chunk starts are none) and the
+// valid values that entered and left its windows; the warps of one block
+// in kSampleEvery (the sampled blocks, which run warp_cells<..., true>)
+// also their slides again, the clock64 cycles of their stages (the
+// chunk-start sort; the slices' loads and sorts; the searches, tie scan
+// and walk of merge_slices; node selection with its staging, barrier and
+// write-out), the walk's entry steps, the steps at which at least one
+// lane inserts before its entry or removes it, and the lanes that do
+// (summed over those steps). Sampling keeps the build's time within
+// ~1 % of the shipped one's: counting every warp's stages and walk costs
+// ~7 % (a bit an entry and an insertion). The shared-memory and
+// global-scratch instances count the values entering and leaving only.
+// The shipped build compiles none of it: the kernels there take no
+// counts.
+//
 // Rounding: the node arithmetic repeats the reference's float32 op
 // sequence (h = n*q + coff - 1, clip, floor, gamma, v0*(1-gamma) +
 // v1*gamma) with __fmul_rn / __fadd_rn, so nvcc cannot contract any step
@@ -113,7 +133,42 @@
 
 #include <algorithm>
 
+#ifdef XTT_COUNT
+#define XTT_COUNTS_PARAM , unsigned long long* __restrict__ counts
+#define XTT_COUNTS_ARG , counts
+#else
+#define XTT_COUNTS_PARAM
+#define XTT_COUNTS_ARG
+#endif
+
 namespace {
+
+#ifdef XTT_COUNT
+constexpr bool kCount = true;
+#else
+constexpr bool kCount = false;
+#endif
+// The counting build's counters, in the order of ops/winquantile.py's
+// COUNTERS.
+enum Counter {
+  kSlides,
+  kSampledSlides,
+  kCyclesSort,
+  kCyclesSlices,
+  kCyclesWalk,
+  kCyclesNodes,
+  kWalkSteps,
+  kBranchSteps,
+  kBranchLanes,
+  kInserted,
+  kRemoved,
+  kCounters
+};
+
+// blocks of the warp instance of which the counting build times the stages
+// and counts the walk: one in kSampleEvery (ops/winquantile.py
+// SAMPLE_EVERY)
+constexpr int kSampleEvery = 32;
 
 constexpr int kThreads = 256;
 constexpr int kWarp = 32;
@@ -425,7 +480,7 @@ slide_kernel(const float* __restrict__ x, const float* __restrict__ ps,
              float* __restrict__ out, const float* __restrict__ qv,
              const float* __restrict__ coff, float* scratch, int n_doy,
              int Y, int C, int window, int nq, int nchunk, int P2_arg,
-             int CT_arg) {
+             int CT_arg XTT_COUNTS_PARAM) {
   extern __shared__ float smem[];
   const int P2 = P2_arg;
   const int CT = CT_arg;
@@ -450,6 +505,9 @@ slide_kernel(const float* __restrict__ x, const float* __restrict__ ps,
   // kept entries of a slide: thread t merges the run [t*E, t*E + E) of the
   // old window; E odd, so the 32 lanes of a warp start in 32 banks
   const int E = ((W + gs - 1) / gs) | 1;
+  // the counting build's valid values entering and leaving this thread's
+  // windows
+  [[maybe_unused]] unsigned entered = 0, left = 0;
 
   // cell group blockIdx.x, one pass; a GLOBAL grid walks on, as in
   // presort_kernel
@@ -501,6 +559,10 @@ slide_kernel(const float* __restrict__ x, const float* __restrict__ ps,
             }
           }
           cnt += (int)!isnan(vi) - (int)!isnan(vo);
+          if constexpr (kCount) {
+            entered += !isnan(vi);
+            left += !isnan(vo);
+          }
           my_in[y] = isnan(vi) ? INFINITY : vi;
           my_out[y] = isnan(vo) ? INFINITY : vo;
         }
@@ -562,6 +624,14 @@ slide_kernel(const float* __restrict__ x, const float* __restrict__ ps,
       __syncthreads();
     }
   } while (GLOBAL && (cg += gridDim.x) < (C + CT - 1) / CT);
+#ifdef XTT_COUNT
+  entered = __reduce_add_sync(0xffffffffu, entered);
+  left = __reduce_add_sync(0xffffffffu, left);
+  if (threadIdx.x % kWarp == 0) {
+    atomicAdd(&counts[kInserted], (unsigned long long)entered);
+    atomicAdd(&counts[kRemoved], (unsigned long long)left);
+  }
+#endif
 }
 
 // ---- The warp instance (P2 <= kRegP2): one warp a cell ----
@@ -774,12 +844,14 @@ __device__ __forceinline__ int sorted_window(const float* __restrict__ x,
 //
 // The window is rank wb + p at sm[wpos(wb + p)] of the block's shared
 // memory sm (wb a multiple of 32), so that a rank's place costs two
-// instructions; uin and oin are walked by pointer.
-template <int R>
+// instructions; uin and oin are walked by pointer. DETAIL (a sampled block
+// of the counting build) sets bit r of ev where the lane inserts before
+// entry r or removes it.
+template <int R, bool DETAIL>
 __device__ __forceinline__ int merge_slices(float* sm, int wb, int n,
                                             const float* uin, int m,
                                             const float* oin, int mo, int PY,
-                                            int lane) {
+                                            int lane, unsigned& ev) {
   constexpr unsigned kAll = 0xffffffffu;
   constexpr int P2 = R * kWarp;
   const float* run = sm + wpos(wb + lane * R);
@@ -835,11 +907,13 @@ __device__ __forceinline__ int merge_slices(float* sm, int wb, int n,
     while (nu <= v[r]) {
       sm[wpos(out++)] = nu;
       nu = *++up;
+      if constexpr (DETAIL) ev |= 1u << r;
     }
     const bool keep = no != v[r];
     if (keep) sm[wpos(out)] = v[r];
     out += keep;
     if (!keep) no = *++op;
+    if constexpr (DETAIL) ev |= (unsigned)!keep << r;
   }
   // the ranks P2 - mo + m .. P2 - 1 written by nothing: padding again
   for (int j = P2 - mo + m + lane; j < P2; j += kWarp)
@@ -877,11 +951,14 @@ __device__ __forceinline__ void warp_nodes(const float* win, int n,
 // axis); warp w of block (k, j) owns cell k * kWarpCells + w over chunk j.
 // Shared: each warp's region (warp_floats), then two buffers of S doys x
 // kWarpCells cells x node_stride(nq) staged node values (S = 0: none).
-template <int R, int STAGE>
-__global__ void __launch_bounds__(kThreads, kWarpBlocks)
-warp_kernel(const float* __restrict__ x, float* __restrict__ out,
-            const float* __restrict__ qv, const float* __restrict__ coff,
-            int n_doy, int Y, int C, int window, int nq, int nchunk, int S) {
+// The counting build adds to counts; DETAIL, its sampled blocks, also
+// time the stages and count the walk.
+template <int R, int STAGE, bool DETAIL>
+__device__ __forceinline__ void warp_cells(
+    const float* __restrict__ x, float* __restrict__ out,
+    const float* __restrict__ qv, const float* __restrict__ coff, int n_doy,
+    int Y, int C, int window, int nq, int nchunk, int S,
+    unsigned long long* __restrict__ counts) {
   extern __shared__ float smem[];
   constexpr int P2 = R * kWarp;
   const int PY = pow2_at_least(Y);
@@ -915,14 +992,28 @@ warp_kernel(const float* __restrict__ x, float* __restrict__ out,
     }
     return r;
   };
+  // the counting build's counts (the slides and walk steps follow from the
+  // chunk), and the clock at the end of the last stage: a lap adds the
+  // cycles since then to the stage's count
+  [[maybe_unused]] unsigned cyc[kCounters] = {}, ev = 0;
+  [[maybe_unused]] long long stamp = DETAIL ? clock64() : 0;
+  auto lap = [&](int k) {
+    if constexpr (DETAIL) {
+      const long long now = clock64();
+      cyc[k] += (unsigned)(now - stamp);
+      stamp = now;
+    }
+  };
   float2 pre = window > 1 ? ahead(g0 + 1) : make_float2(NAN, NAN);
   int n = live ? sorted_window<R, STAGE>(x, win, g0, c, n_doy, Y, C, window,
                                          lane)
                : 0;
+  lap(kCyclesSort);
   for (int g = g0; g < g1; ++g) {
     if (g > g0 && live) {
       if (window == 1) {
         n = sorted_window<R, STAGE>(x, win, g, c, n_doy, Y, C, 1, lane);
+        lap(kCyclesSort);
       } else {
         int d_out = (g - 1 - half) % n_doy;
         if (d_out < 0) d_out += n_doy;
@@ -932,12 +1023,24 @@ warp_kernel(const float* __restrict__ x, float* __restrict__ out,
         int m, mo;
         sorted_slices<STAGE>(x, uin, oin, cur, d_in, d_out, c, Y, C, PY, lane,
                              m, mo);
+        lap(kCyclesSlices);
         if constexpr (STAGE >= 1) {
           __syncwarp();
-          n = merge_slices<R>(smem, wb, n, uin, m, oin, mo, PY, lane);
+          n = merge_slices<R, DETAIL>(smem, wb, n, uin, m, oin, mo, PY, lane,
+                                      ev);
         } else {
           n += m - mo;
         }
+        if constexpr (kCount) {
+          cyc[kInserted] += m;
+          cyc[kRemoved] += mo;
+        }
+        if constexpr (DETAIL) {
+          cyc[kBranchSteps] += __popc(__reduce_or_sync(0xffffffffu, ev));
+          cyc[kBranchLanes] += __popc(ev);
+          ev = 0;
+        }
+        lap(kCyclesWalk);
       }
     }
     if constexpr (STAGE == 2) {
@@ -974,7 +1077,40 @@ warp_kernel(const float* __restrict__ x, float* __restrict__ out,
       out[(size_t)g * C + c] =
           STAGE == 0 ? (float)n : (n > 0 ? win[0] : NAN);
     }
+    lap(kCyclesNodes);
   }
+  if constexpr (kCount) {
+    cyc[kSlides] = live && window > 1 ? g1 - g0 - 1 : 0;
+    if constexpr (DETAIL) {
+      cyc[kSampledSlides] = cyc[kSlides];
+      cyc[kWalkSteps] = cyc[kSlides] * R;
+      cyc[kBranchLanes] = __reduce_add_sync(0xffffffffu, cyc[kBranchLanes]);
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int k = 0; k < kCounters; ++k)
+        if (cyc[k]) atomicAdd(&counts[k], (unsigned long long)cyc[k]);
+    }
+  }
+}
+
+template <int R, int STAGE>
+__global__ void __launch_bounds__(kThreads, kWarpBlocks)
+warp_kernel(const float* __restrict__ x, float* __restrict__ out,
+            const float* __restrict__ qv, const float* __restrict__ coff,
+            int n_doy, int Y, int C, int window, int nq, int nchunk,
+            int S XTT_COUNTS_PARAM) {
+#ifdef XTT_COUNT
+  if (blockIdx.x % kSampleEvery == 0)
+    warp_cells<R, STAGE, true>(x, out, qv, coff, n_doy, Y, C, window, nq,
+                               nchunk, S, counts);
+  else
+    warp_cells<R, STAGE, false>(x, out, qv, coff, n_doy, Y, C, window, nq,
+                                nchunk, S, counts);
+#else
+  warp_cells<R, STAGE, false>(x, out, qv, coff, n_doy, Y, C, window, nq,
+                              nchunk, S, nullptr);
+#endif
 }
 
 // Lets `kernel` take `bytes` of dynamic shared memory (above 48 KB only
@@ -1046,7 +1182,8 @@ template <int STAGE, bool GLOBAL>
 cudaError_t launch_slide(const float* x, const float* ps, float* out,
                          const float* qv, const float* coff, float* scratch,
                          int n_doy, int Y, int C, int window, int nq,
-                         int nchunk, int P2, cudaStream_t st) {
+                         int nchunk, int P2, unsigned long long* counts,
+                         cudaStream_t st) {
   const int CT = cells_per_block(P2);
   const size_t smem =
       (GLOBAL ? 0 : slide_floats(P2, CT, Y) * sizeof(float)) +
@@ -1055,14 +1192,16 @@ cudaError_t launch_slide(const float* x, const float* ps, float* out,
   if (err != cudaSuccess) return err;
   const dim3 grid = slide_grid((C + CT - 1) / CT, nchunk, GLOBAL);
   slide_kernel<STAGE, GLOBAL><<<grid, kThreads, smem, st>>>(
-      x, ps, out, qv, coff, scratch, n_doy, Y, C, window, nq, nchunk, P2, CT);
+      x, ps, out, qv, coff, scratch, n_doy, Y, C, window, nq, nchunk, P2,
+      CT XTT_COUNTS_ARG);
   return cudaGetLastError();
 }
 
 template <int R, int STAGE>
 cudaError_t launch_warp(const float* x, float* out, const float* qv,
                         const float* coff, int n_doy, int Y, int C,
-                        int window, int nq, int nchunk, cudaStream_t st) {
+                        int window, int nq, int nchunk,
+                        unsigned long long* counts, cudaStream_t st) {
   const int S = STAGE == 2 ? stage_doys(nq) : 0;
   const size_t smem =
       ((size_t)kWarpCells * warp_floats(R * kWarp, pow2_at_least(Y), window) +
@@ -1072,7 +1211,7 @@ cudaError_t launch_warp(const float* x, float* out, const float* qv,
   if (err != cudaSuccess) return err;
   const dim3 grid((C + kWarpCells - 1) / kWarpCells, nchunk);
   warp_kernel<R, STAGE><<<grid, kThreads, smem, st>>>(
-      x, out, qv, coff, n_doy, Y, C, window, nq, nchunk, S);
+      x, out, qv, coff, n_doy, Y, C, window, nq, nchunk, S XTT_COUNTS_ARG);
   return cudaGetLastError();
 }
 
@@ -1080,7 +1219,7 @@ template <int STAGE>
 cudaError_t run(const float* x, float* ps, float* scratch, float* out,
                 const float* qv, const float* coff, int n_doy, int Y, int C,
                 int window, int nq, int nchunk, long long scratch_n,
-                cudaStream_t st) {
+                unsigned long long* counts, cudaStream_t st) {
   if (window < 1 || window % 2 == 0 || Y < 0 || nchunk < 1 ||
       nchunk > n_doy || (long long)window * Y > kMaxWindow ||
       scratch_n < (long long)scratch_floats(n_doy, Y, C, window, nchunk))
@@ -1088,7 +1227,7 @@ cudaError_t run(const float* x, float* ps, float* scratch, float* out,
   const int pw = pow2_at_least(window * Y);
 #define XTT_WARP(R)                                                       \
   launch_warp<R, STAGE>(x, out, qv, coff, n_doy, Y, C, window, nq, nchunk, \
-                        st)
+                        counts, st)
   switch (pw) {
     case 32: return XTT_WARP(1);
     case 64: return XTT_WARP(2);
@@ -1117,9 +1256,9 @@ cudaError_t run(const float* x, float* ps, float* scratch, float* out,
   if (err != cudaSuccess) return err;
   if (pw <= kMaxP2)
     return launch_slide<STAGE, false>(x, ps, out, qv, coff, scratch, n_doy, Y,
-                                      C, window, nq, nchunk, pw, st);
+                                      C, window, nq, nchunk, pw, counts, st);
   return launch_slide<STAGE, true>(x, ps, out, qv, coff, scratch, n_doy, Y, C,
-                                   window, nq, nchunk, pw, st);
+                                   window, nq, nchunk, pw, counts, st);
 }
 
 }  // namespace
@@ -1139,13 +1278,54 @@ extern "C" long long xtt_winquantile_scratch(int n_doy, int Y, int C,
 // be empty, in the warp instance, window*Y <= 1024, and when window > 1
 // and nchunk == n_doy); scratch holds scratch_n floats; nchunk splits the
 // doy axis across blocks.
+#ifndef XTT_COUNT
 extern "C" int xtt_winquantile(const float* x, float* ps, float* scratch,
                                float* out, const float* qv, const float* coff,
                                int n_doy, int Y, int C, int window, int nq,
                                int nchunk, long long scratch_n, void* stream) {
   return (int)run<2>(x, ps, scratch, out, qv, coff, n_doy, Y, C, window, nq,
-                     nchunk, scratch_n, (cudaStream_t)stream);
+                     nchunk, scratch_n, nullptr, (cudaStream_t)stream);
 }
+#else
+// xtt_winquantile of the counting build: the same launches, each kernel
+// adding its counts to counts[kCounters] (zeroed by the caller).
+extern "C" int xtt_winquantile_count(const float* x, float* ps, float* scratch,
+                                     float* out, const float* qv,
+                                     const float* coff, int n_doy, int Y,
+                                     int C, int window, int nq, int nchunk,
+                                     long long scratch_n,
+                                     unsigned long long* counts,
+                                     void* stream) {
+  return (int)run<2>(x, ps, scratch, out, qv, coff, n_doy, Y, C, window, nq,
+                     nchunk, scratch_n, counts, (cudaStream_t)stream);
+}
+
+// Loads every kernel xtt_winquantile_count may launch now: CUDA loads a
+// kernel on its first use, which would otherwise fall inside the first
+// traced call (3-6 ms at sdba's shape).
+extern "C" int xtt_winquantile_count_load() {
+  const void* kernels[] = {
+      (const void*)warp_kernel<1, 2>,     (const void*)warp_kernel<2, 2>,
+      (const void*)warp_kernel<4, 2>,     (const void*)warp_kernel<8, 2>,
+      (const void*)warp_kernel<16, 2>,    (const void*)warp_kernel<32, 2>,
+      (const void*)presort_kernel<1, false>,
+      (const void*)presort_kernel<2, false>,
+      (const void*)presort_kernel<4, false>,
+      (const void*)presort_kernel<8, false>,
+      (const void*)presort_kernel<16, false>,
+      (const void*)presort_kernel<32, false>,
+      (const void*)presort_kernel<0, false>,
+      (const void*)presort_kernel<0, true>,
+      (const void*)slide_kernel<2, false>,
+      (const void*)slide_kernel<2, true>};
+  cudaFuncAttributes attr;
+  for (const void* k : kernels) {
+    const cudaError_t err = cudaFuncGetAttributes(&attr, k);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
+}
+#endif  // XTT_COUNT
 
 #ifdef XTT_WINQUANTILE_STAGES
 // The same kernel stopped after `stage` (0: loads (and presort), writing
@@ -1161,11 +1341,11 @@ extern "C" int xtt_winquantile_stages(const float* x, float* ps,
   const cudaStream_t st = (cudaStream_t)stream;
   switch (stage) {
     case 0: return (int)run<0>(x, ps, scratch, out, qv, coff, n_doy, Y, C,
-                               window, nq, nchunk, scratch_n, st);
+                               window, nq, nchunk, scratch_n, nullptr, st);
     case 1: return (int)run<1>(x, ps, scratch, out, qv, coff, n_doy, Y, C,
-                               window, nq, nchunk, scratch_n, st);
+                               window, nq, nchunk, scratch_n, nullptr, st);
     case 2: return (int)run<2>(x, ps, scratch, out, qv, coff, n_doy, Y, C,
-                               window, nq, nchunk, scratch_n, st);
+                               window, nq, nchunk, scratch_n, nullptr, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

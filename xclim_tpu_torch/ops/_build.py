@@ -9,8 +9,14 @@ raises with the compiler's output: there is no fallback.
 
 A build target is a source's name, or a name in :data:`VARIANTS`, which
 compiles a source with extra flags (``winquantile_stages``: the winquantile
-kernel with its profiling stages, which the shipped library leaves out);
-:data:`TARGETS` lists them all.
+kernel with its profiling stages, which the shipped library leaves out;
+``winquantile_count`` and ``betainc_count``: the counting builds,
+``-DXTT_COUNT``, whose kernels add their counters to a buffer given as
+their last argument); :data:`TARGETS` lists them all. :data:`COUNTING`
+names the counting build of a kernel and its entry: the op launches it
+instead of the shipped one while the program is tracing
+(``utils/profiling.py``), and :func:`prepare_counting`, called on entering
+a tracing block, builds and binds those of the kernels loaded so far.
 
 Every launch of a kernel goes through :func:`launch`: the entry is bound
 once (:func:`function`), called inside ``torch.cuda.device`` with the
@@ -33,7 +39,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["build", "load", "build_info", "source", "function", "launch",
-           "device_copy", "TARGETS", "VARIANTS"]
+           "device_copy", "prepare_counting", "TARGETS", "VARIANTS",
+           "COUNTING"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _SRC = _PKG / "csrc"
@@ -43,7 +50,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: build target -> (source name under csrc/, extra nvcc flags)
 VARIANTS = {"winquantile_stages": ("winquantile",
-                                   ("-DXTT_WINQUANTILE_STAGES",))}
+                                   ("-DXTT_WINQUANTILE_STAGES",)),
+            "winquantile_count": ("winquantile", ("-DXTT_COUNT",)),
+            "betainc_count": ("betainc", ("-DXTT_COUNT",))}
+#: shipped target -> (its counting build, the entry, the entry's argument
+#: codes before the stream: the shipped entry's, then the counts buffer);
+#: the build also has ``<entry>_load()``, which loads its kernels
+COUNTING = {"winquantile": ("winquantile_count", "xtt_winquantile_count",
+                            "ppppppiiiiiiqp"),
+            "betainc": ("betainc_count", "xtt_betainc_count", "ppppqiiiip")}
 #: every build target: the sources under csrc/ and the variants
 TARGETS = tuple(sorted([p.stem for p in _SRC.glob("*.cu")] + list(VARIANTS)))
 #: argument and return codes of function(): a pointer, an int, a long
@@ -157,6 +172,22 @@ def launch(target: str, symbol: str, argtypes: str, device: torch.device,
     if err != 0:
         raise RuntimeError(f"{source(target).stem} kernel launch failed: "
                            f"CUDA error {err}")
+
+
+def prepare_counting() -> None:
+    """Build (one nvcc each, together), bind and load the kernels of the
+    counting build of each loaded kernel that has one (:data:`COUNTING`),
+    so that a launch while tracing neither compiles nor waits for CUDA to
+    load a kernel on its first use. Raises if the loading fails."""
+    todo = [COUNTING[t] for t in list(_libs) if t in COUNTING]
+    build([target for target, _, _ in todo])
+    for target, symbol, argtypes in todo:
+        function(target, symbol, argtypes + "p")
+        err = function(target, symbol + "_load", "")()
+        if err != 0:
+            raise RuntimeError(f"{source(target).stem} counting build: "
+                               f"loading its kernels failed: CUDA error "
+                               f"{err}")
 
 
 @functools.lru_cache(maxsize=256)

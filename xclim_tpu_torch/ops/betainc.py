@@ -19,6 +19,16 @@ a call, no host sync, and a failed launch raises. Each launch counts one
 every element has converged, as XLA's while loop does: one
 ``betainc_terms`` and one host check a step.
 
+While the program traces, the card launches the counting build of the
+kernel (build target ``betainc_count``), which adds the sampled
+elements' continued-fraction terms and the sampled elements to the
+counters ``betainc_element_terms`` and ``betainc_elements``; the twin
+counts them too, an element's terms being the step at which its delta
+first met the tolerance (``iterations - 1`` if it never did), 0 for a
+special case. The sampled elements (:func:`sampled`) are those of one
+block of the kernel in :data:`SAMPLE_EVERY`: counting every element's
+terms costs the launch ~12 %.
+
 ``launches`` and ``twin_calls`` count the calls each path served.
 """
 
@@ -28,6 +38,7 @@ import numpy as np
 import torch
 
 from xclim_tpu_torch.ops import _build
+from xclim_tpu_torch.utils import profiling
 from xclim_tpu_torch.utils.profiling import count, span
 
 __all__ = ["betainc", "betainc_plain", "ITERATIONS"]
@@ -45,6 +56,13 @@ _VERY_SMALL = float(_F32.tiny) * 2.0
 #: continued-fraction terms evaluated at most, plus one (XLA's count for
 #: float32)
 ITERATIONS = 200
+#: the counting build's counters, and the twin's, in csrc/betainc.cu's order
+COUNTERS = ("betainc_element_terms", "betainc_elements")
+#: the counting build counts the elements of one block in this many, a
+#: block holding BLOCK consecutive elements (csrc/betainc.cu kSampleEvery,
+#: kThreads)
+SAMPLE_EVERY = 32
+BLOCK = 256
 
 
 def betainc(a, b, x, iterations: int = ITERATIONS) -> torch.Tensor:
@@ -101,12 +119,28 @@ def _launch(a, b, x, device, iterations):
     out = torch.empty(shape, dtype=torch.float32, device=device)
     if out.numel() == 0:
         return out
-    _build.launch("betainc", "xtt_betainc", "ppppqiiii", device,
-                  ta.data_ptr(), tb.data_ptr(), tx.data_ptr(), out.data_ptr(),
-                  out.numel(), sa, sb, sx, int(iterations))
+    args = (ta.data_ptr(), tb.data_ptr(), tx.data_ptr(), out.data_ptr(),
+            out.numel(), sa, sb, sx, int(iterations))
+    if profiling.active():
+        # a pair a sampled block of the launch's grid, each written once
+        grid = min(-(-out.numel() // BLOCK), 1 << 30)
+        counts = torch.empty((-(-grid // SAMPLE_EVERY), len(COUNTERS)),
+                             dtype=torch.int64, device=device)
+        _build.launch(*_build.COUNTING["betainc"], device, *args,
+                      counts.data_ptr())
+        count(COUNTERS, counts)
+    else:
+        _build.launch("betainc", "xtt_betainc", "ppppqiiii", device, *args)
     launches += 1
     count("betainc_terms")
     return out
+
+
+def sampled(numel: int, device) -> torch.Tensor:
+    """Which of ``numel`` elements (in C order) the counting build counts:
+    those of every SAMPLE_EVERY-th block of BLOCK, as a bool tensor."""
+    i = torch.arange(numel, device=device)
+    return (i // BLOCK) % SAMPLE_EVERY == 0
 
 
 def _betainc_numerator(it: int, a, b, x):
@@ -127,7 +161,8 @@ def betainc_plain(a, b, x, iterations: int = ITERATIONS) -> torch.Tensor:
     The Lentz-Thompson-Barnett evaluation of
     ``jax._src.lax.special.regularized_incomplete_beta_impl`` (XLA's
     ``math.cc``): the loop runs until every element of the call has
-    converged, as XLA's while loop does, with one host check a step.
+    converged, as XLA's while loop does, with one host check a step. While
+    tracing, it also counts :data:`COUNTERS` as the kernel does.
     """
     device = next(v.device for v in (a, b, x) if isinstance(v, torch.Tensor))
     a, b, x = torch.broadcast_tensors(*(
@@ -151,6 +186,10 @@ def betainc_plain(a, b, x, iterations: int = ITERATIONS) -> torch.Tensor:
     h = torch.full_like(x, _HALF_EPS)
     c = h
     d = torch.zeros_like(x)
+    # each element's terms: the step at which it first converged
+    terms = torch.zeros(x.shape, dtype=torch.int64, device=device) \
+        if profiling.active() else None
+    it = 0
     for it in range(1, iterations):
         count("betainc_terms")
         num = _betainc_numerator(it, a, b, x)
@@ -161,8 +200,17 @@ def betainc_plain(a, b, x, iterations: int = ITERATIONS) -> torch.Tensor:
         d = torch.reciprocal(d)
         delta = c * d
         h = h * delta
-        if not bool(((delta - 1.0).abs() >= _HALF_EPS).any()):
+        going = (delta - 1.0).abs() >= _HALF_EPS
+        if terms is not None:
+            terms = torch.where((terms == 0) & ~going, it, terms)
+        if not bool(going.any()):
             break
+    if terms is not None:
+        terms = torch.where(terms == 0, it, terms)     # never converged
+        special = result_is_zero | result_is_one | result_is_nan
+        keep = sampled(x.numel(), device).reshape(x.shape)
+        count(COUNTERS[0], (terms * (keep & ~special)).sum())
+        count(COUNTERS[1], keep.sum())
 
     lbeta_ab_small_a = torch.lgamma(b) - torch.lgamma(a + b)
     lbeta_ab = torch.lgamma(a) + lbeta_ab_small_a

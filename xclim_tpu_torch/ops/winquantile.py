@@ -50,13 +50,22 @@ plain torch.
 ``launches`` counts the calls of :func:`doy_window_quantiles` that ran on
 the card (one kernel launch in the warp instance; the presort pass and the
 sliding kernel in the others, or the sliding kernel alone when every doy
-is its own chunk); of those, ``warp_launches`` the calls the warp instance
-took (also counted as ``winquantile_warp_launches`` by
-:func:`~xclim_tpu_torch.utils.profiling.count`, inside the
-``op.winquantile`` span) and ``global_launches`` those of the
+is its own chunk); of those, ``global_launches`` those of the
 global-scratch instance; ``twin_calls`` the calls the twin served on CPU
 tensors; ``stage_launches`` the calls of :func:`doy_window_stage` that ran
-on the card.
+on the card. The program's counters
+(:func:`~xclim_tpu_torch.utils.profiling.count`, inside the
+``op.winquantile`` span while tracing): ``winquantile_warp_launches``, one a
+launch of the warp instance; and, while tracing, the card launches the
+counting build of the kernel (build target ``winquantile_count``), which
+adds :data:`COUNTERS` (the warp instance all of them, the stage cycles and
+the walk's steps and lanes in one block of :data:`SAMPLE_EVERY`; the
+other instances the values entering and leaving windows), while the twin
+counts
+``winquantile_inserted`` and ``winquantile_removed`` exactly as the card
+does: the valid values of the slices entering and leaving a window at
+each slide, a chunk start (:func:`doy_chunks`) sorting its window whole
+and counting none.
 """
 
 from __future__ import annotations
@@ -65,6 +74,7 @@ import torch
 
 from xclim_tpu_torch.ops import _build
 from xclim_tpu_torch.ops.quantile import _node_constants, nan_quantile_plain
+from xclim_tpu_torch.utils import profiling
 from xclim_tpu_torch.utils.profiling import count, span
 
 __all__ = ["doy_window_quantiles", "doy_window_quantiles_plain",
@@ -73,8 +83,6 @@ __all__ = ["doy_window_quantiles", "doy_window_quantiles_plain",
 
 #: calls of doy_window_quantiles that ran on the card
 launches = 0
-#: of those, the calls whose windows took the warp instance
-warp_launches = 0
 #: of those, the calls whose windows took the global-scratch instance
 global_launches = 0
 #: calls doy_window_quantiles served with the plain twin (CPU tensors)
@@ -101,6 +109,26 @@ TARGET_BLOCKS = 4096
 TARGET_BLOCKS_SMEM = 1024
 
 _SLAB_BYTES = 1 << 30
+#: the counting build times the stages and counts the walk in the warp
+#: instance's blocks whose cell group is a multiple of this
+#: (csrc/winquantile.cu kSampleEvery): every warp's would cost ~7 %
+SAMPLE_EVERY = 32
+
+#: the counting build's counters, in the order of csrc/winquantile.cu's
+#: Counter: the (cell, doy) slides run (chunk starts excluded), and of
+#: those the sampled blocks' (one block of the warp instance in
+#: SAMPLE_EVERY); the sampled warps' clock64 cycles in the chunk-start
+#: sort, the slices' loads and sorts, the searches and the walk, and node
+#: selection with its staging, barrier and write-out; their walk's entry
+#: steps, those at which at least one lane inserts or removes, and the
+#: lanes that do, summed over those steps; every warp's valid values
+#: entering and leaving windows
+COUNTERS = ("winquantile_slides", "winquantile_sampled_slides",
+            "winquantile_cycles_sort",
+            "winquantile_cycles_slices", "winquantile_cycles_walk",
+            "winquantile_cycles_nodes", "winquantile_walk_steps",
+            "winquantile_walk_branch_steps", "winquantile_walk_branch_lanes",
+            "winquantile_inserted", "winquantile_removed")
 
 
 def _pow2(n: int) -> int:
@@ -162,7 +190,7 @@ def doy_window_quantiles(xg: torch.Tensor, q, window: int, alpha: float = 1.0,
     semantics of :func:`~xclim_tpu_torch.ops.quantile.nan_quantile` (no
     valid samples -> NaN).
     """
-    global launches, twin_calls, warp_launches, global_launches
+    global launches, twin_calls, global_launches
     with span("op.winquantile"):
         _check(xg, window)
         if xg.device.type == "cpu":
@@ -172,7 +200,6 @@ def doy_window_quantiles(xg: torch.Tensor, q, window: int, alpha: float = 1.0,
         launches += 1
         which = instance(window, xg.shape[1])
         if which == "warp":
-            warp_launches += 1
             count("winquantile_warp_launches")
         elif which == "global":
             global_launches += 1
@@ -225,7 +252,12 @@ def _launch(xg, q, window, alpha, beta, stage):
     args = (x.data_ptr(), presorted.data_ptr(), scratch.data_ptr(),
             out.data_ptr(), qv_d.data_ptr(), co_d.data_ptr(), n_doy, Y, C,
             window, nq, nchunk, scratch_n)
-    if stage is None:
+    if stage is None and profiling.active():
+        counts = torch.zeros(len(COUNTERS), dtype=torch.int64, device=x.device)
+        _build.launch(*_build.COUNTING["winquantile"], x.device, *args,
+                      counts.data_ptr())
+        count(COUNTERS, counts)
+    elif stage is None:
         _build.launch("winquantile", "xtt_winquantile", "ppppppiiiiiiq",
                       x.device, *args)
     else:
@@ -262,6 +294,26 @@ def stage_plain(xg: torch.Tensor, q, window: int, stage: int,
     raise ValueError(f"stage must be 0, 1 or 2, got {stage}")
 
 
+def slide_counts(xg: torch.Tensor, window: int) -> torch.Tensor:
+    """The valid values entering and leaving the windows at the kernel's
+    slides, as an int64 pair on xg's device: at each doy g of a chunk
+    (:func:`doy_chunks`) but its first, slice g + half enters and slice
+    g - 1 - half leaves every cell's window; a chunk start sorts its
+    window whole, and window 1 sorts every doy's, so neither counts."""
+    n_doy, Y, C = xg.shape
+    nchunk = doy_chunks(n_doy, C, window, Y)
+    g = torch.arange(n_doy, device=xg.device)
+    # doy g lies in chunk j where j * n_doy // nchunk <= g
+    chunk = ((g + 1) * nchunk - 1) // n_doy
+    slide = torch.zeros(n_doy, dtype=torch.int64, device=xg.device)
+    if window > 1:
+        slide[1:] = chunk[1:] == chunk[:-1]
+    half = window // 2
+    per = (~torch.isnan(xg)).sum(dim=(1, 2))          # valid values a doy
+    return torch.stack([(per[(g + half) % n_doy] * slide).sum(),
+                        (per[(g - 1 - half) % n_doy] * slide).sum()])
+
+
 def doy_window_quantiles_plain(xg: torch.Tensor, q, window: int,
                                alpha: float = 1.0,
                                beta: float = 1.0) -> torch.Tensor:
@@ -270,9 +322,13 @@ def doy_window_quantiles_plain(xg: torch.Tensor, q, window: int,
     The windowed gather holds every sample ``window`` times (22 GB at 30
     years x 16384 cells), so cells go through in slabs whose gathered block
     stays under ~1 GB; the sort underneath allocates a few times that.
+    While tracing, counts ``winquantile_inserted`` and
+    ``winquantile_removed`` as the kernel does (:func:`slide_counts`).
     """
     _check(xg, window)
     n_doy, Y, C = xg.shape
+    if profiling.active():
+        count(COUNTERS[-2:], slide_counts(xg, window))
     rows = _window_rows(n_doy, window, xg.device).reshape(-1)
     qv = torch.as_tensor(q, dtype=torch.float32, device=xg.device)
     out = torch.empty((n_doy, len(qv), C), dtype=torch.float32,

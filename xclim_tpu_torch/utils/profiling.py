@@ -30,10 +30,23 @@ Counters. Beside ``host_syncs``, the program counts with :func:`count`,
 under any name, how it took a path that depends on its input (the
 callers name their own counters; ``betainc_terms``, for one, is one a
 kernel launch on the card and one a step of the CPU twin's continued
-fraction; ``indicator_calls`` is one an ``Indicator.__call__``). Each count goes to the block's total
-and to the innermost open span's record, as a sync does, and is an empty
-``xtt:<name>`` range on a profiler's clock, so that a trace holds it too.
-A counter never counted reads 0.
+fraction; ``indicator_calls`` is one an ``Indicator.__call__``). A count
+adds an amount: 1, any int, or a tensor of int64 counts that a kernel
+wrote on the device (one a name), kept as it is and summed into plain ints
+once, when the :func:`tracing` block exits: after the sync debug mode is
+restored, so that reading it is no ``host_sync`` of the block. Each count
+goes to the block's total and to the innermost open span's record, as a
+sync does, and is one empty ``xtt:<name>`` range a call (of the first
+name where it counts several) on a profiler's clock, so that a trace
+holds it too. A counter never counted reads 0.
+
+Kernels that count. While a block is tracing (:func:`active`), the kernels
+with a counting build (``ops/_build.py`` ``COUNTING``: winquantile and
+betainc, compiled again with ``-DXTT_COUNT``) launch it instead of the
+shipped build, with a zeroed int64 buffer that they fill and hand to
+:func:`count`. On entering the outermost block on a machine with CUDA,
+the counting builds of the kernels the process has loaded are built and
+bound, so that no call inside the block pays for nvcc.
 
 Operator use::
 
@@ -43,6 +56,7 @@ Operator use::
     with tracing() as tr:                # the records in memory
         atmos.tx90p(tasmax, tasmax_per=per, bootstrap=True)
     tr.spans, tr.counters["host_syncs"], tr.counters["bootstrap_sliced"]
+    last_trace().counters                # the counters of the block just run
 
     with timed("tx90p", sync=lambda: out) as t:   # prints the seconds
         out = atmos.tx90p(tasmax, tasmax_per=per)
@@ -60,7 +74,8 @@ import tempfile
 import time
 import warnings
 
-__all__ = ["Trace", "count", "profile", "span", "timed", "tracing"]
+__all__ = ["Trace", "active", "count", "last_trace", "profile", "span",
+           "timed", "tracing"]
 
 #: what a range of the program's spans is named by in a profiler trace
 PREFIX = "xtt:"
@@ -69,6 +84,8 @@ SYNC_WARNING = "called a synchronizing CUDA operation"
 
 #: the Trace collecting while :func:`tracing` is on, else None
 _trace = None
+#: the Trace of the last :func:`tracing` block that exited
+_last = None
 #: a name's shared no-op span (built on the name's first use)
 _off: dict = {}
 
@@ -81,18 +98,48 @@ class Trace:
     by the spans of one public call), "start_ns", "end_ns", "host_syncs",
     and each counter counted while it was the innermost span}.
     ``counters``: each counter over the block, inside a span or not. Both
-    read 0 for a counter never counted.
+    read 0 for a counter never counted. Amounts given as tensors are in
+    both once the block has exited.
     """
 
     def __init__(self):
         self.spans: list[dict] = []
         self.counters = _counts()
         self._open: list[dict] = []
+        #: (names, device tensor, innermost span's record or None)
+        self._pending: list[tuple] = []
 
-    def _count(self, name: str) -> None:
-        self.counters[name] += 1
+    def _count(self, name: str, amount: int = 1) -> None:
+        self.counters[name] += amount
         if self._open:
-            self._open[-1][name] += 1
+            self._open[-1][name] += amount
+
+    def _defer(self, names: tuple, amount) -> None:
+        rec = self._open[-1] if self._open else None
+        for name in names:
+            self.counters[name] += 0
+            if rec is not None:
+                rec[name] += 0
+        self._pending.append((names, amount, rec))
+
+    def _resolve(self) -> None:
+        """Adds the tensor amounts as ints: one copy to the host a device."""
+        import torch
+
+        by_device: dict = {}
+        for entry in self._pending:
+            by_device.setdefault(entry[1].device, []).append(entry)
+        self._pending = []
+        for entries in by_device.values():
+            flat = torch.cat([a.reshape(-1, len(names)).sum(0, dtype=torch.int64)
+                              for names, a, _ in entries]).tolist()
+            i = 0
+            for names, _, rec in entries:
+                for name in names:
+                    self.counters[name] += flat[i]
+                    if rec is not None:
+                        rec[name] += flat[i]
+                    i += 1
 
 
 def _counts(**fields) -> collections.defaultdict:
@@ -169,27 +216,55 @@ def span(name: str):
     return _Span(_trace, name)
 
 
-def count(name: str) -> None:
-    """Add one to the program's counter ``name`` (any name)
-    inside :func:`tracing`: to the block's total and to the innermost open
-    span's record, and as an empty ``xtt:<name>`` range to a profiler
-    running then. Does nothing outside :func:`tracing`."""
+def count(name, amount=1) -> None:
+    """Add ``amount`` to the program's counter ``name`` (any name) inside
+    :func:`tracing`: to the block's total and to the innermost open span's
+    record, and as an empty ``xtt:<name>`` range to a profiler running
+    then. ``amount``: an int, or a tensor of int64 counts on any device,
+    read when the block exits (no sync here); with a tuple of names, a
+    tensor of one count a name, in their order, or of rows of them (k x
+    len(names), summed when read), and one range, named by the first (a
+    range costs the host microseconds while a profiler runs). Does
+    nothing outside :func:`tracing`."""
     if _trace is None:
         return
     import torch
 
-    _trace._count(name)
-    with torch.profiler.record_function(PREFIX + name):
+    names = (name,) if isinstance(name, str) else tuple(name)
+    given = (amount.shape[-1] if isinstance(amount, torch.Tensor)
+             and amount.ndim else 1)
+    if given != len(names):
+        raise ValueError(f"{given} counts for {len(names)} names")
+    if isinstance(amount, torch.Tensor):
+        _trace._defer(names, amount)
+    else:
+        _trace._count(names[0], int(amount))
+    with torch.profiler.record_function(PREFIX + names[0]):
         pass
+
+
+def active() -> bool:
+    """Whether a :func:`tracing` block is collecting (the kernels that count
+    launch their counting build then)."""
+    return _trace is not None
+
+
+def last_trace() -> Trace | None:
+    """The :class:`Trace` of the last :func:`tracing` block that exited,
+    its tensor amounts added (None before the first)."""
+    return _last
 
 
 @contextlib.contextmanager
 def tracing():
-    """Collect the program's spans and host syncs for the block; yields the
-    :class:`Trace` (in memory; nothing is written). Inside a block already
-    tracing, yields that block's Trace. On exit the sync debug mode and the
-    warning filters are as before."""
-    global _trace
+    """Collect the program's spans, host syncs and counters for the block;
+    yields the :class:`Trace` (in memory; nothing is written). Inside a
+    block already tracing, yields that block's Trace. With CUDA, first
+    builds and binds the counting builds of the kernels loaded so far. On
+    exit the sync debug mode and the warning filters are as before; then
+    the counts given as tensors are read, and the Trace becomes
+    :func:`last_trace`."""
+    global _trace, _last
     if _trace is not None:
         yield _trace
         return
@@ -197,6 +272,10 @@ def tracing():
 
     trace = Trace()
     cuda = torch.cuda.is_available()
+    if cuda:
+        from xclim_tpu_torch.ops import _build
+
+        _build.prepare_counting()
     with warnings.catch_warnings():
         warnings.filterwarnings("always", message=SYNC_WARNING)
         shown = warnings.showwarning
@@ -219,13 +298,16 @@ def tracing():
             _trace = None
             if cuda:
                 torch.cuda.set_sync_debug_mode(mode)
+    trace._resolve()
+    _last = trace
 
 
 @contextlib.contextmanager
 def profile(logdir: str | None = None):
     """Capture a ``torch.profiler`` trace of the enclosed block (the host,
     and the card's kernels where CUDA is available), with the program's
-    spans on as ``xtt:`` ranges, and write it as a Chrome trace
+    spans on as ``xtt:`` ranges (and so the kernels' counting builds
+    launched), and write it as a Chrome trace
     ``trace-<ns>.json`` under `logdir` (default: ``xclim_tpu_torch_trace``
     in the temporary directory). Yields `logdir`."""
     import torch
