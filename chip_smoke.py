@@ -32,7 +32,8 @@ shapes are the card tests', ``tests/test_torch_kernels_cuda.py``):
    (64 x 64 cells, 30 noleap years from 1981-01-01, an AR(1) tasmax):
    ``percentile_doy(tasmax, 5, 90)``, ``atmos.tx90p(..., bootstrap=True)``
    and ``atmos.warm_spell_duration_index(..., bootstrap=True)``, checks
-   their launch counts and values, times them, and holds segred (tx90p's
+   their launch counts and values, times them, and holds doyquantile
+   (percentile_doy's quantiles, value for value), segred (tx90p's
    exceedance sums, plain and 29 replacements x 4096 cells), spells
    (WSDI's condition, 29 replacements x 4096 cells) and the bootstrap
    kernel (one in-base year's 29 replaced-year thresholds at 365 doys x
@@ -1206,14 +1207,16 @@ def phase_percentiles(device, card, record):
     c_ws = _counts()
     zero = {k: 0 for k in c_per}
     boot = dict(bootstrap=PCT_YEARS, bootstrap_shared=PCT_YEARS)
+    want_per = dict(zero, doyquantile=1)
     want_tx = dict(zero, segred=PCT_YEARS + 2, **boot)
     want_ws = dict(zero, segred=1, spells=PCT_YEARS + 1, **boot)
     _log(f"[percentiles] launch counts at {cells} cells x {PCT_YEARS} y: "
          f"percentile_doy {json.dumps(c_per)}; tx90p+bootstrap "
          f"{json.dumps(c_tx)}; WSDI+bootstrap {json.dumps(c_ws)}")
-    if c_per != zero or c_tx != want_tx or c_ws != want_ws:
+    if c_per != want_per or c_tx != want_tx or c_ws != want_ws:
         raise AssertionError(f"the percentile slice missed its kernels: "
-                             f"expected {want_tx} and {want_ws}")
+                             f"expected {want_per}, {want_tx} and {want_ws}")
+    record["doyquantile"]["launches"] = c_per["doyquantile"]
     record["spells"]["launches"] = c_ws["spells"]
     record["segred"]["launches"] = c_tx["segred"]
     record["bootstrap"]["launches"] = c_tx["bootstrap"]
@@ -1311,7 +1314,54 @@ def phase_percentiles(device, card, record):
          f"bound_ms={record['spells']['bound_ms']:.4f}")
     del got, cond, args, kwargs
     _bootstrap_at_the_cell(tasmax, per, card, record)
+    _doyquantile_at_the_cell(tasmax, card, record)
     return tasmax
+
+
+def _doyquantile_at_the_cell(tasmax, card, record):
+    """The doyquantile kernel against its twin at percentile_doy's own
+    call (the (T, 4096) series, its (365, 150) table, q 0.9, type 8), value
+    for value; the twin (the gather and the sort) on the same card. Times:
+    the kernel and the twin by CUDA events."""
+    import torch
+
+    from perfbench import roofline
+    from xclim_tpu_torch.core.percentiles import percentile_doy
+    from xclim_tpu_torch.ops import doyquantile
+
+    (args, kwargs), = _capture(
+        doyquantile, "doy_quantile", 1,
+        lambda: percentile_doy(tasmax, window=5, per=90))
+    series, table = args[:2]
+
+    def kernel():
+        return doyquantile.doy_quantile(*args, **kwargs)
+
+    def twin():
+        return doyquantile.doy_quantile_plain(*args[:5])
+
+    before = doyquantile.launches
+    got = kernel()
+    torch.cuda.synchronize()
+    if doyquantile.launches != before + 1:
+        raise AssertionError("percentile_doy's quantile missed its kernel")
+    ref = twin()
+    err = _compare(f"doyquantile {tuple(got.shape)} at percentile_doy's "
+                   f"series", got, ref, rtol=0.0, atol=0.0)
+    del ref
+    ms = _cuda_ms(kernel, 20)
+    pms = _cuda_ms(twin, 2)
+    # bytes: the series and the table read once, the thresholds written
+    # once; operations: the interpolation's few a threshold
+    bound = roofline.bound(roofline.tensor_bytes(series, table, got),
+                           4 * got.numel())
+    record["doyquantile"].update(
+        max_abs_err=max(record["doyquantile"]["max_abs_err"], err), ms=ms,
+        plain_ms=pms, **bound)
+    _log(f"[kernel vs twin] doyquantile {tuple(series.shape)} through the "
+         f"{tuple(table.shape)} table (percentile_doy's call) on {card}: "
+         f"max_abs_err={err} kernel_ms={ms:.4f} twin_ms={pms:.4f} "
+         f"bound_ms={bound['bound_ms']:.4f} ({bound['bound_by']})")
 
 
 def _bootstrap_at_the_cell(tasmax, per, card, record):
@@ -1406,7 +1456,8 @@ def phase_percentiles_cpu_vs_card(tasmax):
             or d["segred_twin"] != PCT_YEARS + 3
             or d["segred"] != PCT_YEARS + 3
             or d["bootstrap_twin"] != 2 * PCT_YEARS
-            or d["bootstrap"] != 2 * PCT_YEARS):
+            or d["bootstrap"] != 2 * PCT_YEARS
+            or d["doyquantile_twin"] != 1 or d["doyquantile"] != 1):
         raise AssertionError(f"CPU run must use the twins, the card the "
                              f"kernels: {d}")
     errs = [_compare(f"{name} cpu vs card", g.data, c.data, atol=0.0)

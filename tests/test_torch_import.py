@@ -107,7 +107,7 @@ def test_kernels_are_cuda_sources_for_sm90a(name):
     """Each source under csrc/ is a CUDA kernel with a C entry of its name,
     and its note names the reference it replaces: a Pallas kernel of the
     same name, or, with no Pallas kernel, the reference's plain-jnp module
-    (the op of the same name, or the sdba or ensembles module of the
+    (the op of the same name, or the sdba, ensembles or core module of the
     function) and the port's twin."""
     src = PKG / "csrc" / f"{name}.cu"
     text = src.read_text()
@@ -115,11 +115,13 @@ def test_kernels_are_cuda_sources_for_sm90a(name):
     assert "__global__" in text
     assert f'extern "C" int xtt_{name}' in text
     note = text[text.index("// Replaces: "):].split("\n//\n")[0]
-    refs = re.findall(r"xclim_tpu/(?:ops|sdba|ensembles)/[\w/]+\.py", note)
+    refs = re.findall(r"xclim_tpu/(?:ops|sdba|ensembles|core)/[\w/]+\.py",
+                      note)
     assert refs and all((PKG.parent / r).exists() for r in refs), note
     if note.startswith("// Replaces: no Pallas kernel"):
         assert refs[0] == f"xclim_tpu/ops/{name}.py" \
-            or refs[0].startswith(("xclim_tpu/sdba/", "xclim_tpu/ensembles/"))
+            or refs[0].startswith(("xclim_tpu/sdba/", "xclim_tpu/ensembles/",
+                                   "xclim_tpu/core/"))
         assert f"xclim_tpu_torch/ops/{name}.py" in note
         assert re.search(r"\w+_plain\b", note)
     else:

@@ -14,12 +14,13 @@ from xclim_tpu_torch.ops import (
     axisquantile,
     betainc,
     bootstrap,
+    doyquantile,
     qdmadjust,
     segred,
     spells,
     winquantile,
 )
-from xclim_tpu_torch.ops.quantile import nan_quantile
+from xclim_tpu_torch.ops.quantile import nan_quantile, nan_quantile_plain
 from xclim_tpu_torch.sdba.utils import equally_spaced_nodes
 from xclim_tpu_torch.testing import check_chill_portions
 
@@ -1689,3 +1690,223 @@ def test_robustness_tests_launch_betainc_once_with_no_host_sync(
     (args,) = seen
     assert not torch.isnan(got).all()
     _betainc_close(got, betainc.betainc_plain(*args), *args[:3])
+
+
+# ----------------------------------------------------------- doyquantile
+
+DOY_Q = [0.0, 0.1, 0.5, 0.9, 1.0]
+NDOY = {"noleap": 365, "360_day": 360, "standard": 366}
+
+
+def _doy_series(cuda, cal, years, cells, seed, start="1961-01-01",
+                nanfrac=0.05):
+    """(time, x): a (T, cells) float32 series on the card over ``years``
+    years of ``cal`` from ``start``, with NaN samples; cell 0 has no valid
+    sample, cell 1 one, cell 2 ties, cell 3 infinities."""
+    n = {"noleap": 365, "360_day": 360, "standard": 365}[cal] * years
+    time = date_range(start, periods=n, calendar=cal)
+    rng = np.random.default_rng(seed)
+    x = rng.normal(285.0, 8.0, (n, cells)).astype(np.float32)
+    x[rng.random(x.shape) < nanfrac] = np.nan
+    x[:, 0] = np.nan
+    x[:, 1] = np.nan
+    x[n // 2, 1] = 290.0
+    x[:, 2] = np.round(x[:, 2])
+    x[::13, 3] = np.inf
+    x[::17, 3] = -np.inf
+    return time, torch.as_tensor(x, device=cuda)
+
+
+def _doy_check(x, table, q, alpha, beta, window):
+    """One launch of the kernel against the gather and the sort quantile on
+    the card, value for value."""
+    t = torch.as_tensor(table, device=x.device)
+    counts = (doyquantile.launches, doyquantile.twin_calls)
+    got = doyquantile.doy_quantile(x, t, q, alpha, beta, window=window,
+                                   slides=doyquantile.slide_flags(table,
+                                                                  window))
+    assert (doyquantile.launches, doyquantile.twin_calls) == (counts[0] + 1,
+                                                              counts[1])
+    exp = nan_quantile_plain(doyquantile.gather_samples(x, t), q, 1, alpha,
+                             beta)
+    _value_equal(got, exp)
+    return got
+
+
+@pytest.mark.parametrize("alpha,beta", [(1 / 3, 1 / 3), (1.0, 1.0)])
+@pytest.mark.parametrize("window", [1, 3, 5, 31])
+@pytest.mark.parametrize("cal", ["noleap", "360_day", "standard"])
+def test_doyquantile_kernel_matches_twin(cuda, cal, window, alpha, beta):
+    """Calendars (standard with its doy 366 row, which is no slide of 365),
+    windows, quantiles 0 to 1, NaN samples, rows with 0 and 1 valid
+    samples and the series' edges (a start in March: table -1 before
+    it)."""
+    from xclim_tpu_torch.core.calendar import percentile_doy_table
+
+    time, x = _doy_series(cuda, cal, 6, 100, seed=window + len(cal),
+                          start="1961-03-15")
+    table, _ = percentile_doy_table(time, window=window)
+    assert (table == -1).any()
+    got = _doy_check(x, table, DOY_Q, alpha, beta, window)
+    assert torch.isnan(got[:, :, 0]).all()
+    assert not torch.isnan(got[:, :, 4:]).all()
+
+
+@pytest.mark.parametrize("years,window,cells", [
+    (40, 5, 70), (70, 1, 33), (33, 3, 5), (2, 5, 1)])
+def test_doyquantile_kernel_year_batches_and_ragged_cells(cuda, years, window,
+                                                          cells):
+    """More than 32 years (the kernel loads 32 years' samples at a time),
+    cell counts off a block's 32, and one cell."""
+    from xclim_tpu_torch.core.calendar import percentile_doy_table
+
+    time, x = _doy_series(cuda, "noleap", years, max(cells, 4), seed=years)
+    x = x[:, :cells]
+    table, _ = percentile_doy_table(time, window=window)
+    _doy_check(x, table, [0.9, 0.1], 1 / 3, 1 / 3, window)
+
+
+@pytest.mark.parametrize("how", ["no_slides", "window_1", "doys_1",
+                                 "doys_all"])
+def test_doyquantile_kernel_slide_plans(cuda, monkeypatch, how):
+    """Values do not depend on what the kernel loads anew: every doy
+    loaded from nothing, every doy a slide of all its samples (window 1 on
+    a window-5 table), one doy a block, all doys in one block."""
+    from xclim_tpu_torch.core.calendar import percentile_doy_table
+
+    time, x = _doy_series(cuda, "noleap", 5, 40, seed=3)
+    table, _ = percentile_doy_table(time, window=5)
+    t = torch.as_tensor(table, device=cuda)
+    window, slides = 5, doyquantile.slide_flags(table, 5)
+    if how == "no_slides":
+        slides = np.zeros_like(slides)
+    elif how == "window_1":
+        window, slides = 1, doyquantile.slide_flags(table, 1)
+    else:
+        monkeypatch.setattr(doyquantile, "DOYS", 1 if how == "doys_1" else 365)
+    got = doyquantile.doy_quantile(x, t, DOY_Q, 1 / 3, 1 / 3, window=window,
+                                   slides=slides)
+    exp = nan_quantile_plain(doyquantile.gather_samples(x, t), DOY_Q, 1,
+                             1 / 3, 1 / 3)
+    _value_equal(got, exp)
+
+
+@pytest.mark.parametrize("window", [1, 5, 31])
+def test_doyquantile_kernel_adversarial_series(cuda, window):
+    """Series that move a threshold's rank far from one doy to the next
+    (a trend, a seasonal step, a fast swing), heavy ties, one value, long
+    missing stretches, sparse samples, infinities only, signed zeros."""
+    from xclim_tpu_torch.core.calendar import percentile_doy_table
+
+    rng = np.random.default_rng(5)
+    n = 365 * 8
+    time = date_range("2000-01-01", periods=n, calendar="noleap")
+    x = rng.normal(0.0, 1.0, (n, 40)).astype(np.float32)
+    x[:, 0] = np.linspace(-1000.0, 1000.0, n)
+    x[:, 1] = np.where(np.arange(n) % 365 < 180, -50.0, 50.0)
+    x[:, 2] = np.round(x[:, 2] * 2.0)
+    x[:, 3] = 7.0
+    x[:1000, 4] = np.nan
+    x[:, 5] = np.nan
+    x[::97, 5] = 1.0
+    x[:, 6] = np.where(rng.random(n) < 0.5, np.inf, -np.inf)
+    x[:, 7] = np.sin(np.arange(n) / 58.0) * 100.0
+    x[:, 8] = -0.0
+    x[::3, 8] = 0.0
+    x[rng.random(x.shape) < 0.02] = np.nan
+    table, _ = percentile_doy_table(time, window=window)
+    xt = torch.as_tensor(x, device=cuda)
+    _doy_check(xt, table, [0.0, 0.01, 0.5, 0.9, 0.99, 1.0], 1 / 3, 1 / 3,
+               window)
+    _doy_check(xt, table, [0.25, 0.75], 1.0, 1.0, window)
+
+
+def test_doyquantile_kernel_at_tx90p_shape(cuda):
+    """tx90p's own call: (10950, 8192) float32, window 5, q 0.9, type 8."""
+    from xclim_tpu_torch.core.calendar import percentile_doy_table
+
+    time, x = _doy_series(cuda, "noleap", 30, 8192, seed=90, nanfrac=0.01)
+    table, _ = percentile_doy_table(time, window=5)
+    assert table.shape == (365, 150)
+    _doy_check(x, table, [0.9], 1 / 3, 1 / 3, 5)
+
+
+@pytest.mark.parametrize("cal", ["noleap", "360_day", "standard"])
+def test_percentile_doy_on_the_card_launches_once(cuda, monkeypatch, cal):
+    """percentile_doy on a card series: one kernel launch, no sample
+    gather, and the sort path's values (the standard calendar through the
+    366 interpolation)."""
+    from xclim_tpu_torch.core.dataarray import ClimArray
+    from xclim_tpu_torch.core.percentiles import percentile_doy
+    from xclim_tpu_torch.utils.profiling import tracing
+
+    n = {"noleap": 365 * 5, "360_day": 360 * 5, "standard": 365 * 5 + 1}[cal]
+    time = date_range("2000-01-01", periods=n, calendar=cal)
+    rng = np.random.default_rng(7)
+    x = rng.normal(285.0, 8.0, (n, 3, 11)).astype(np.float32)
+    x[rng.random(x.shape) < 0.05] = np.nan
+    arr = ClimArray(torch.as_tensor(x, device=cuda), ("time", "lat", "lon"),
+                    {"time": time}, {"units": "K"}, "tas")
+    counts = (doyquantile.launches, doyquantile.twin_calls)
+    with tracing() as tr:
+        got = percentile_doy(arr, window=5, per=[10, 90])
+    assert (doyquantile.launches, doyquantile.twin_calls) == (counts[0] + 1,
+                                                              counts[1])
+    assert tr.counters["doyquantile_launches"] == 1
+    names = [s["name"] for s in tr.spans]
+    assert "percentiles.gather" not in names and "op.quantile" not in names
+    # the sort path on the card: the twin with the sort quantile
+    from xclim_tpu_torch.core import percentiles
+
+    monkeypatch.setattr(doyquantile, "kernel_takes", lambda n: False)
+    monkeypatch.setattr(percentiles, "nan_quantile", nan_quantile_plain)
+    exp = percentile_doy(arr, window=5, per=[10, 90])
+    assert doyquantile.launches == counts[0] + 1
+    assert got.shape == exp.shape == (NDOY[cal], 3, 11, 2)
+    _value_equal(got.data, exp.data)
+
+
+def test_doyquantile_past_the_kernel_takes_the_old_path(cuda):
+    """A table row past the kernel's shared memory (60 years x 31 days)
+    takes the gather and the sort: no launch, no twin count (the card)."""
+    from xclim_tpu_torch.core.calendar import percentile_doy_table
+
+    time, x = _doy_series(cuda, "noleap", 60, 4, seed=60)
+    table, _ = percentile_doy_table(time, window=31)
+    assert not doyquantile.kernel_takes(table.shape[1])
+    t = torch.as_tensor(table, device=cuda)
+    counts = (doyquantile.launches, doyquantile.twin_calls)
+    got = doyquantile.doy_quantile(x, t, [0.9], 1 / 3, 1 / 3, window=31)
+    assert (doyquantile.launches, doyquantile.twin_calls) == counts
+    exp = nan_quantile_plain(doyquantile.gather_samples(x, t), [0.9], 1,
+                             1 / 3, 1 / 3)
+    _value_equal(got, exp)
+
+
+def test_doyquantile_float64_takes_the_old_path(cuda):
+    from xclim_tpu_torch.core.calendar import percentile_doy_table
+
+    time, x = _doy_series(cuda, "noleap", 4, 8, seed=4)
+    table, _ = percentile_doy_table(time, window=5)
+    t = torch.as_tensor(table, device=cuda)
+    counts = (doyquantile.launches, doyquantile.twin_calls)
+    got = doyquantile.doy_quantile(x.double(), t, [0.9], 1 / 3, 1 / 3,
+                                   window=5)
+    assert (doyquantile.launches, doyquantile.twin_calls) == counts
+    assert got.dtype == torch.float64
+    exp = nan_quantile_plain(doyquantile.gather_samples(x.double(), t),
+                             [0.9], 1, 1 / 3, 1 / 3)
+    _value_equal(got, exp)
+
+
+def test_doyquantile_slides_from_the_table_when_not_given(cuda):
+    """Without ``slides`` the op takes them from the table itself."""
+    from xclim_tpu_torch.core.calendar import percentile_doy_table
+
+    time, x = _doy_series(cuda, "360_day", 4, 40, seed=8)
+    table, _ = percentile_doy_table(time, window=5)
+    t = torch.as_tensor(table, device=cuda)
+    got = doyquantile.doy_quantile(x, t, DOY_Q, 1.0, 1.0, window=5)
+    exp = nan_quantile_plain(doyquantile.gather_samples(x, t), DOY_Q, 1, 1.0,
+                             1.0)
+    _value_equal(got, exp)

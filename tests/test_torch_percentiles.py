@@ -232,3 +232,163 @@ def jcalendar_bounds(b):
     from xclim_tpu.core.percentiles import build_climatology_bounds as jbcb
 
     return jbcb(b)
+
+
+# --------------------------------------------- the doy quantile op's dispatch
+
+
+@pytest.mark.parametrize("device,dtype,n,kernel", [
+    ("cuda", torch.float32, 150, True),
+    ("cuda", torch.float32, 1816, True),
+    ("cuda", torch.float32, 1817, False),
+    ("cuda", torch.float32, 0, False),
+    ("cuda", torch.float64, 150, False),
+    ("cpu", torch.float32, 150, False),
+])
+def test_doy_quantile_dispatch(device, dtype, n, kernel):
+    """The card's kernel for a CUDA float32 series whose rows fit its
+    shared memory (1816 samples: 32 threads x 4 bytes each); the old path
+    for the CPU, float64 and longer rows."""
+    from types import SimpleNamespace
+
+    from xclim_tpu_torch.ops import doyquantile
+
+    series = SimpleNamespace(device=torch.device(device), dtype=dtype)
+    assert doyquantile.on_kernel(series, n) is kernel
+    assert doyquantile.kernel_takes(n) is (0 < n <= 1816)
+
+
+@pytest.mark.parametrize("window,per", [(1, [10, 90]), (5, 90), (31, 50)])
+@pytest.mark.parametrize("cal", ["noleap", "360_day", "standard"])
+def test_percentile_doy_cpu_takes_the_old_path(cal, window, per):
+    """On CPU tensors percentile_doy runs the twin, counted in twin_calls:
+    the gather and nan_quantile, value for value as before."""
+    from xclim_tpu_torch.core.percentiles import doy_quantile_gather
+    from xclim_tpu_torch.ops import doyquantile
+    from xclim_tpu_torch.ops.quantile import nan_quantile
+
+    a, _ = _pair(cal, seed=window + 40)
+    counts = (doyquantile.launches, doyquantile.twin_calls)
+    got = percentile_doy(a, window=window, per=per)
+    assert (doyquantile.launches, doyquantile.twin_calls) == (counts[0],
+                                                              counts[1] + 1)
+    sub = a.sel_time(mask=a.time.doy < 366) if cal == "standard" else a
+    g, doys, _ = doy_quantile_gather(sub, window)
+    q = np.atleast_1d(np.asarray(per, dtype=np.float32)) / 100.0
+    exp = nan_quantile(g, q, axis=1, alpha=1 / 3, beta=1 / 3).movedim(0, -1)
+    if cal == "standard":
+        exp = _interp_doy_axis(exp, len(doys), 366)
+    assert got.data.shape == exp.shape
+    np.testing.assert_array_equal(got.data.numpy(), exp.numpy())
+
+
+def test_doy_quantile_on_the_cpu_ignores_the_slide_plan():
+    """window and slides only steer the kernel: the CPU twin's values do not
+    depend on them."""
+    from xclim_tpu_torch.ops import doyquantile
+
+    a, _ = _pair("noleap", seed=3)
+    table, _ = calendar.percentile_doy_table(a.time, 5)
+    x = a.data.movedim(a.time_axis, 0)
+    t = torch.as_tensor(table)
+    ref = doyquantile.doy_quantile_plain(x, t, [0.1, 0.9], 1 / 3, 1 / 3)
+    for window, slides in ((1, None), (5, doyquantile.slide_flags(table, 5)),
+                           (5, np.zeros(len(table), dtype=bool))):
+        got = doyquantile.doy_quantile(x, t, [0.1, 0.9], 1 / 3, 1 / 3,
+                                       window=window, slides=slides)
+        assert got.shape == (2, 365, 3, 4)
+        np.testing.assert_array_equal(got.numpy(), ref.numpy())
+
+
+def test_doy_quantile_rejects_a_float_table():
+    from xclim_tpu_torch.ops import doyquantile
+
+    with pytest.raises(TypeError, match="integer"):
+        doyquantile.doy_quantile(torch.zeros(10, 2), torch.zeros(3, 5), [0.5])
+
+
+def _slides(cal, window, start="2000-01-01", years=4, drop_366=False):
+    from xclim_tpu_torch.ops import doyquantile
+
+    n = {"noleap": 365, "360_day": 360, "standard": 365}[cal] * years + 1
+    t = calendar.date_range(start, periods=n, calendar=cal)
+    if drop_366:
+        t = t[t.doy < 366]
+    table, doys = calendar.percentile_doy_table(t, window)
+    return doyquantile.slide_flags(table, window), doys
+
+
+@pytest.mark.parametrize("window", [1, 5, 31])
+@pytest.mark.parametrize("cal", ["noleap", "360_day"])
+def test_slide_flags_on_a_regular_calendar(cal, window):
+    """Every doy after the first moves each year's window on by one day,
+    from a start in March too (the first year's early windows read -1)."""
+    for start in ("2000-01-01", "2000-03-15"):
+        flags, doys = _slides(cal, window, start)
+        assert len(flags) == len(doys) == NDAYS[cal]
+        assert not flags[0] and flags[1:].all()
+
+
+@pytest.mark.parametrize("window", [1, 5])
+def test_slide_flags_on_a_standard_table(window):
+    """The standard calendar: with its doy 366 row (a day of the leap years
+    only) that row is no slide of doy 365; as percentile_doy builds it
+    (doy 366 dropped) every later doy is one, the leap years' Dec 31 a -1
+    in their windows."""
+    flags, doys = _slides("standard", window)
+    assert doys[-1] == 366 and len(flags) == 366
+    assert list(np.flatnonzero(~flags)) == ([0] if window == 1 else [0, 365])
+    flags, doys = _slides("standard", window, drop_366=True)
+    assert doys[-1] == 365
+    assert not flags[0] and flags[1:].all()
+
+
+def test_slide_flags_refuse_what_is_no_slide():
+    """A row that is not the previous one moved on by a day is sorted anew;
+    a window that does not divide the row raises."""
+    from xclim_tpu_torch.ops import doyquantile
+
+    t = calendar.date_range("2000-01-01", periods=365 * 3, calendar="noleap")
+    table, _ = calendar.percentile_doy_table(t, 5)
+    table = table.copy()
+    table[100, 7] = table[100, 8]
+    flags = doyquantile.slide_flags(table, 5)
+    assert list(np.flatnonzero(~flags)) == [0, 100, 101]
+    with pytest.raises(ValueError, match="table"):
+        doyquantile.slide_flags(table, 4)
+
+
+def test_percentile_doy_builds_its_table_once_per_time_axis(monkeypatch):
+    """A second call over the same days reuses the table and its slide
+    flags; another axis or window builds its own, with the same values as
+    a fresh build."""
+    from xclim_tpu_torch.core import percentiles as P
+
+    built = []
+    real = P.percentile_doy_table
+
+    def counted(time, window=5):
+        built.append(window)
+        return real(time, window=window)
+
+    monkeypatch.setattr(P, "percentile_doy_table", counted)
+    monkeypatch.setattr(P, "_PLANS", {})
+    a, _ = _pair("noleap", seed=21)
+    first = percentile_doy(a, window=5, per=90)
+    again = percentile_doy(a.copy(), window=5, per=90)
+    assert built == [5]
+    np.testing.assert_array_equal(first.data.numpy(), again.data.numpy())
+    percentile_doy(a, window=3, per=90)
+    percentile_doy(a.isel(time=slice(1, None)), window=5, per=90)
+    assert built == [5, 3, 5]
+    table, doys, slides = P._doy_plan(a.time, 5)
+    exp_table, exp_doys = real(a.time, window=5)
+    np.testing.assert_array_equal(table, exp_table)
+    np.testing.assert_array_equal(doys, exp_doys)
+    from xclim_tpu_torch.ops import doyquantile
+
+    np.testing.assert_array_equal(slides,
+                                  doyquantile.slide_flags(exp_table, 5))
+    for k in range(P._PLANS_KEPT + 2):
+        P._doy_plan(a.isel(time=slice(k + 2, None)).time, 5)
+    assert len(P._PLANS) == P._PLANS_KEPT

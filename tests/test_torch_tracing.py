@@ -477,6 +477,24 @@ def test_indicator_and_bootstrap_sites():
     assert tr.counters["bootstrap_sliced"] == 2 * n_base
 
 
+def test_percentile_sites_and_the_doyquantile_counter():
+    """percentile_doy opens op.doyquantile inside percentiles.doy; on CPU
+    tensors the op runs its twin (the gather, then the sort quantile)
+    inside it and counts no launch."""
+    with tracing() as tr:
+        _etccdi(False)
+    rec = {s["id"]: s for s in tr.spans}
+    (doy,) = [s for s in tr.spans if s["name"] == "percentiles.doy"]
+    (op,) = [s for s in tr.spans if s["name"] == "op.doyquantile"]
+    assert op["parent"] == doy["id"]
+    for name in ("percentiles.gather", "op.quantile"):
+        (inner,) = [s for s in tr.spans if s["name"] == name]
+        assert inner["parent"] == op["id"]
+    assert tr.counters["doyquantile_launches"] == 0
+    assert all(s["doyquantile_launches"] == 0 for s in tr.spans)
+    assert rec[op["root"]]["name"] == "percentiles.doy"
+
+
 def test_sdba_sites():
     with tracing() as tr:
         _qdm()

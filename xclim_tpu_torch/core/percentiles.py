@@ -2,11 +2,13 @@
 src/xclim/core/calendar.py:396-497, and utils.calc_perc).
 
 The centred rolling window + year x doy unstack of the reference is ONE
-static gather table (built host-side by
-:func:`~xclim_tpu_torch.core.calendar.percentile_doy_table`); the device does
-a single gather and a batched Hyndman-Fan quantile over the sample axis. The
-same table reshaped to (doy, year, window) serves the bootstrap's year
-replacement.
+static table of time indices (built host-side by
+:func:`~xclim_tpu_torch.core.calendar.percentile_doy_table`); the
+Hyndman-Fan quantiles of each row's samples are
+:func:`~xclim_tpu_torch.ops.doyquantile.doy_quantile`'s: one kernel launch
+reading the series in place on the card, the gather and the sort quantile
+elsewhere. The same table reshaped to (doy, year, window) serves the
+bootstrap's year replacement.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from xclim_tpu_torch.core.calendar import max_doy, percentile_doy_table
 from xclim_tpu_torch.core.dataarray import ClimArray
+from xclim_tpu_torch.ops import _build, doyquantile
 from xclim_tpu_torch.ops.quantile import nan_quantile
 from xclim_tpu_torch.utils.profiling import span
 
@@ -41,13 +44,33 @@ def doy_quantile_gather(da: ClimArray, window: int):
 
     Returns (samples, doys, table); samples are NaN at missing positions.
     """
-    with span("percentiles.gather"):
-        table, doys = percentile_doy_table(da.time, window=window)
-        xf = da.data.movedim(da.time_axis, 0)
-        t = torch.as_tensor(table, dtype=torch.int64, device=xf.device)
-        g = xf[t.clamp(min=0)]  # (n_doy, nyears*window, ...)
-        ok = (t >= 0).reshape(t.shape + (1,) * (g.ndim - 2))
-        return torch.where(ok, g, torch.nan), doys, table
+    table, doys = percentile_doy_table(da.time, window=window)
+    xf = da.data.movedim(da.time_axis, 0)
+    t = torch.as_tensor(table, dtype=torch.int64, device=xf.device)
+    return doyquantile.gather_samples(xf, t), doys, table
+
+
+#: (calendar, window, the axis' days) -> percentile_doy_table's (table,
+#: doys) and the table's slide flags; the few latest time axes
+_PLANS: dict = {}
+_PLANS_KEPT = 8
+
+
+def _doy_plan(time, window: int):
+    """``percentile_doy_table(time, window)`` and its
+    :func:`~xclim_tpu_torch.ops.doyquantile.slide_flags`, built once per time
+    axis and window: a call over the same base period reuses them (the
+    table depends on the axis' days and calendar alone). The arrays are
+    shared: read them, do not write them."""
+    key = (time.calendar, window, time.ordinal.tobytes())
+    plan = _PLANS.get(key)
+    if plan is None:
+        table, doys = percentile_doy_table(time, window=window)
+        plan = (table, doys, doyquantile.slide_flags(table, window))
+        if len(_PLANS) >= _PLANS_KEPT:
+            del _PLANS[next(iter(_PLANS))]
+        _PLANS[key] = plan
+    return plan
 
 
 def percentile_doy(arr: ClimArray, window: int = 5, per=10.0,
@@ -69,8 +92,14 @@ def percentile_doy(arr: ClimArray, window: int = 5, per=10.0,
         # xclim:core/calendar.py:489-491)
         sub = arr.sel_time(mask=arr.time.doy < 366) if present_366 else arr
 
-        g, doys, _ = doy_quantile_gather(sub, window)
-        p = nan_quantile(g, per_arr / 100.0, axis=1, alpha=alpha, beta=beta)
+        table, doys, slides = _doy_plan(sub.time, window)
+        xf = sub.data.movedim(sub.time_axis, 0)
+        # the table reaches the device once per value set
+        t = _build.device_copy(table.tobytes(), torch.int32,
+                               xf.device).view(table.shape)
+        p = doyquantile.doy_quantile(xf, t, per_arr / 100.0, alpha, beta,
+                                     window=window, slides=slides,
+                                     quantile=nan_quantile)
         p = p.movedim(0, -1)  # (n_doy, ..., Q)
         if present_366:
             p = _interp_doy_axis(p, len(doys), mx)
